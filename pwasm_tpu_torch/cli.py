@@ -1,0 +1,450 @@
+"""pafreport-compatible command line front end of the port.
+
+Counterpart of ``pwasm_tpu/cli.py`` ``run``/``_main_loop``, reduced to
+the default product path: parse the PAF and extract the ``cs`` events
+on the host, analyze each report batch with the packed ctx_scan program
+on the run's device, merge the MSA progressively, then count and vote
+the consensus (the CUDA consensus kernel on ``--device=cuda``) and
+refine the clips on the device.  Outputs are byte-identical to the
+reference's.
+
+Usage:
+  python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
+      [-s <summary.txt>] [-o <diff_report.dfa>] [-w <outfile.mfa>]
+      [--ace=FILE] [--info=FILE] [--cons=FILE] [-G|-F] [-C|-N] [-D] [-v]
+      [-c <clipmax>] [--motifs=FILE] [--batch=N] [--remove-cons-gaps]
+      [--no-refine-clip] [--device=cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from pwasm_tpu_torch.core.config import (AUTO_FULLGENOME_FASTA_BYTES, Config,
+                                         load_motifs)
+from pwasm_tpu_torch.core.dna import revcomp
+from pwasm_tpu_torch.core.errors import EXIT_USAGE, PwasmError
+from pwasm_tpu_torch.core.events import extract_alignment
+from pwasm_tpu_torch.core.fasta import FastaFile
+from pwasm_tpu_torch.core.paf import _atoi, parse_paf_line
+from pwasm_tpu_torch.report.diff_report import Summary
+
+USAGE = """Usage:
+ pafreport <paf_with_cg_cs> -r <refseq.fa> [-s <summary.txt>]
+    [-o <diff_report.dfa>][-w <outfile.mfa>] [-G|-F] [-C|-N]
+    [--device=cuda|cpu] [--batch=N] [--motifs=FILE]
+
+   <paf_with_cg_cs> is the input PAF file with high quality query sequence(s)
+      aligned to many target sequences using minimap2 --cs
+   -r provide the fasta file with query sequence(s) (required)
+   -o write difference data for each alignment into <diff_report.dfa>
+   -s write event summary counts into <summary.txt>
+   -w write MSA as multifasta into <outfile.mfa>
+   -G gene CDS analysis mode (default for query<100K; assumes -C)
+   -F full genome alignment mode (default for query>100Kb; assumes -N)
+   -C perform codon impact analysis
+   -N skip codon impact analysis
+   -c <clipmax> maximum clipping, in bases or as a percentage (N%)
+   -D debug output (MSA layout on stderr); -v verbose
+   --ace=FILE  write the refined MSA as an ACE contig (consensus calling)
+   --info=FILE write the refined MSA as a contig-info table (per-seq pid)
+   --cons=FILE write the consensus sequence as FASTA
+   --remove-cons-gaps  drop all-gap consensus columns during refinement
+   --no-refine-clip    skip the X-drop clipping refinement pass
+   --motifs=FILE  methylation-motif table, one motif per line
+   --batch=N   alignments per device report batch (default 256)
+   --device=cuda|cpu  where the device programs run (default cuda; the
+               CPU runs only when asked for)
+"""
+
+# reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
+# reference never reads (-d/-p/-m)
+_BOOL_FLAGS = set("DGFCNvh")
+_VALUE_FLAGS = set("rowcs")
+_LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch",
+               "remove-cons-gaps", "no-refine-clip", "device")
+
+# flags and subcommands of the reference that later slices of the port
+# bring (ROADMAP.md queues A and B)
+_LATER = {
+    "realign": "slice 2 (--realign and its CUDA kernels)",
+    "band": "slice 2 (--realign and its CUDA kernels)",
+    "many2many": "slice 3 (banded DP scoring and many-to-many)",
+    "shard": "the multi-GPU slice (--shard)",
+}
+_LATER_DEFAULT = ("a later slice (resilience, checkpoints and --stats; "
+                  "then service, stream, fleet, surveil and obs)")
+_SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
+                 "inspect", "top", "trace-merge", "route", "health",
+                 "logs")
+
+
+class CliError(PwasmError):
+    exit_code = EXIT_USAGE
+
+
+def _parse_args(argv: list[str]) -> tuple[dict, list[str]]:
+    """GArgs-style parser: single-letter flags (joined or separated values)
+    plus --long=value options."""
+    opts: dict[str, str | bool] = {}
+    positional: list[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("--"):
+            if "=" in a:
+                k, v = a[2:].split("=", 1)
+                opts[k] = v
+            else:
+                opts[a[2:]] = True
+        elif a.startswith("-") and len(a) > 1:
+            j = 1
+            while j < len(a):
+                ch = a[j]
+                if ch in _BOOL_FLAGS:
+                    opts[ch] = True
+                    j += 1
+                elif ch in _VALUE_FLAGS:
+                    if j + 1 < len(a):
+                        opts[ch] = a[j + 1:]
+                    else:
+                        i += 1
+                        if i >= len(argv):
+                            raise CliError(
+                                f"{USAGE}\nInvalid argument: -{ch}\n")
+                        opts[ch] = argv[i]
+                    j = len(a)
+                else:
+                    raise CliError(f"{USAGE}\nInvalid argument: {a}\n")
+        else:
+            positional.append(a)
+        i += 1
+    return opts, positional
+
+
+def _parse_clipmax(s: str, verbose: bool, stderr) -> float:
+    """-c parsing (pafreport.cpp:217-240)."""
+    ispercent = s.endswith("%")
+    if ispercent:
+        s = s.rstrip("%")
+    c = _atoi(s)  # GStr::asInt has C atoi semantics: "12x" parses as 12
+    if c <= 0:
+        raise PwasmError(
+            f"Error: invalid -c <clipmax> ({c}) option provided (must be "
+            "a positive integer)!\n")
+    if ispercent and c > 99:
+        raise PwasmError(
+            f"Error: invalid percent value ({c}) for -c option "
+            " (must be an integer between 1 and 99)!\n")
+    if ispercent:
+        if verbose:
+            print(f"Percentual max clipping set to {c}%", file=stderr)
+        return float(c) / 100
+    if verbose:
+        print(f"Max clipping set to {c} bases", file=stderr)
+    return float(c)
+
+
+def run(argv: list[str], stdout=None, stderr=None,
+        stats: dict | None = None) -> int:
+    """One CLI invocation; returns the exit code (1 usage, 3 parse,
+    5 zero-coverage column).  ``stats``, when given, is filled with the
+    run's stage seconds (``times``), its wall time, the pileup shape of
+    the consensus launch and the alignment count."""
+    stdout = stdout or sys.stdout
+    stderr = stderr or sys.stderr
+    opened: list = []
+    try:
+        return _run(argv, stdout, stderr, stats, opened)
+    except PwasmError as e:
+        stderr.write(str(e))
+        return e.exit_code
+    finally:
+        for fo in opened:
+            fo.close()     # no-op for a handle the run already closed
+
+
+def _open_out(path: str, opened: list):
+    try:
+        f = open(path, "w")
+    except OSError:
+        raise PwasmError(f"Cannot open file {path} for writing!\n")
+    opened.append(f)
+    return f
+
+
+def _run(argv, stdout, stderr, stats, opened) -> int:
+    from pwasm_tpu_torch.device import resolve_device
+
+    if argv and argv[0] in _SERVICE_CMDS:
+        raise CliError(f"Error: '{argv[0]}' is not ported to "
+                       f"pwasm_tpu_torch yet; it comes with "
+                       f"{_LATER_DEFAULT}\n")
+    opts, positional = _parse_args(argv)
+    if opts.get("h"):
+        stderr.write(USAGE + "\n")
+        return EXIT_USAGE
+    for k in opts:
+        if len(k) > 1 and k not in _LONG_FLAGS:
+            raise CliError(f"Error: --{k} is not ported to pwasm_tpu_torch "
+                           f"yet; it comes with "
+                           f"{_LATER.get(k, _LATER_DEFAULT)}\n")
+    cfg = Config()
+    cfg.debug = bool(opts.get("D"))
+    cfg.fullgenome = bool(opts.get("F"))
+    gene_cds = bool(opts.get("G"))
+    if cfg.fullgenome and gene_cds:
+        stderr.write(f"{USAGE} Error: cannot use both -G and -F!\n")
+        return EXIT_USAGE
+    force_coding = bool(opts.get("C"))
+    force_noncoding = bool(opts.get("N"))
+    if force_coding and force_noncoding:
+        stderr.write(f"{USAGE} Error: cannot use both -N and -C!\n")
+        return EXIT_USAGE
+    cfg.verbose = bool(opts.get("v")) or cfg.debug
+    cfg.gene_cds = gene_cds
+    cfg.device = str(opts.get("device", "cuda"))
+    if "batch" in opts:
+        val = opts["batch"]
+        if val is True or not str(val).isascii() \
+                or not str(val).isdigit() or int(val) < 1:
+            raise CliError(f"{USAGE}\nInvalid --batch value: {val}\n")
+        cfg.batch = int(val)
+    for kind in ("motifs", "ace", "info", "cons"):
+        if opts.get(kind) is True:
+            raise CliError(f"{USAGE}\n--{kind} requires a file argument\n")
+    device = resolve_device(cfg.device)
+
+    infile = positional[0] if positional else None
+    inf = sys.stdin
+    if infile and infile != "-":
+        try:
+            inf = open(infile)
+        except OSError:
+            raise PwasmError(f"Cannot open input file {infile}!\n")
+        opened.append(inf)
+    if "motifs" in opts:
+        try:
+            cfg.motifs = load_motifs(str(opts["motifs"]))
+        except (OSError, UnicodeDecodeError):
+            raise PwasmError(f"Cannot open motif file {opts['motifs']}!\n")
+    if "c" in opts:
+        cfg.clipmax = _parse_clipmax(str(opts["c"]), cfg.verbose, stderr)
+    freport = _open_out(str(opts["o"]), opened) if "o" in opts else stdout
+    rpath = opts.get("r")
+    if not rpath:
+        raise PwasmError("Error: query FASTA file (-r) is required!\n")
+    try:
+        qfasta = FastaFile(str(rpath))
+    except OSError:
+        raise PwasmError(f"Error: invalid FASTA file {rpath} !\n")
+    fsize = qfasta.file_size()
+    if fsize <= 0:
+        raise PwasmError(f"Error: invalid FASTA file {rpath} !\n")
+    if not cfg.fullgenome and not gene_cds \
+            and fsize > AUTO_FULLGENOME_FASTA_BYTES:
+        cfg.fullgenome = True
+    cfg.skip_codan = cfg.fullgenome or force_noncoding
+    if not cfg.skip_codan and not force_coding \
+            and fsize > AUTO_FULLGENOME_FASTA_BYTES:
+        cfg.skip_codan = True
+    fmsa = None
+    cons_outs = {}   # kind -> open file, kinds: ace, info, cons
+    if "w" in opts or any(k in opts for k in ("ace", "info", "cons")):
+        if cfg.fullgenome:
+            stderr.write(
+                f"{USAGE} Error: can only generate MSA for -G mode!\n")
+            return EXIT_USAGE
+        if "w" in opts:
+            fmsa = _open_out(str(opts["w"]), opened)
+        for kind in ("ace", "info", "cons"):
+            if kind in opts:
+                cons_outs[kind] = _open_out(str(opts[kind]), opened)
+    cfg.remove_cons_gaps = bool(opts.get("remove-cons-gaps"))
+    cfg.refine_clipping = not bool(opts.get("no-refine-clip"))
+    fsummary = _open_out(str(opts["s"]), opened) if "s" in opts else None
+    return _main_loop(cfg, device, inf, freport, fmsa, fsummary, qfasta,
+                      stderr, cons_outs,
+                      stats if stats is not None else {})
+
+
+def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
+               qfasta: FastaFile, stderr, cons_outs: dict,
+               stats: dict) -> int:
+    """The per-PAF-line loop (pafreport.cpp:296-460)."""
+    from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
+    from pwasm_tpu_torch.align.msa import Msa
+    from pwasm_tpu_torch.report.device_report import submit_diff_info_batch
+
+    t_run = time.perf_counter()
+    times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
+                           "consensus", "refine", "write"), 0.0)
+    summary = Summary() if fsummary is not None else None
+    alnpairs: dict[str, int] = {}   # gene-mode (query~target) dedup counts
+    ref_cache: dict[str, bytes] = {}
+    refseq_id: str | None = None
+    refseq: bytes | None = None
+    refseq_rc: bytes | None = None
+    ref_gseq: GapSeq | None = None  # MSA instance of the current refseq
+    ref_msa: Msa | None = None
+    numalns = 0
+    build_msa_out = fmsa is not None or bool(cons_outs)
+    pending: list[tuple] = []   # report rows awaiting the next flush
+    inflight: list = []         # submitted-but-unformatted batches (<= 2)
+
+    def flush_pending(drain: bool = False) -> None:
+        """Submit the pending report batch, then format the OLDEST
+        in-flight batch: batch k's device program runs while batches
+        k-1/k-2 are formatted and written.  ``drain`` formats every
+        in-flight batch at end of input."""
+        t0 = time.perf_counter()
+        batch, pending[:] = pending[:], []
+        if batch:
+            inflight.append(submit_diff_info_batch(
+                batch, freport, device, skip_codan=cfg.skip_codan,
+                motifs=cfg.motifs, summary=summary))
+        while len(inflight) > (0 if drain else 2):
+            inflight.pop(0)()
+        times["ctx_scan"] += time.perf_counter() - t0
+
+    def msa_add(aln, tlabel: str, refseq_b: bytes, ord_num: int) -> None:
+        """Insert one alignment into the progressive MSA (the per-line
+        body of pafreport.cpp:394-421)."""
+        nonlocal ref_gseq, ref_msa
+        t0 = time.perf_counter()
+        al = aln.alninfo
+        taseq = GapSeq(tlabel, "", aln.tseq, offset=al.r_alnstart,
+                       revcompl=aln.reverse)
+        first_ref_aln = ref_gseq is None
+        if first_ref_aln:
+            rseq = GapSeq(al.r_id, "", refseq_b)
+            rseq.set_flag(FLAG_IS_REF)
+        else:
+            # bare instance of refseq for this alignment
+            rseq = GapSeq(al.r_id, "", b"", seqlen=al.r_len)
+        # once a gap, always a gap: propagate this alignment's gaps (a
+        # gap the layout cannot hold is fatal, GapAssem.cpp:105-107)
+        for g in aln.rgaps:
+            rseq.set_gap(g.pos, g.len)
+        for g in aln.tgaps:
+            taseq.set_gap(g.pos, g.len)
+        newmsa = Msa(rseq, taseq)
+        if first_ref_aln:
+            newmsa.ordnum = ord_num
+            ref_msa = newmsa
+            ref_gseq = rseq
+        else:
+            ref_gseq.msa.add_align(ref_gseq, newmsa, rseq)
+            ref_msa = ref_gseq.msa
+        times["msa_merge"] += time.perf_counter() - t0
+
+    try:
+        for line in inf:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            t0 = time.perf_counter()
+            rec = parse_paf_line(line)
+            al = rec.alninfo
+            if al.r_id == al.t_id:
+                if cfg.verbose:
+                    print("Skipping alignment of qry seq to itself.",
+                          file=stderr)
+                continue
+            if not cfg.fullgenome:  # gene CDS mode: first q~t alignment only
+                key = f"{al.r_id}~{al.t_id}"
+                if key in alnpairs:
+                    alnpairs[key] += 1
+                    if alnpairs[key] == 1:
+                        print(f"Warning: alignment {al.r_id} to {al.t_id} "
+                              f"already seen, ignoring ", file=stderr)
+                    continue
+                alnpairs[key] = 0
+            numalns += 1
+            if refseq_id is None or refseq_id != al.r_id:
+                if al.r_id in ref_cache:
+                    refseq = ref_cache[al.r_id]
+                else:
+                    fetched = qfasta.fetch(al.r_id)
+                    if fetched is None:
+                        raise PwasmError(
+                            f"Error: could not retrieve sequence for "
+                            f"{al.r_id} !\n")
+                    refseq = bytes(fetched).upper()
+                    ref_cache[al.r_id] = refseq
+                refseq_rc = revcomp(refseq)
+                refseq_id = al.r_id
+                ref_gseq = None   # a new query starts a new MSA
+            if al.r_len != len(refseq):
+                raise PwasmError(
+                    f"Error: ref seq len in this PAF line ({al.r_len}) "
+                    f"differs from loaded sequence length({len(refseq)})!"
+                    f"\n{line}\n")
+            aln = extract_alignment(rec, refseq_rc if al.reverse
+                                    else refseq)
+            times["parse_extract"] += time.perf_counter() - t0
+            tlabel = f"{al.t_id}:{al.t_alnstart}-{al.t_alnend}" \
+                + ("-" if al.reverse else "+")
+            rlabel = al.r_id
+            if cfg.fullgenome:
+                rlabel += f":{al.r_alnstart}-{al.r_alnend}"
+            if len(qfasta) == 1 and not cfg.fullgenome:
+                rlabel = ""
+            pending.append((aln, rlabel, tlabel, refseq))
+            if len(pending) >= cfg.batch:
+                flush_pending()
+            if build_msa_out:
+                msa_add(aln, tlabel, refseq, numalns)
+    finally:
+        # emit the buffered rows even when a later line raises, so the
+        # report keeps every earlier alignment
+        flush_pending(drain=True)
+
+    t0 = time.perf_counter()
+    if cfg.debug and ref_msa is not None:
+        print(f">MSA ({ref_msa.count()})", file=stderr)
+        ref_msa.print_layout(stderr, "v")
+    if fmsa is not None and ref_msa is not None:
+        ref_msa.write_msa(fmsa)
+    if cons_outs and ref_msa is not None:
+        # consensus path: refine once, then emit the requested formats.
+        # write_msa above already captured the unrefined layout.
+        ref_msa.finalize()
+        times["write"] += time.perf_counter() - t0
+        stats["pileup"] = (ref_msa.count(), ref_msa.length)
+        ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
+                           refine_clipping=cfg.refine_clipping,
+                           device=device, times=times)
+        t0 = time.perf_counter()
+        contig = ref_msa.seqs[0].name if ref_msa.seqs else "contig"
+        if "ace" in cons_outs:
+            ref_msa.write_ace(cons_outs["ace"], contig)
+        if "info" in cons_outs:
+            ref_msa.write_info(cons_outs["info"], contig)
+        if "cons" in cons_outs:
+            ref_msa.write_cons(cons_outs["cons"], contig)
+    if summary is not None:
+        summary.write(fsummary)
+    times["write"] += time.perf_counter() - t0
+    stats.update(times=times, wall_s=time.perf_counter() - t_run,
+                 alignments=numalns, device=str(device))
+    return 0
+
+
+def main() -> None:
+    try:
+        rc = run(sys.argv[1:])
+    except BrokenPipeError:
+        # downstream consumer (e.g. `head`) closed the pipe; exit quietly
+        # like the reference binary does on SIGPIPE
+        try:
+            sys.stdout.close()
+        except Exception:
+            pass
+        rc = 141  # 128 + SIGPIPE, the conventional shell status
+    sys.exit(rc)
+
+
+if __name__ == "__main__":
+    main()

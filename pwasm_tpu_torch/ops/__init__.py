@@ -1,0 +1,12 @@
+"""Device programs of the port.
+
+- ``ctx_scan``   — the variant-context scan, plain torch ops on the run's
+  device (an XLA program in the reference);
+- ``consensus``  — per-column pileup counts + the consensus vote: a CUDA
+  kernel (``csrc/consensus.cu``) for CUDA tensors, its plain torch
+  version for CPU tensors;
+- ``refine_clip`` — the X-drop clip-refinement phases, plain torch ops
+  (an XLA program in the reference).
+
+All integer math: parity with the reference is bit-exactness.
+"""
