@@ -5,15 +5,17 @@ the default product path: parse the PAF and extract the ``cs`` events
 on the host, analyze each report batch with the packed ctx_scan program
 on the run's device, merge the MSA progressively, then count and vote
 the consensus (the CUDA consensus kernel on ``--device=cuda``) and
-refine the clips on the device.  Outputs are byte-identical to the
-reference's.
+refine the clips on the device.  With ``--realign`` each alignment's
+gap structure is first replaced by a banded Gotoh re-alignment
+(``ops/realign.py``, the CUDA realign kernels on ``--device=cuda``).
+Outputs are byte-identical to the reference's.
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
       [-s <summary.txt>] [-o <diff_report.dfa>] [-w <outfile.mfa>]
       [--ace=FILE] [--info=FILE] [--cons=FILE] [-G|-F] [-C|-N] [-D] [-v]
       [-c <clipmax>] [--motifs=FILE] [--batch=N] [--remove-cons-gaps]
-      [--no-refine-clip] [--device=cuda|cpu]
+      [--no-refine-clip] [--realign] [--band=N] [--device=cuda|cpu]
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from pwasm_tpu_torch.report.diff_report import Summary
 USAGE = """Usage:
  pafreport <paf_with_cg_cs> -r <refseq.fa> [-s <summary.txt>]
     [-o <diff_report.dfa>][-w <outfile.mfa>] [-G|-F] [-C|-N]
-    [--device=cuda|cpu] [--batch=N] [--motifs=FILE]
+    [--device=cuda|cpu] [--band=N] [--batch=N] [--motifs=FILE]
 
    <paf_with_cg_cs> is the input PAF file with high quality query sequence(s)
       aligned to many target sequences using minimap2 --cs
@@ -47,6 +49,11 @@ USAGE = """Usage:
    -N skip codon impact analysis
    -c <clipmax> maximum clipping, in bases or as a percentage (N%)
    -D debug output (MSA layout on stderr); -v verbose
+   --realign   replace each alignment's PAF gap structure with a banded
+               affine-gap DP re-alignment (device traceback) before MSA
+               construction; requires an MSA output (-w/--ace/--info/--cons)
+   --band=N    first band width of the --realign DP (default 64; lanes
+               the band misses retry at 4x wider bands up to 4096)
    --ace=FILE  write the refined MSA as an ACE contig (consensus calling)
    --info=FILE write the refined MSA as a contig-info table (per-seq pid)
    --cons=FILE write the consensus sequence as FASTA
@@ -62,14 +69,12 @@ USAGE = """Usage:
 # reference never reads (-d/-p/-m)
 _BOOL_FLAGS = set("DGFCNvh")
 _VALUE_FLAGS = set("rowcs")
-_LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch",
+_LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "remove-cons-gaps", "no-refine-clip", "device")
 
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queues A and B)
 _LATER = {
-    "realign": "slice 2 (--realign and its CUDA kernels)",
-    "band": "slice 2 (--realign and its CUDA kernels)",
     "many2many": "slice 3 (banded DP scoring and many-to-many)",
     "shard": "the multi-GPU slice (--shard)",
 }
@@ -205,16 +210,23 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     cfg.verbose = bool(opts.get("v")) or cfg.debug
     cfg.gene_cds = gene_cds
     cfg.device = str(opts.get("device", "cuda"))
-    if "batch" in opts:
-        val = opts["batch"]
-        if val is True or not str(val).isascii() \
-                or not str(val).isdigit() or int(val) < 1:
-            raise CliError(f"{USAGE}\nInvalid --batch value: {val}\n")
-        cfg.batch = int(val)
+    for knob in ("band", "batch"):
+        if knob in opts:
+            val = opts[knob]
+            if val is True or not str(val).isascii() \
+                    or not str(val).isdigit() or int(val) < 1:
+                raise CliError(f"{USAGE}\nInvalid --{knob} value: {val}\n")
+            setattr(cfg, knob, int(val))
     for kind in ("motifs", "ace", "info", "cons"):
         if opts.get(kind) is True:
             raise CliError(f"{USAGE}\n--{kind} requires a file argument\n")
     device = resolve_device(cfg.device)
+    cfg.realign = bool(opts.get("realign"))
+    if cfg.realign and "w" not in opts \
+            and not any(k in opts for k in ("ace", "info", "cons")):
+        stderr.write(f"{USAGE} Error: --realign requires an MSA output "
+                     "(-w, --ace, --info or --cons)!\n")
+        return EXIT_USAGE
 
     infile = positional[0] if positional else None
     inf = sys.stdin
@@ -279,7 +291,9 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
 
     t_run = time.perf_counter()
     times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
-                           "consensus", "refine", "write"), 0.0)
+                           "consensus", "refine", "write")
+                          + (("realign",) if cfg.realign else ()), 0.0)
+    realigned = 0
     summary = Summary() if fsummary is not None else None
     alnpairs: dict[str, int] = {}   # gene-mode (query~target) dedup counts
     ref_cache: dict[str, bytes] = {}
@@ -339,6 +353,40 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
             ref_msa = ref_gseq.msa
         times["msa_merge"] += time.perf_counter() - t0
 
+    # --realign: buffer MSA insertions and re-align each buffered target
+    # with the batched banded-DP traceback (ops/realign.py), replacing
+    # the PAF's gap structure before the progressive merge.  Insertion
+    # order is kept, and the flushes fall where the reference's do (at
+    # --batch, at a query change, at the end of input), so every
+    # dispatch places its band as the reference's does.
+    re_pending: list[tuple] = []
+
+    def flush_realign() -> None:
+        nonlocal realigned
+        if not re_pending:
+            return
+        from pwasm_tpu_torch.ops.realign import ops_to_gaps, realign_pairs
+        t0 = time.perf_counter()
+        items, re_pending[:] = re_pending[:], []
+        results = realign_pairs(
+            [(q_seg, bytes(aln.tseq)) for aln, _t, _r, _o, q_seg in items],
+            band=cfg.band, device=device)
+        times["realign"] += time.perf_counter() - t0
+        for (aln, tlabel, refseq_b, ordn, _q), res in zip(items, results):
+            al = aln.alninfo
+            if res is None:  # outside realignment resource bounds:
+                # keep the PAF's own gap structure for this alignment
+                print(f"Warning: {al.r_id}~{al.t_id} not re-aligned "
+                      "(no band up to the escalation ceiling covered "
+                      "its optimal path, and it is too large for the "
+                      "host oracle); keeping PAF gaps", file=stderr)
+            else:
+                aln.rgaps, aln.tgaps = ops_to_gaps(
+                    res[1], aln.offset, al.r_len,
+                    al.t_alnend - al.t_alnstart, aln.reverse)
+                realigned += 1
+            msa_add(aln, tlabel, refseq_b, ordn)
+
     try:
         for line in inf:
             line = line.rstrip("\n")
@@ -363,6 +411,9 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
                 alnpairs[key] = 0
             numalns += 1
             if refseq_id is None or refseq_id != al.r_id:
+                # merge the buffered re-alignments into this query's MSA
+                # before the layout state resets
+                flush_realign()
                 if al.r_id in ref_cache:
                     refseq = ref_cache[al.r_id]
                 else:
@@ -381,8 +432,8 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
                     f"Error: ref seq len in this PAF line ({al.r_len}) "
                     f"differs from loaded sequence length({len(refseq)})!"
                     f"\n{line}\n")
-            aln = extract_alignment(rec, refseq_rc if al.reverse
-                                    else refseq)
+            refseq_aln = refseq_rc if al.reverse else refseq
+            aln = extract_alignment(rec, refseq_aln)
             times["parse_extract"] += time.perf_counter() - t0
             tlabel = f"{al.t_id}:{al.t_alnstart}-{al.t_alnend}" \
                 + ("-" if al.reverse else "+")
@@ -394,13 +445,20 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
             pending.append((aln, rlabel, tlabel, refseq))
             if len(pending) >= cfg.batch:
                 flush_pending()
-            if build_msa_out:
+            if build_msa_out and cfg.realign:
+                q_seg = refseq_aln[aln.offset:aln.offset
+                                   + (al.r_alnend - al.r_alnstart)]
+                re_pending.append((aln, tlabel, refseq, numalns, q_seg))
+                if len(re_pending) >= cfg.batch:
+                    flush_realign()
+            elif build_msa_out:
                 msa_add(aln, tlabel, refseq, numalns)
     finally:
         # emit the buffered rows even when a later line raises, so the
         # report keeps every earlier alignment
         flush_pending(drain=True)
 
+    flush_realign()
     t0 = time.perf_counter()
     if cfg.debug and ref_msa is not None:
         print(f">MSA ({ref_msa.count()})", file=stderr)
@@ -429,6 +487,8 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
     times["write"] += time.perf_counter() - t0
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(device))
+    if cfg.realign:
+        stats["realigned"] = realigned
     return 0
 
 

@@ -32,6 +32,8 @@ class Config:
     # port knobs (no reference equivalent)
     device: str = "cuda"            # cuda | cpu (the CPU only on request)
     batch: int = 256                # report batch size per device flush
+    band: int = 64                  # banded-DP band width
+    realign: bool = False           # --realign: DP traceback gaps for MSA
 
 
 def load_motifs(path: str) -> tuple[str, ...]:

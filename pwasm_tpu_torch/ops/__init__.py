@@ -6,7 +6,11 @@
   kernel (``csrc/consensus.cu``) for CUDA tensors, its plain torch
   version for CPU tensors;
 - ``refine_clip`` — the X-drop clip-refinement phases, plain torch ops
-  (an XLA program in the reference).
+  (an XLA program in the reference);
+- ``realign``    — the ``--realign`` banded Gotoh re-aligner: CUDA
+  kernels (``csrc/realign.cu``: the forward pass, resident and
+  streamed, and the row walk) for CUDA tensors, their plain torch
+  versions (on ``banded_dp``'s row recurrence) for CPU tensors.
 
 All integer math: parity with the reference is bit-exactness.
 """
