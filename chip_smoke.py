@@ -8,11 +8,11 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device   — a CUDA device is required; its name and power limit;
 2. build    — nvcc builds every kernel from ``pwasm_tpu_torch/csrc``;
 3. kernels  — each kernel against its plain torch version on the card,
-              bit for bit, at fixed shapes (also from a misaligned
-              address), with device times per call and bounds; the
-              realign kernels (forward resident and streamed, walk) on
-              fuzzed lanes at bands 1-4,096 and the walk on hand-made
-              pointer planes;
+              bit for bit, at fixed shapes (also through the wrappers'
+              copy of a misaligned input), with device times per call
+              and bounds; the realign kernels (forward resident and
+              streamed, walk) on fuzzed lanes at bands 1-4,096 and the
+              walk on hand-made pointer planes;
 4. golden   — the CLI on ``tests/golden`` inputs with --device=cuda
               reproduces the six committed outputs byte for byte;
 5. realistic — the 200-alignment corpus through the CLI with
@@ -34,8 +34,26 @@ Phases, one JSON line each; any failure exits non-zero:
               walk equal their plain versions (run on the host CPU) on
               that dispatch's inputs, and every path re-scores to its
               DP score;
-9. the ``kernels`` line, the card's name and power limit as nvidia-smi
+9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
+              1,200-1,800 bases against 10,240 targets) through the CLI's
+              ``--many2many`` with --device=cuda: stage times, dispatches
+              and scores-kernel launches; then --device=cpu with only the
+              shortest and the longest CDS, whose sections and -s lines
+              must equal the cuda run's byte for byte; the scores kernel
+              checked and timed on the inputs of the cuda run's largest
+              dispatch;
+10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
+              4 targets of ~116 kb, the least length at which the budget
+              streams: the streamed scores kernel runs, and its scores
+              equal the plain version's on the host CPU;
+11. the ``kernels`` line, the card's name and power limit as nvidia-smi
    prints them, and the final ``{"ok": true, ...}`` line.
+
+Phase 3 also holds both scores kernels (resident and streamed, forced)
+against the plain version at 3 queries x 37 targets for bands 2 to
+4,096, once from a misaligned address (which the wrapper copies to
+aligned rows and the launcher itself refuses), and at BASELINE.md
+config 2's shape (1 x 10,240 targets of ~1,500 bases, band 64).
 
 Outputs are written under ``chip_smoke_out/``.
 """
@@ -64,16 +82,31 @@ OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
 REALIGN_DISPATCHES = [(1, 1536, 1408, 64), (1, 1536, 1408, 256),
                       (176, 1536, 1536, 64), (41, 1536, 1536, 256),
                       (23, 1536, 1664, 64), (23, 1536, 1664, 256)]
-# int32 operations per band cell of the realign forward pass: those of
-# the recurrence in fwd_row of csrc/realign.cu (the score's compares and
-# select, the three maxima and argmax selects, the gap subtractions,
-# the boundary masks, the prefix max and the pointer packing), not the
-# kernel's loads, stores and scan bookkeeping
-FWD_OPS_PER_CELL = 40
+# int32 operations that the realign forward pass needs per interior band
+# cell: the scores recurrence's 11 (below), 4 for the diagonal argmax
+# (M against the max of Ix and Iy, Ix against Iy, two selects), 1 for
+# Ix's extend bit (a compare of its two candidates), 3 for Iy's (two
+# subtractions and a compare) and 4 to pack the byte (two shifts, two
+# ors).  The kernel's loads, range tests, edge masks and scan
+# bookkeeping are not counted: the bound is the least work
+FWD_OPS_PER_CELL = 23
 # the walk: per live row its fixed work, per pointer byte it reads a
 # load, a test and a ballot lane
 WALK_OPS_PER_ROW = 20
 WALK_OPS_PER_CELL = 3
+# int32 operations that the scores recurrence needs per interior band
+# cell: the score's compare and select (q < 4 is tested once a row), M's
+# two maxima and add, Ix's two subtractions and maximum, the prefix's
+# add (of the cell's constant b*ge) and maximum, and Iy's one
+# subtraction (of the cell's constant go + (b-1)*ge).  The masks act only
+# at the band's edges.  score_row in csrc/banded_dp.cu spends ~30, its
+# range tests and selects included; Hopper's fused DPX forms (3-way max,
+# add-max) would need 8, at a rate the card's tables do not give
+SCORE_OPS_PER_CELL = 11
+# cudaErrorMisalignedAddress (CUDA's driver_types.h)
+CUDA_ERROR_MISALIGNED = 716
+# the scores kernels' fixed shapes: bands at 3 queries x 37 targets
+SCORE_BANDS = (2, 3, 16, 33, 64, 256, 1024, 4096)
 
 
 def emit(obj: dict) -> None:
@@ -391,7 +424,7 @@ def time_forward(lanes, dlo: int, band: int, cycles_per_s: float) -> dict:
     qs, ts, ql, tl = lanes
     T, m_max = qs.shape
     n = ts.shape[1]
-    qp, tp = ra._pad16(qs), ra._pad16(ts)
+    qp, tp = ra.pad16(qs), ra.pad16(ts)
     ql32, tl32 = ql.int().contiguous(), tl.int().contiguous()
     live = torch.arange(m_max, device=qs.device)[None, :] \
         < ql.long().clamp(0, m_max)[:, None]
@@ -536,6 +569,348 @@ def long_read_pairs(seed: int, k: int = 4, m: int = 250_000):
     return pairs
 
 
+def scores_lanes(seed: int, Q: int, T: int, m: int, n: int):
+    """Q queries of length m (codes 0-4; the others substituted copies of
+    the first) and T targets padded to n (pad 127): mutated copies of
+    the queries, some with a random tail, so that end cells fall inside
+    and outside the band.  CUDA tensors (qs, ts, t_lens)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q0 = rng.integers(0, 5, m).astype(np.int8)
+    qs = np.stack([q0] + [mutate(rng, q0, 5, 0) for _ in range(Q - 1)])
+    ts = np.full((T, n), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = mutate(rng, qs[k % Q], int(rng.integers(0, 8)),
+                   int(rng.integers(0, 6)))
+        if k % 3 == 2:
+            tail = int(rng.integers(0, n - m + 4))
+            t = np.concatenate([t, rng.integers(0, 4, tail).astype(np.int8)])
+        t = t[:n]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    return [torch.from_numpy(x).cuda() for x in (qs, ts, t_lens)]
+
+
+def config2_lanes(T: int = 10_240, m: int = 1500, band: int = 64,
+                  seed: int = 0):
+    """BASELINE.md config 2's inputs as the reference's bench makes them
+    (``bench.py::_workload``): one query of m bases and T copies with
+    5-39 substitutions and 0-7 single-base indels, padded to
+    n = m + band // 2.  CUDA tensors (qs (1, m), ts, t_lens)."""
+    import numpy as np
+    import torch
+
+    n_pad = m + band // 2
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, size=m).astype(np.int8)
+    ts = np.full((T, n_pad), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = list(q)
+        for _ in range(int(rng.integers(5, 40))):
+            t[int(rng.integers(0, len(t)))] = int(rng.integers(0, 4))
+        for _ in range(int(rng.integers(0, 8))):
+            p = int(rng.integers(1, len(t) - 1))
+            if rng.random() < 0.5:
+                t.insert(p, int(rng.integers(0, 4)))
+            else:
+                del t[p]
+        t = t[:n_pad]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    return [torch.from_numpy(x).cuda() for x in (q[None], ts, t_lens)]
+
+
+def check_scores(lanes, band: int, cycles_per_s: float | None,
+                 misaligned: bool = False) -> dict:
+    """Both scores kernels (forced) against banded_scores_plain on the
+    same CUDA tensors, bit for bit.  With ``misaligned`` the targets
+    reach the wrapper from an address one byte past a 16-byte boundary,
+    which it copies to aligned rows (``pad16``); and the launcher, given
+    such an address itself, must refuse it with
+    cudaErrorMisalignedAddress and launch nothing.  With
+    ``cycles_per_s``, also each kernel's device time (launches into a
+    preallocated output, queued behind a spin), the plain version's time
+    and the bound at these inputs."""
+    import torch
+
+    from pwasm_tpu_torch.ops import banded_dp as bd
+
+    qs, ts, tl = lanes
+    (Q, m), (T, n) = qs.shape, ts.shape
+    what = f"Q={Q} T={T} m={m} n={n} band={band}"
+    plain = bd.banded_scores_plain(qs, ts, tl, band)
+    ts_in = ts
+    if misaligned:
+        flat = torch.empty(T * n + 1, dtype=torch.int8, device=ts.device)
+        flat[1:] = ts.flatten()
+        ts_in = flat[1:].view(T, n)
+    err = 0
+    for v in VARIANTS:
+        got = bd.scores_kernel(qs, ts_in, tl, band, streamed=v == "streamed")
+        torch.cuda.synchronize()
+        e = max_err([(got, plain)])
+        if e or not torch.equal(got, plain):
+            raise AssertionError(f"scores ({v}) != plain at {what} (max abs "
+                                 f"err {e})")
+        err = max(err, e)
+    out = dict(shape=[Q, T, m, n, band], max_abs_err=err,
+               in_band=int((plain > bd.NEG).sum()))
+    if misaligned:
+        tp = bd.pad16(ts)
+        buf = torch.empty(tp.numel() + 16, dtype=torch.int8, device=ts.device)
+        off = buf[1:1 + tp.numel()].view(tp.shape)
+        off.copy_(tp)
+        before = dict(bd.LAUNCHES)
+        try:
+            bd.launch_scores(False, bd.pad16(qs), off, tl.int().contiguous(),
+                             m, n, bd.band_dlo(m, n, band), band,
+                             bd.ScoreParams(), torch.empty_like(plain))
+        except RuntimeError as e:
+            if f"CUDA error {CUDA_ERROR_MISALIGNED}" not in str(e):
+                raise
+        else:
+            raise AssertionError("the scores launcher took a target address "
+                                 "off a 16-byte boundary")
+        if bd.LAUNCHES != before:
+            raise AssertionError("a refused scores launch was counted")
+        out["launcher_refused"] = CUDA_ERROR_MISALIGNED
+    if cycles_per_s is None:
+        return out
+    qp, tp = bd.pad16(qs), bd.pad16(ts)
+    tl32 = tl.int().contiguous()
+    res = torch.empty_like(plain)
+    dlo = bd.band_dlo(m, n, band)
+    iters = 10 if Q * T * m * band < 10 ** 9 else 2
+    for v in VARIANTS:
+        out[f"ms_{v}"] = cuda_ms(lambda v=v: bd.launch_scores(
+            v == "streamed", qp, tp, tl32, m, n, dlo, band, bd.ScoreParams(),
+            res), 5, iters, cycles_per_s)
+    out["plain_ms"] = cuda_ms(
+        lambda: bd.banded_scores_plain(qs, ts, tl, band), 3, 1,
+        cycles_per_s)
+    # bounds: the sequences read once and the scores written once; every
+    # lane computes all m rows of its band
+    cells = Q * T * m * band
+    out["cells"] = cells
+    out["bound_ms"], out["bound_by"] = bound(
+        Q * m + T * (n + 4) + 4 * Q * T, SCORE_OPS_PER_CELL * cells)
+    return out
+
+
+@contextlib.contextmanager
+def logged_scores():
+    """Wrap ``banded_scores_matrix`` as ``parallel/many2many.py`` calls
+    it, while the block runs; yields the list of its calls as (Q, T, m,
+    n, kernel, band), the kernel read from the launch counters ("plain" when
+    none moved), and a dict that keeps the CUDA inputs of the largest
+    call (by Q x T x m): ``inputs`` (qs, ts, t_lens) and ``band``."""
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    from pwasm_tpu_torch.parallel import many2many as m2m
+
+    log, largest = [], {}
+    real = m2m.banded_scores_matrix
+
+    def recording(qs, ts, t_lens, band, params):
+        before = dict(bd.LAUNCHES)
+        out = real(qs, ts, t_lens, band, params)
+        kernel = "plain"
+        for key, name in (("scores", "resident"),
+                          ("scores_long", "streamed")):
+            if bd.LAUNCHES[key] > before[key]:
+                kernel = name
+        log.append((qs.shape[0], ts.shape[0], qs.shape[1], ts.shape[1],
+                    kernel, band))
+        size = qs.shape[0] * ts.shape[0] * qs.shape[1]
+        if qs.is_cuda and size > largest.get("size", -1):
+            largest.update(size=size, inputs=(qs, ts, t_lens), band=band)
+        return out
+
+    m2m.banded_scores_matrix = recording
+    try:
+        yield log, largest
+    finally:
+        m2m.banded_scores_matrix = real
+
+
+def sections(body: bytes) -> dict:
+    """A --many2many report split into its per-CDS sections by id."""
+    out = {}
+    for chunk in body.split(b"\n>"):
+        chunk = chunk.lstrip(b">")
+        if chunk:
+            out[chunk.split(b"\t", 1)[0]] = b">" + chunk.rstrip(b"\n") + b"\n"
+    return out
+
+
+def m2m_long_inputs(seed: int, m: int = 116_000):
+    """2 queries of m bases and 4 targets: copies of the queries with 3%
+    substitutions and a balanced indel pair every ~1 kb; targets 0 and 2
+    end 5 bases short of m, targets 1 and 3 run 10 bases past it (one
+    dispatch in each width group).  Code arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    qs = [rng.integers(0, 4, m).astype(np.int8) for _ in range(2)]
+    ts = []
+    for k in range(4):
+        t = qs[k // 2].copy()
+        subs = rng.random(m) < 0.03
+        t[subs] = (t[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+        for p in np.sort(rng.choice(np.arange(100, m - 200, 200),
+                                    size=m // 1000, replace=False)):
+            g = int(rng.integers(1, 6))
+            t[p:p + 40] = np.concatenate(
+                [t[p + g:p + 40], rng.integers(0, 4, g).astype(np.int8)])
+        t = t[:m - 5] if k % 2 == 0 else np.concatenate(
+            [t, rng.integers(0, 4, 10).astype(np.int8)])
+        ts.append(t)
+    return qs, ts
+
+
+def run_many2many(work: str, cycles_per_s: float | None,
+                  n_q: int = 500, n_t: int = 10_240):
+    """Phase 9: the config-3 corpus through ``--many2many`` on cuda, then
+    on cpu for the shortest and the longest CDS alone; their sections
+    and -s lines must be equal.  Then the scores kernel checked (and,
+    with ``cycles_per_s``, timed) on the cuda run's largest dispatch.
+    Returns (the cuda run's launches, that check).  Raises on a
+    failure."""
+    from pwasm_tpu_torch.core.fasta import FastaFile
+    from pwasm_tpu_torch.corpus import make_m2m_corpus
+    from pwasm_tpu_torch.ops import banded_dp as bd
+
+    t0 = time.perf_counter()
+    qfa, tfa = make_m2m_corpus(n_q=n_q, n_t=n_t, out_dir=work)
+    corpus_s = time.perf_counter() - t0
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        rfa = qfa
+        if dev == "cpu":
+            fa = FastaFile(qfa)
+            lens = [fa.length(nm) for nm in fa.names]
+            picked = [fa.names[lens.index(min(lens))],
+                      fa.names[lens.index(max(lens))]]
+            rfa = os.path.join(work, "m2m_cds2.fa")
+            with open(rfa, "wb") as f:
+                for nm in picked:
+                    f.write(b">" + nm.encode() + b"\n" + fa.fetch(nm) + b"\n")
+        for key in bd.LAUNCHES:
+            bd.LAUNCHES[key] = 0
+        out = os.path.join(work, f"m2m_{dev}")
+        with logged_scores() as (dispatches, largest):
+            rc, st, err, wall = run_cli(
+                ["--many2many", tfa, "-r", rfa, "-o", f"{out}.tsv",
+                 "-s", f"{out}.sum", f"--device={dev}"])
+        launches = dict(bd.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"--many2many --device={dev} rc={rc}: {err}")
+        with open(f"{out}.tsv", "rb") as f:
+            body = f.read()
+        with open(f"{out}.sum", "rb") as f:
+            summ = f.read()
+        kernels = sorted({d[4] for d in dispatches})
+        # the run's bound: every dispatch's sequences read once, its
+        # scores written once, all m rows of every lane's band computed
+        cells = sum(Q * T * m * b for Q, T, m, _n, _k, b in dispatches)
+        bound_ms, bound_by = bound(
+            sum(Q * m + T * (n + 4) + 4 * Q * T
+                for Q, T, m, n, _k, _b in dispatches),
+            SCORE_OPS_PER_CELL * cells)
+        runs[dev] = dict(largest=largest, sections=sections(body),
+                         sums={ln.split(b"\t", 1)[0]: ln
+                               for ln in summ.splitlines()})
+        emit(dict(phase="many2many", device=dev, wall_s=wall,
+                  stage_s=st["times"], run_s=st["wall_s"], pairs=st["pairs"],
+                  dispatches=st["dispatches"], kernels=kernels,
+                  cells=cells, bound_s=bound_ms / 1e3, bound_by=bound_by,
+                  launches=launches, report_bytes=len(body),
+                  in_band=sum(1 for ln in body.splitlines()
+                              if not ln.startswith(b">")
+                              and not ln.endswith(b"\t.")),
+                  **({"corpus_s": corpus_s} if dev == "cuda" else {})))
+        if dev == "cuda":
+            cuda_launches = launches
+            if kernels != ["resident"] or not launches["scores"]:
+                raise AssertionError(
+                    f"the scores kernel did not run every --many2many "
+                    f"dispatch on cuda: kernels {kernels}, launches "
+                    f"{launches}")
+        elif any(launches.values()):
+            raise AssertionError(f"--many2many --device=cpu launched "
+                                 f"{launches}")
+    got, want = runs["cpu"], runs["cuda"]
+    if len(got["sections"]) != 2:
+        raise AssertionError(f"cpu run sections {list(got['sections'])}")
+    for nm in got["sections"]:
+        if got["sections"][nm] != want["sections"].get(nm) \
+                or got["sums"][nm] != want["sums"].get(nm):
+            raise AssertionError(f"the section or -s line of {nm!r} "
+                                 "differs between the cuda and cpu runs")
+    largest = want["largest"]
+    main_sc = check_scores(largest["inputs"], largest["band"], cycles_per_s)
+    emit(dict(phase="kernel", name="scores", main_path=True, **main_sc))
+    return cuda_launches, main_sc
+
+
+def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
+    """Phase 10: a many2many dispatch of long reads, where the budget
+    streams; its scores must equal the plain version's on the host CPU.
+    Returns the phase's record.  Raises on a failure."""
+    import torch
+
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
+
+    qs, ts = m2m_long_inputs(seed=13, m=m)
+    want_picks = {(m, m, 64): "streamed", (m, m + 62, 64): "streamed",
+                  (1800, 1862, 64): "resident",
+                  (1800, 1800, 32_768): "resident",
+                  (128, 128, 40_000): None}
+    picks = {k: bd.select_kernel(*k) for k in want_picks}
+    if picks != want_picks:
+        raise AssertionError(f"the scores budget picked {picks}, want "
+                             f"{want_picks}")
+    for key in bd.LAUNCHES:
+        bd.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    with logged_scores() as (dispatches, largest):
+        got = many2many_scores_ragged(qs, ts, band=64,
+                                      device=torch.device("cuda"))
+    wall = time.perf_counter() - t0
+    launches = dict(bd.LAUNCHES)
+    if [d[4] for d in dispatches] != ["streamed", "streamed"]:
+        raise AssertionError(f"long-read dispatches {dispatches}")
+    t0 = time.perf_counter()
+    want = many2many_scores_ragged(qs, ts, band=64,
+                                   device=torch.device("cpu"))
+    plain_s = time.perf_counter() - t0
+    if not (got == want).all() or (got > bd.NEG).sum() < 4:
+        raise AssertionError(f"streamed scores {got.tolist()} != plain "
+                             f"{want.tolist()} (or too few in band)")
+    rec = dict(dispatches=dispatches, wall_s=wall, plain_host_s=plain_s,
+               launches=launches, scores=got.tolist())
+    if cycles_per_s is None:
+        return rec
+    qs_t, ts_t, tl_t = largest["inputs"]
+    (Q, mq), (T, n) = qs_t.shape, ts_t.shape
+    out = torch.empty((Q, T), dtype=torch.int32, device=qs_t.device)
+    qp, tp, tl32 = bd.pad16(qs_t), bd.pad16(ts_t), tl_t.int().contiguous()
+    dlo = bd.band_dlo(mq, n, 64)
+    cells = Q * T * mq * 64
+    rec.update(shape=[Q, T, mq, n, 64], cells=cells, ms=cuda_ms(
+        lambda: bd.launch_scores(True, qp, tp, tl32, mq, n, dlo, 64,
+                                 bd.ScoreParams(), out), 3, 1,
+        cycles_per_s))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        Q * mq + T * (n + 4) + 4 * Q * T, SCORE_OPS_PER_CELL * cells)
+    emit(dict(phase="m2m long-read", **rec))
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -602,6 +977,25 @@ def main() -> int:
         err = check_walk(torch.from_numpy(ptrs).cuda(), b0, mat0, ql, case)
         re_checks.append(dict(max_abs_err=err))
         emit(dict(phase="kernel", name="walk", planes=case, max_abs_err=err))
+
+    # the scores kernels, both variants forced: 3 queries x 37 targets at
+    # each band (n = m + (band - 1) // 2, the widest the band can place),
+    # the band-64 inputs again from a misaligned address (the wrapper
+    # realigns them; the launcher refuses them), and config 2
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    sc_checks = []
+    for k, band in enumerate(SCORE_BANDS):
+        lanes = scores_lanes(k, 3, 37, 150, 150 + (band - 1) // 2)
+        sc_checks.append(check_scores(lanes, band, cycles_per_s))
+        emit(dict(phase="kernel", name="scores", **sc_checks[-1]))
+        if band == 64:
+            sc_checks.append(check_scores(lanes, band, None,
+                                          misaligned=True))
+            emit(dict(phase="kernel", name="scores", misaligned=True,
+                      **sc_checks[-1]))
+    cfg2 = check_scores(config2_lanes(), 64, cycles_per_s)
+    emit(dict(phase="kernel", name="scores", config=2, **cfg2))
+    sc_checks.append(cfg2)
 
     work = os.path.join(ROOT, "chip_smoke_out")
     shutil.rmtree(work, ignore_errors=True)
@@ -793,7 +1187,7 @@ def main() -> int:
                     f"{long_err})")
     del host, plain, plain_walk, live, got, cmp
     long_ms = cuda_ms(lambda: ra.launch_forward(
-        True, ra._pad16(lanes[0]), ra._pad16(lanes[1]), lanes[2],
+        True, ra.pad16(lanes[0]), ra.pad16(lanes[1]), lanes[2],
         lanes[3], m_l, n_l, dlo_l, band_l, ScoreParams(), *fouts),
         3, 1, cycles_per_s)
     long_walk_ms = cuda_ms(lambda: ra.launch_walk(
@@ -808,7 +1202,12 @@ def main() -> int:
                      scores=[r[0] for r in res])
     emit(dict(phase="long-read", **long_read))
 
-    # 9. the kernels line, the card, the verdict
+    # 9. many2many at config 3's scale; 10. a long-read dispatch
+    m2m_launches, main_sc = run_many2many(work, cycles_per_s)
+    sc_checks.append(main_sc)
+    m2m_long = run_m2m_long(cycles_per_s)
+
+    # 11. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"], ms_walk=c["ms_walk"],
@@ -818,6 +1217,12 @@ def main() -> int:
                       bound_ms_walk=c["bound_ms_walk"])
                  for c in (main_re, esc_re)]
     no_library = "no torch call computes banded Gotoh with pointers"
+    no_scores_library = "no torch call computes banded Gotoh scores"
+    sc_err = max(c["max_abs_err"] for c in sc_checks)
+    sc_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
+                      ms_streamed=c["ms_streamed"], plain_ms=c["plain_ms"],
+                      bound_ms=c["bound_ms"]) for c in sc_checks
+                 if "ms_resident" in c]
     emit({"kernels": [dict(
         name="consensus", route="cuda",
         source="pwasm_tpu_torch/csrc/consensus.cu",
@@ -859,7 +1264,27 @@ def main() -> int:
         bound_ms=main_re["bound_ms_walk"],
         bound_by=main_re["bound_by_walk"], library_ms=None,
         library=no_library, shape=main_re["shape"],
-        long_read_ms=long_walk_ms)]})
+        long_read_ms=long_walk_ms), dict(
+        name="scores", route="cuda",
+        source="pwasm_tpu_torch/csrc/banded_dp.cu",
+        replaces="pwasm_tpu/ops/banded_dp.py:310",
+        launches=m2m_launches["scores"], max_abs_err=sc_err,
+        ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
+        bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
+        library_ms=None, library=no_scores_library, shape=main_sc["shape"],
+        shapes=sc_shapes), dict(
+        name="scores_long", route="cuda",
+        source="pwasm_tpu_torch/csrc/banded_dp.cu",
+        replaces="pwasm_tpu/ops/banded_dp.py:420",
+        # its path is the long-read dispatch (phase 10); its times are
+        # taken at the main path's largest dispatch, forced, beside the
+        # resident kernel's, and at the long-read shape, where its plain
+        # version ran on the host CPU
+        launches=m2m_long["launches"]["scores_long"], max_abs_err=sc_err,
+        ms=main_sc["ms_streamed"], plain_ms=main_sc["plain_ms"],
+        bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
+        library_ms=None, library=no_scores_library, shape=main_sc["shape"],
+        long_read=m2m_long)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

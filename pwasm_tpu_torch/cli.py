@@ -8,6 +8,8 @@ the consensus (the CUDA consensus kernel on ``--device=cuda``) and
 refine the clips on the device.  With ``--realign`` each alignment's
 gap structure is first replaced by a banded Gotoh re-alignment
 (``ops/realign.py``, the CUDA realign kernels on ``--device=cuda``).
+``--many2many`` scores every query of a multi-FASTA against every target
+(``stream/multicds.py``, the CUDA scores kernels on ``--device=cuda``).
 Outputs are byte-identical to the reference's.
 
 Usage:
@@ -16,6 +18,8 @@ Usage:
       [--ace=FILE] [--info=FILE] [--cons=FILE] [-G|-F] [-C|-N] [-D] [-v]
       [-c <clipmax>] [--motifs=FILE] [--batch=N] [--remove-cons-gaps]
       [--no-refine-clip] [--realign] [--band=N] [--device=cuda|cpu]
+  python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
+      [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
 """
 
 from __future__ import annotations
@@ -63,6 +67,11 @@ USAGE = """Usage:
    --batch=N   alignments per device report batch (default 256)
    --device=cuda|cpu  where the device programs run (default cuda; the
                CPU runs only when asked for)
+
+ pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
+    [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [-v]
+   score every query of the -r FASTA against every target of
+   <targets.fa> (banded affine-gap DP); one report section per query
 """
 
 # reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
@@ -75,7 +84,6 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queues A and B)
 _LATER = {
-    "many2many": "slice 3 (banded DP scoring and many-to-many)",
     "shard": "the multi-GPU slice (--shard)",
 }
 _LATER_DEFAULT = ("a later slice (resilience, checkpoints and --stats; "
@@ -156,7 +164,8 @@ def run(argv: list[str], stdout=None, stderr=None,
     """One CLI invocation; returns the exit code (1 usage, 3 parse,
     5 zero-coverage column).  ``stats``, when given, is filled with the
     run's stage seconds (``times``), its wall time, the pileup shape of
-    the consensus launch and the alignment count."""
+    the consensus launch and the alignment count (for ``--many2many``:
+    see ``stream/multicds.py::many2many_main``)."""
     stdout = stdout or sys.stdout
     stderr = stderr or sys.stderr
     opened: list = []
@@ -190,6 +199,11 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     if opts.get("h"):
         stderr.write(USAGE + "\n")
         return EXIT_USAGE
+    if opts.get("many2many"):
+        # the multi-CDS job: every query of the -r FASTA against every
+        # target of the positional FASTA (stream/multicds.py)
+        from pwasm_tpu_torch.stream.multicds import many2many_main
+        return many2many_main(opts, positional, stdout, stderr, stats)
     for k in opts:
         if len(k) > 1 and k not in _LONG_FLAGS:
             raise CliError(f"Error: --{k} is not ported to pwasm_tpu_torch "

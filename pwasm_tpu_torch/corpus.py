@@ -162,3 +162,46 @@ def make_corpus(seed: int = 20260730, n_aln: int = 200,
             "cds1", q, f"asm{k:03d}", strand, ops,
             t_start=t_start, t_len=asm_len)[0])
     return q, lines
+
+
+def _mutated(rng, q: np.ndarray) -> np.ndarray:
+    """A copy of base codes ``q`` with 3-8% substitutions and 0-8 indels
+    of 1-3 bases."""
+    t = q.copy()
+    subs = rng.random(len(t)) < rng.uniform(0.03, 0.08)
+    t[subs] = (t[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+    for _ in range(int(rng.integers(0, 9))):
+        p = int(rng.integers(1, len(t) - 1))
+        g = int(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            t = np.concatenate([t[:p], rng.integers(0, 4, g), t[p:]])
+        else:
+            t = np.concatenate([t[:p], t[p + g:]])
+    return t
+
+
+def make_m2m_corpus(seed: int = 20261016, n_q: int = 500,
+                    n_t: int = 10_240, *, out_dir: str) -> tuple[str, str]:
+    """BASELINE.md config 3's many-to-many inputs, written as two FASTAs
+    in ``out_dir``: ``n_q`` CDS (``cds0000``...) with lengths drawn as
+    multiples of 3 in 1,200-1,800, and ``n_t`` targets (``asm00000``...),
+    each a mutated copy of a random CDS (3-8% substitutions, 0-8 indels
+    of 1-3 bases).  Returns (query FASTA path, target FASTA path)."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    cds = [rng.integers(0, 4, 3 * int(rng.integers(400, 601)))
+           for _ in range(n_q)]
+    paths = []
+    for name, recs in (
+            ("m2m_cds.fa", ((f"cds{k:04d}", q) for k, q in enumerate(cds))),
+            ("m2m_targets.fa",
+             ((f"asm{k:05d}", _mutated(rng, cds[int(rng.integers(n_q))]))
+              for k in range(n_t)))):
+        path = os.path.join(out_dir, name)
+        with open(path, "wb") as f:
+            for rid, codes in recs:
+                f.write(b">" + rid.encode() + b"\n"
+                        + BASES[codes].tobytes() + b"\n")
+        paths.append(path)
+    return paths[0], paths[1]

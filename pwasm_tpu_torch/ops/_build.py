@@ -98,3 +98,18 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _LIBS[name] = ctypes.CDLL(lib_path(name))
     return lib
+
+
+def bind(name: str, sigs: dict, cache: dict) -> dict:
+    """``cache`` filled, on first use, with the C entry points of
+    ``csrc/<name>.cu`` that ``sigs`` maps to their (argtypes, restype);
+    returns ``cache``.  Each kernel module keeps its own cache, so a
+    module whose kernels were never called has built nothing."""
+    if not cache:
+        lib = load(name)
+        for fn_name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            cache[fn_name] = fn
+    return cache

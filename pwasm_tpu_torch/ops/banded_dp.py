@@ -1,10 +1,15 @@
-"""Banded affine-gap DP (Gotoh): the shared row recurrence.
+"""Banded affine-gap DP (Gotoh): the row recurrence and the scores.
 
-Counterpart of ``pwasm_tpu/ops/banded_dp.py``, reduced to what the
-re-aligner needs (``ops/realign.py``): ``NEG``, ``ScoreParams``,
-``initial_wavefront`` and ``make_row_step`` with pointers.
-The scores-only kernels and ``banded_score`` come with the
-many-to-many slice.
+Counterpart of ``pwasm_tpu/ops/banded_dp.py``.  ``make_row_step`` is the
+row recurrence the re-aligner (``ops/realign.py``, with pointers) and the
+scores path share.  The scores path is ``banded_scores_plain`` (the plain
+version: the reference's ``banded_scores_batch`` with every (query,
+target) pair one lane) and, for CUDA tensors, the scores kernels of
+``csrc/banded_dp.cu`` (resident and streamed), reached through
+``banded_scores_matrix`` (Q queries x T targets: the reference's
+``parallel/many2many.py::many2many_scores``) and ``banded_scores`` (one
+query: on a CPU tensor, the reference's ``banded_scores_batch``).
+``full_gotoh_score`` is the numpy oracle.
 
 Formulation.  DP matrices M (match/mismatch), Ix (gap in target,
 consumes query), Iy (gap in query, consumes target), a band of width B
@@ -17,16 +22,26 @@ index b in [0, B).  Row recurrences in band coordinates:
 
 The Iy chain collapses to a running max of ``M[i][k] + k*GE``, a
 cumulative max along the band (``torch.cummax``).  Everything is int32
-on (T, band) tensors, one row per lane, on the tensors' device.
+on (lanes, band) tensors, one row per lane, on the tensors' device.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from pwasm_tpu_torch.ops import _build
+
 NEG = -(2 ** 30)  # -inf surrogate, safe against int32 underflow
+
+LAUNCHES = {"scores": 0, "scores_long": 0}
+_FNS: dict = {}    # the bound C entry points, set on first use
+# what the scores launcher takes (csrc/banded_dp.cu::pw_scores_smem)
+_LIMITS = ("a band of 1 to 32,768 cells, at most 2**31 - 1 (query, "
+           "target) pairs and at most 227 KB of a block's shared memory")
 
 
 @dataclass(frozen=True)
@@ -43,6 +58,22 @@ class ScoreParams:
         return self.gap_open + self.gap_extend
 
 
+class BandPlacementError(ValueError):
+    """No band placement covers both the start and the end diagonal."""
+
+
+def band_dlo(m: int, n: int, band: int) -> int:
+    """Static band placement: diagonal offsets j-i in [dlo, dlo+band).
+    Centers the band between the start diagonal (0) and the end diagonal
+    (n-m); raises BandPlacementError if the band can't cover both."""
+    dlo = (n - m) // 2 - band // 2
+    if not (dlo <= 0 <= dlo + band - 1 and dlo <= n - m <= dlo + band - 1):
+        raise BandPlacementError(
+            f"band {band} too narrow for sizes m={m}, n={n}"
+            f" (needs to cover diagonals 0 and {n - m})")
+    return dlo
+
+
 def initial_wavefront(n: int, dlo: int, band: int, params: ScoreParams,
                       device: torch.device) -> tuple:
     """Row-0 wavefront state (M, Ix, Iy), each (band,) int32."""
@@ -55,18 +86,18 @@ def initial_wavefront(n: int, dlo: int, band: int, params: ScoreParams,
 
 
 def make_row_step(n: int, dlo: int, band: int, params: ScoreParams,
-                  device: torch.device):
-    """The DP row recurrence in band coordinates, with pointers.
+                  device: torch.device, emit_ptrs: bool = False):
+    """The DP row recurrence in band coordinates.
 
-    Returns ``step(prev_m, prev_ix, prev_iy, i, qi, t) -> (m, ix, iy,
-    ptr)``: the wavefronts are (T, band) int32, ``i`` the 1-based query
-    row, ``qi`` the (T,) int32 query codes of that row and ``t`` the
-    (T, n) int32 padded targets.  ``ptr`` is one uint8 per band cell:
-    bits 0-1 = diag argmax (0=M, 1=Ix, 2=Iy, tie-break M >= Ix >= Iy),
-    bit 2 = Ix from extend, bit 3 = Iy from extend (gap-open wins
-    ties).  The j==0 Ix boundary override equals the generic max it
-    replaces (M[i-1][j=0] is NEG for i > 1 and 0 for i = 1), so the
-    extend bit stays valid there."""
+    Returns ``step(prev_m, prev_ix, prev_iy, i, qi, t) -> (m, ix, iy)``:
+    the wavefronts are (L, band) int32, ``i`` the 1-based query row,
+    ``qi`` the (L,) int32 query codes of that row and ``t`` the (L, n)
+    int32 padded targets.  With ``emit_ptrs`` the step also returns
+    ``ptr``, one uint8 per band cell: bits 0-1 = diag argmax (0=M, 1=Ix,
+    2=Iy, tie-break M >= Ix >= Iy), bit 2 = Ix from extend, bit 3 = Iy
+    from extend (gap-open wins ties).  The j==0 Ix boundary override
+    equals the generic max it replaces (M[i-1][j=0] is NEG for i > 1 and
+    0 for i = 1), so the extend bit stays valid there."""
     ge, go = params.gap_extend, params.go
     bidx = torch.arange(band, dtype=torch.int32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -95,6 +126,8 @@ def make_row_step(n: int, dlo: int, band: int, params: ScoreParams,
         run = torch.cummax(m_new + bidx * ge, dim=1).values
         run_prev = torch.cat([negcol, run[:, :-1]], dim=1)
         iy_new = torch.where(valid, run_prev - go - (bidx - 1) * ge, neg)
+        if not emit_ptrs:
+            return m_new, ix_new, iy_new
         dm = torch.where((prev_m >= prev_ix) & (prev_m >= prev_iy), 0,
                          torch.where(prev_ix >= prev_iy, 1, 2))
         bx = (up_ix - ge > up_m - go).to(torch.int32)
@@ -107,3 +140,209 @@ def make_row_step(n: int, dlo: int, band: int, params: ScoreParams,
         return m_new, ix_new, iy_new, ptr
 
     return step
+
+
+def final_score(m_f, ix_f, iy_f, t_lens, m: int, dlo: int,
+                band: int) -> torch.Tensor:
+    """The global score at cell (m, t_len) of each lane from its last
+    (L, band) wavefront; NEG where t_len falls outside the band."""
+    b_end = t_lens.to(torch.int64) - m - dlo
+    in_band = (b_end >= 0) & (b_end < band)
+    idx = b_end.clamp(0, band - 1)[:, None]
+    best = torch.maximum(m_f.gather(1, idx),
+                         torch.maximum(ix_f.gather(1, idx),
+                                       iy_f.gather(1, idx)))[:, 0]
+    return torch.where(in_band, best, NEG).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the plain version (CPU tensors; the kernels' reference on the card)
+# ---------------------------------------------------------------------------
+def banded_scores_plain(qs: torch.Tensor, ts: torch.Tensor,
+                        t_lens: torch.Tensor, band: int = 64,
+                        params: ScoreParams = ScoreParams()
+                        ) -> torch.Tensor:
+    """(Q, T) int32 banded global scores of every query against every
+    target, on the inputs' device: qs (Q, m) codes sharing one length
+    m, ts (T, n) padded codes (pad 127), t_lens (T,) true lengths.  A
+    score is read at cell (m, t_len), NEG where the band misses it.
+    The band placement is ``band_dlo(m, n, band)`` (raises when the band
+    cannot cover diagonals 0 and n - m).  Every pair is one lane of one
+    row loop."""
+    Q, m = qs.shape
+    T, n = ts.shape
+    dlo = band_dlo(m, n, band)
+    dev = ts.device
+    step = make_row_step(n, dlo, band, params, dev)
+    L = Q * T
+    q = qs.to(device=dev, dtype=torch.int32).repeat_interleave(T, dim=0)
+    t = ts.to(torch.int32).repeat(Q, 1)
+    wave = [x.expand(L, band)
+            for x in initial_wavefront(n, dlo, band, params, dev)]
+    for i in range(1, m + 1):
+        wave = step(*wave, i, q[:, i - 1], t)
+    tl = t_lens.to(device=dev).repeat(Q)
+    return final_score(*wave, tl, m, dlo, band).view(Q, T)
+
+
+def full_gotoh_score(q: np.ndarray, t: np.ndarray,
+                     params: ScoreParams = ScoreParams()) -> int:
+    """Unbanded full-matrix Gotoh global score, identical recurrence
+    (no Ix<->Iy adjacency).  Integer math; the oracle for the band
+    tests."""
+    m, n = len(q), len(t)
+    ge, go = params.gap_extend, params.go
+    M = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    Ix = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    Iy = np.full((m + 1, n + 1), NEG, dtype=np.int64)
+    M[0, 0] = 0
+    for j in range(1, n + 1):
+        Iy[0, j] = -(go + (j - 1) * ge)
+    for i in range(1, m + 1):
+        Ix[i, 0] = -(go + (i - 1) * ge)
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            s = params.match if (q[i - 1] == t[j - 1] and q[i - 1] < 4) \
+                else -params.mismatch
+            M[i, j] = max(M[i - 1, j - 1], Ix[i - 1, j - 1],
+                          Iy[i - 1, j - 1]) + s
+            Ix[i, j] = max(M[i - 1, j] - go, Ix[i - 1, j] - ge)
+            Iy[i, j] = max(M[i, j - 1] - go, Iy[i, j - 1] - ge)
+    return int(max(M[m, n], Ix[m, n], Iy[m, n]))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (csrc/banded_dp.cu)
+# ---------------------------------------------------------------------------
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {
+    "pw_scores": ([_I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P], _I),
+    "pw_scores_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
+}
+
+
+def _fn(name: str):
+    """The C entry point ``pw_scores`` or ``pw_scores_smem`` of
+    ``csrc/banded_dp.cu``, built and bound on first use."""
+    return _build.bind("banded_dp", _SIGS, _FNS)[name]
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise when a C launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def pad16(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous int8 copy of ``x`` whose rows start at 16-byte
+    boundaries (width a multiple of 16, pad code 127), or ``x`` itself
+    when it already is one."""
+    T, w = x.shape
+    if w % 16 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    width = (max(w, 1) + 15) // 16 * 16
+    out = torch.full((T, width), 127, dtype=torch.int8, device=x.device)
+    out[:, :w] = x
+    return out
+
+
+def select_kernel(m: int, n: int, band: int) -> str | None:
+    """The budget: ``"resident"`` when a lane's query and target fit a
+    block's shared memory, else ``"streamed"`` when the band's staging
+    ring does, else None (no kernel takes the shape).  The sizes come
+    from the kernel's own layout (``pw_scores_smem``), so this needs the
+    built library."""
+    for name in ("resident", "streamed"):
+        if _fn("pw_scores_smem")(int(name == "streamed"), m, n, band):
+            return name
+    return None
+
+
+def launch_scores(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,
+                  t_lens: torch.Tensor, m: int, n: int, dlo: int,
+                  band: int, params: ScoreParams, out: torch.Tensor) -> None:
+    """Launch the scores kernel on the current stream into the
+    caller-allocated (Q, T) int32 ``out``; ``qp``/``tp`` come from
+    ``pad16``, ``t_lens`` is int32.  No checks beyond the launcher's:
+    ``scores_kernel`` is the checked entry point, this is its launch
+    alone, for a timing loop."""
+    rc = _fn("pw_scores")(
+        int(streamed), qp.data_ptr(), qp.stride(0), qp.shape[0], m,
+        tp.data_ptr(), tp.stride(0), t_lens.data_ptr(), tp.shape[0], n,
+        dlo, band, params.match, params.mismatch, params.go,
+        params.gap_extend, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    name = "scores_long" if streamed else "scores"
+    check_launch(rc, name)
+    LAUNCHES[name] += 1
+
+
+def scores_kernel(qs: torch.Tensor, ts: torch.Tensor, t_lens: torch.Tensor,
+                  band: int = 64, params: ScoreParams = ScoreParams(),
+                  streamed: bool = False) -> torch.Tensor:
+    """``banded_scores_plain`` on the card: the scores kernel, the
+    variant forced by ``streamed``.  qs (Q, m) and ts (T, n) int8 codes
+    on one CUDA device.  Raises when the shape does not fit the
+    variant."""
+    if qs.device.type != "cuda" or ts.device != qs.device:
+        raise ValueError("scores_kernel: qs and ts must be on one CUDA "
+                         f"device, got {qs.device} and {ts.device}")
+    if qs.dtype != torch.int8 or ts.dtype != torch.int8 or qs.dim() != 2 \
+            or ts.dim() != 2:
+        raise ValueError("scores_kernel: need int8 (Q, m) and (T, n) "
+                         f"codes, got {qs.dtype} {tuple(qs.shape)} and "
+                         f"{ts.dtype} {tuple(ts.shape)}")
+    Q, m = qs.shape
+    T, n = ts.shape
+    dlo = band_dlo(m, n, band)
+    if Q * T >= 2 ** 31 or not _fn("pw_scores_smem")(int(streamed), m, n,
+                                                     band):
+        raise ValueError(
+            f"the {'streamed' if streamed else 'resident'} scores kernel "
+            f"does not take band {band} at Q={Q}, T={T}, m={m}, n={n}: "
+            f"{_LIMITS}")
+    tl = t_lens.to(device=qs.device, dtype=torch.int32).contiguous()
+    if tl.shape != (T,):
+        raise ValueError(f"t_lens of shape {tuple(tl.shape)}, want ({T},)")
+    out = torch.empty((Q, T), dtype=torch.int32, device=qs.device)
+    if Q and T:
+        with torch.cuda.device(qs.device):
+            launch_scores(streamed, pad16(qs), pad16(ts), tl, m, n, dlo,
+                          band, params, out)
+    return out
+
+
+def banded_scores_matrix(qs: torch.Tensor, ts: torch.Tensor,
+                         t_lens: torch.Tensor, band: int = 64,
+                         params: ScoreParams = ScoreParams()
+                         ) -> torch.Tensor:
+    """(Q, T) int32 banded global scores, on the inputs' device: qs (Q,
+    m) codes sharing one length, ts (T, n) padded int8 codes, t_lens
+    (T,) true lengths.
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches the
+    scores kernel or raises: the variant comes from the shared-memory
+    budget (``select_kernel``), and a band or shape that no variant
+    takes raises."""
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    if qs.device.type == "cpu":
+        return banded_scores_plain(qs, ts, t_lens, band, params)
+    if qs.device.type != "cuda":
+        raise ValueError(f"banded_scores_matrix: unsupported device "
+                         f"{qs.device}")
+    name = select_kernel(qs.shape[1], ts.shape[1], band)
+    if name is None:
+        raise ValueError(f"no scores kernel takes band {band} at "
+                         f"m={qs.shape[1]}, n={ts.shape[1]}: {_LIMITS}")
+    return scores_kernel(qs, ts, t_lens, band, params,
+                         streamed=name == "streamed")
+
+
+def banded_scores(q: torch.Tensor, ts: torch.Tensor, t_lens: torch.Tensor,
+                  band: int = 64,
+                  params: ScoreParams = ScoreParams()) -> torch.Tensor:
+    """One query against a target batch: (m,) codes, (T, n) padded
+    targets -> (T,) int32 scores (``banded_scores_matrix`` with Q = 1)."""
+    return banded_scores_matrix(q[None], ts, t_lens, band, params)[0]

@@ -44,8 +44,10 @@ import numpy as np
 import torch
 
 from pwasm_tpu_torch.core.events import GapData
-from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams,
-                                           initial_wavefront, make_row_step)
+from pwasm_tpu_torch.ops import _build
+from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, check_launch,
+                                           initial_wavefront, make_row_step,
+                                           pad16)
 
 OP_DIAG, OP_IX, OP_IY = 1, 2, 3
 
@@ -72,7 +74,7 @@ def forward_plain(qs: torch.Tensor, ts: torch.Tensor, q_lens: torch.Tensor,
     dev = qs.device
     T, m_max = qs.shape
     n = ts.shape[1]
-    step = make_row_step(n, dlo, band, params, dev)
+    step = make_row_step(n, dlo, band, params, dev, emit_ptrs=True)
     m, ix, iy = (x.expand(T, band)
                  for x in initial_wavefront(n, dlo, band, params, dev))
     q = qs.to(torch.int32)
@@ -177,40 +179,19 @@ def select_kernel(m_max: int, n: int, band: int) -> str | None:
     return None
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {
+    "pw_fwdptr": ([_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P, _P, _P, _P, _P], _I),
+    "pw_walk": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
+    "pw_fwd_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
+}
+
+
 def _fn(name: str):
     """The C entry point ``pw_fwdptr``, ``pw_walk`` or ``pw_fwd_smem``
     of ``csrc/realign.cu``, built and bound on first use."""
-    if not _FNS:
-        from pwasm_tpu_torch.ops import _build
-        lib = _build.load("realign")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn, argtypes, restype in (
-                (lib.pw_fwdptr, [i, p, i, p, i, p, p, i, i, i, i, i, i, i,
-                                 i, i, p, p, p, p, p], i),
-                (lib.pw_walk, [p, p, p, p, i, i, i, p, p, p, p], i),
-                (lib.pw_fwd_smem, [i, i, i, i], ctypes.c_longlong)):
-            fn.argtypes = argtypes
-            fn.restype = restype
-            _FNS[fn.__name__] = fn
-    return _FNS[name]
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-
-
-def _pad16(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous int8 copy of ``x`` whose rows start at 16-byte
-    boundaries (width a multiple of 16, pad code 127), or ``x`` itself
-    when it already is one."""
-    T, w = x.shape
-    if w % 16 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0:
-        return x
-    width = (max(w, 1) + 15) // 16 * 16
-    out = torch.full((T, width), 127, dtype=torch.int8, device=x.device)
-    out[:, :w] = x
-    return out
+    return _build.bind("realign", _SIGS, _FNS)[name]
 
 
 def launch_forward(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,
@@ -218,7 +199,7 @@ def launch_forward(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,
                    n: int, dlo: int, band: int, params: ScoreParams,
                    ptrs, score, b0, mat0) -> None:
     """Launch fwdptr on the current stream into caller-allocated outputs;
-    ``qp``/``tp`` come from ``_pad16``, the lengths are int32.  No checks
+    ``qp``/``tp`` come from ``pad16``, the lengths are int32.  No checks
     beyond the launcher's: ``forward_kernel`` is the checked entry
     point, this is its launch alone, for a timing loop."""
     rc = _fn("pw_fwdptr")(
@@ -228,7 +209,7 @@ def launch_forward(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,
         params.gap_extend, ptrs.data_ptr(), score.data_ptr(),
         b0.data_ptr(), mat0.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
-    _check(rc, "fwdptr_long" if streamed else "fwdptr")
+    check_launch(rc, "fwdptr_long" if streamed else "fwdptr")
     LAUNCHES["fwdptr_long" if streamed else "fwdptr"] += 1
 
 
@@ -240,7 +221,7 @@ def launch_walk(ptrs, b0, mat0, q_lens, iy_runs, ops_rows, b_f) -> None:
         ptrs.data_ptr(), b0.data_ptr(), mat0.data_ptr(), q_lens.data_ptr(),
         T, m_max, band, iy_runs.data_ptr(), ops_rows.data_ptr(),
         b_f.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _check(rc, "walk")
+    check_launch(rc, "walk")
     LAUNCHES["walk"] += 1
 
 
@@ -279,7 +260,7 @@ def forward_kernel(qs: torch.Tensor, ts: torch.Tensor, q_lens, t_lens,
                        for _ in range(3))
     if T:
         with torch.cuda.device(dev):
-            launch_forward(streamed, _pad16(qs), _pad16(ts),
+            launch_forward(streamed, pad16(qs), pad16(ts),
                            _lens(q_lens, T, dev), _lens(t_lens, T, dev),
                            m_max, n, int(dlo), band, params, ptrs, score,
                            b0, mat0)
@@ -359,6 +340,122 @@ def banded_realign_rows(qs: torch.Tensor, ts: torch.Tensor,
     return scores, leads, iy_runs, ops_rows, ok
 
 
+def banded_traceback_batch(qs: torch.Tensor, ts: torch.Tensor,
+                           q_lens: torch.Tensor, t_lens: torch.Tensor,
+                           band: int = 64,
+                           params: ScoreParams = ScoreParams(),
+                           dlo: int | None = None):
+    """Batched banded re-alignment with an expanded op-string traceback:
+    ``banded_realign_rows``, its compressed rows expanded on the host.
+    Returns numpy ``(scores, ops_bwd, ok)`` with ops_bwd (T, m_max + n)
+    int8 REVERSE-order ops, 0-padded (all 0 where not ok)."""
+    scores, leads, iy_runs, ops_rows, ok = (
+        x.cpu().numpy() for x in banded_realign_rows(
+            qs, ts, q_lens, t_lens, band=band, params=params, dlo=dlo))
+    T, m_max = iy_runs.shape
+    ql = q_lens.cpu().numpy()
+    ops_bwd = np.zeros((T, m_max + ts.shape[1]), dtype=np.int8)
+    for k in np.flatnonzero(ok):
+        fwd = rows_to_ops_fwd(int(leads[k]), iy_runs[k], ops_rows[k],
+                              int(ql[k]))
+        ops_bwd[k, :len(fwd)] = fwd[::-1]
+    return scores, ops_bwd, ok
+
+
+# ---------------------------------------------------------------------------
+# gap extraction on the device: compressed rows -> fixed-capacity slots
+# ---------------------------------------------------------------------------
+def gap_slots(leads: torch.Tensor, iy_runs: torch.Tensor,
+              ops_rows: torch.Tensor, q_lens: torch.Tensor, max_gaps: int):
+    """Per lane, up to ``max_gaps`` (pos, len) gap slots per side from
+    the compressed rows, on their device: ``(rg_pos, rg_len, r_count,
+    tg_pos, tg_len, t_count, overflow)``, int32 (T, G) slots, int32 (T,)
+    counts and a bool (T,) overflow (more gaps than slots; the slots past
+    G are dropped).  Query gaps: the lead run at qpos 0, then every row
+    with an Iy run at qpos = row.  Target gaps: each maximal run of IX
+    rows, at the target position where it starts."""
+    dev = iy_runs.device
+    T, m_max = iy_runs.shape
+    G = max_gaps
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = torch.arange(1, m_max + 1, **i32)
+    lead = leads.to(**i32)
+    live = rows[None, :] <= q_lens.to(**i32)[:, None]
+    iy = torch.where(live, iy_runs.to(torch.int32), 0)
+    opl = torch.where(live, ops_rows.to(torch.int32), 0)
+    consumed = iy + (opl == OP_DIAG).to(torch.int32)
+    # target bases consumed before each row's op (exclusive prefix)
+    tcons = lead[:, None] + torch.cumsum(consumed, 1, dtype=torch.int32) \
+        - consumed
+    has_lead = (lead > 0).to(torch.int32)
+    r_mask = iy > 0
+
+    def scatter(slot, *vals):
+        # slots >= G land in a spare column that is then dropped
+        idx = slot.clamp(max=G).long()
+        return [torch.zeros((T, G + 1), **i32).scatter_(1, idx, v)[:, :G]
+                for v in vals]
+
+    r_slot = torch.where(
+        r_mask, torch.cumsum(r_mask, 1, dtype=torch.int32) - 1
+        + has_lead[:, None], G)
+    rg_pos, rg_len = scatter(r_slot, rows.expand(T, m_max), iy)
+    if G:
+        first = has_lead == 1
+        rg_pos[:, 0] = torch.where(first, 0, rg_pos[:, 0])
+        rg_len[:, 0] = torch.where(first, lead, rg_len[:, 0])
+    r_count = r_mask.sum(1, dtype=torch.int32) + has_lead
+    is_ix = opl == OP_IX
+    prev = torch.cat([torch.zeros((T, 1), dtype=torch.bool, device=dev),
+                      is_ix[:, :-1]], dim=1)
+    start = is_ix & ~prev
+    idx = torch.arange(m_max, **i32).expand(T, m_max)
+    # the next non-IX row index at or after each row
+    nni = torch.cummin(torch.where(is_ix, m_max, idx).flip(1),
+                       dim=1).values.flip(1)
+    t_slot = torch.where(start, torch.cumsum(start, 1, dtype=torch.int32)
+                         - 1, G)
+    tg_pos, tg_len = scatter(t_slot, tcons, nni - idx)
+    t_count = start.sum(1, dtype=torch.int32)
+    overflow = (r_count > G) | (t_count > G)
+    return rg_pos, rg_len, r_count, tg_pos, tg_len, t_count, overflow
+
+
+def realign_gaps_batch(qs: torch.Tensor, ts: torch.Tensor,
+                       q_lens: torch.Tensor, t_lens: torch.Tensor,
+                       band: int = 64, params: ScoreParams = ScoreParams(),
+                       dlo: int | None = None, max_gaps: int = 32):
+    """Re-align a batch and extract its gap records on the inputs'
+    device: ``(scores, ok, gap_slots(...))``.  ``overflow`` lanes have
+    more gaps than slots and must take the expanded-ops path.  Feed the
+    slots to ``gap_slots_to_gapdata`` for the CIGAR-walk strand
+    conventions."""
+    scores, leads, iy_runs, ops_rows, ok = banded_realign_rows(
+        qs, ts, q_lens, t_lens, band=band, params=params, dlo=dlo)
+    return scores, ok, gap_slots(leads, iy_runs, ops_rows, q_lens,
+                                 max_gaps)
+
+
+def gap_slots_to_gapdata(rg_pos, rg_len, r_count, tg_pos, tg_len, t_count,
+                         offset: int, r_len: int, eff_t_len: int,
+                         reverse: int
+                         ) -> tuple[list[GapData], list[GapData]]:
+    """One lane's gap slots -> (rgaps, tgaps) GapData lists with the
+    exact conventions of ``ops_to_gaps`` (strand flip included)."""
+    rgaps: list[GapData] = []
+    for i in range(int(r_count)):
+        pos = offset + int(rg_pos[i])
+        if reverse:
+            pos = r_len - pos
+        rgaps.append(GapData(pos, int(rg_len[i])))
+    tgaps: list[GapData] = []
+    for i in range(int(t_count)):
+        pos = int(tg_pos[i])
+        tgaps.append(GapData(eff_t_len - pos if reverse else pos,
+                             int(tg_len[i])))
+    return rgaps, tgaps
+
+
 # ---------------------------------------------------------------------------
 # host side: compressed rows -> op string -> GapData lists; the oracle
 # ---------------------------------------------------------------------------
@@ -374,6 +471,20 @@ def rows_to_ops_fwd(lead: int, iy_runs: np.ndarray, ops_rows: np.ndarray,
     vals[2::2] = OP_IY
     lens[2::2] = iy_runs[:q_len]
     return np.repeat(vals, lens)
+
+
+def ops_forward(ops_bwd_row: np.ndarray) -> np.ndarray:
+    """Reverse the non-zero prefix of one traceback row into forward
+    alignment order."""
+    k = int((ops_bwd_row != 0).sum())
+    return ops_bwd_row[:k][::-1]
+
+
+def ops_consumed(ops_fwd: np.ndarray) -> tuple[int, int]:
+    """(query bases, target bases) consumed by a forward op string."""
+    q = int(((ops_fwd == OP_DIAG) | (ops_fwd == OP_IX)).sum())
+    t = int(((ops_fwd == OP_DIAG) | (ops_fwd == OP_IY)).sum())
+    return q, t
 
 
 def ops_to_gaps(ops_fwd: np.ndarray, offset: int, r_len: int,

@@ -1,0 +1,215 @@
+"""The port's scores-only banded DP (``pwasm_tpu_torch/ops/banded_dp.py``)
+on the CPU against the JAX package: the plain version against the XLA
+path (``banded_scores_batch``), the two Pallas kernels in interpret mode
+and the full-matrix numpy oracle, plus the band placement's error, the
+end cell outside the band, N codes, custom scores and the rule that a
+CPU tensor never reaches the kernel build.  All comparisons are exact
+(integer math)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pwasm_tpu.ops import banded_dp as ref
+from pwasm_tpu_torch.ops import _build, banded_dp
+
+from test_realign import _mutate
+
+NEG = banded_dp.NEG
+
+
+def make_batch(seed, band, T=16, m_lo=60, m_hi=100, n_max=120,
+               alphabet=5):
+    """One random query of length m and T mutated targets padded (code
+    127) to an n the band can place: m for bands below 4, else up to
+    m + band // 2."""
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(m_lo, m_hi + 1))
+    n = m if band < 4 else min(n_max, m + band // 2)
+    q = rng.integers(0, alphabet, m).astype(np.int8)
+    ts = np.full((T, n), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = _mutate(rng, q, int(rng.integers(0, 8)),
+                    int(rng.integers(0, 6)))[:n]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    return q, ts, t_lens
+
+
+def port_scores(q, ts, t_lens, band, params=banded_dp.ScoreParams()):
+    return banded_dp.banded_scores(
+        torch.from_numpy(q), torch.from_numpy(ts), torch.from_numpy(t_lens),
+        band=band, params=params).numpy()
+
+
+def ref_scores(q, ts, t_lens, band, params=ref.ScoreParams()):
+    return np.asarray(ref.banded_scores_batch(
+        jnp.asarray(q), jnp.asarray(ts), jnp.asarray(t_lens), band=band,
+        params=params))
+
+
+@pytest.mark.parametrize("band", [2, 3, 16, 33, 64])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_plain_equals_xla_path(seed, band):
+    q, ts, t_lens = make_batch(seed, band)
+    want = ref_scores(q, ts, t_lens, band)
+    got = port_scores(q, ts, t_lens, band)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    if band >= 16:
+        assert (got > NEG).sum() >= len(got) // 2   # real scores, not NEG
+
+
+def test_plain_equals_pallas_resident_kernel():
+    rng = np.random.default_rng(21)
+    m, n, band, T = 96, 112, 32, 16
+    q = rng.integers(0, 4, m).astype(np.int8)
+    ts = np.full((T, n), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = _mutate(rng, q, 6, 3)[:n]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    want = np.asarray(ref.banded_scores_pallas(
+        jnp.asarray(q), jnp.asarray(ts), jnp.asarray(t_lens), band=band,
+        block_t=8, interpret=True))
+    np.testing.assert_array_equal(port_scores(q, ts, t_lens, band), want)
+
+
+@pytest.mark.parametrize("geometry", ["plain", "interior_pairs"])
+def test_plain_equals_pallas_streamed_kernel(geometry):
+    """The streamed kernel, also at the geometry of
+    tests/test_banded_dp.py::test_long_kernel_interior_pairs (whole DMA
+    pairs in the mask-elided interior phase)."""
+    if geometry == "plain":
+        rng = np.random.default_rng(22)
+        m, n, band, T = 96, 112, 32, 16
+    else:
+        rng = np.random.default_rng(13)
+        m, n, band, T = 256, 280, 32, 7
+    q = rng.integers(0, 4, m).astype(np.int8)
+    ts = np.full((T, n), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = _mutate(rng, q, int(rng.integers(0, 8)),
+                    int(rng.integers(0, 4)))[:n]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    want = np.asarray(ref.banded_scores_long(
+        jnp.asarray(q), jnp.asarray(ts), jnp.asarray(t_lens), band=band,
+        block_t=8, chunk=32, interpret=True))
+    np.testing.assert_array_equal(port_scores(q, ts, t_lens, band), want)
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_wide_band_equals_full_gotoh(seed):
+    """A band covering the whole matrix gives the unbanded score; the
+    port's numpy oracle equals the reference's."""
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(5, 30))
+    q = rng.integers(0, 5, m).astype(np.int8)
+    T, n = 6, m + 8
+    ts = np.full((T, n), 127, dtype=np.int8)
+    t_lens = np.zeros(T, dtype=np.int32)
+    for k in range(T):
+        t = _mutate(rng, q, 3, 2)[:n]
+        ts[k, :len(t)] = t
+        t_lens[k] = len(t)
+    band = 2 * (m + n) + 1
+    got = port_scores(q, ts, t_lens, band)
+    for k in range(T):
+        t = ts[k, :t_lens[k]]
+        want = ref.full_gotoh_score(q, t)
+        assert banded_dp.full_gotoh_score(q, t) == want
+        assert got[k] == want, k
+
+
+@pytest.mark.parametrize("m,n,band", [(200, 199, 1), (10, 40, 8),
+                                      (40, 10, 16), (5, 5, 1)])
+def test_band_dlo_matches_reference(m, n, band):
+    try:
+        want = ref.band_dlo(m, n, band)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            banded_dp.band_dlo(m, n, band)
+        assert str(got.value) == str(e)
+        assert "too narrow" in str(e)
+    else:
+        assert banded_dp.band_dlo(m, n, band) == want
+
+
+def test_end_cell_outside_band_is_neg():
+    """Targets whose t_len puts the end cell outside [0, band) read NEG,
+    with the same true t_len on the reference."""
+    q, ts, t_lens = make_batch(7, 16)
+    m = len(q)
+    dlo = banded_dp.band_dlo(m, ts.shape[1], 16)
+    t_lens = t_lens.copy()
+    t_lens[:4] = [m + dlo - 1, m + dlo + 16, 0, ts.shape[1] + 40]
+    got = port_scores(q, ts, t_lens, 16)
+    np.testing.assert_array_equal(got, ref_scores(q, ts, t_lens, 16))
+    assert (got[:4] == NEG).all()
+
+
+def test_n_codes_never_match():
+    """An N (code 4) in the query never matches, not even an N in the
+    target."""
+    q, ts, t_lens = make_batch(8, 33, alphabet=4)
+    q[::7] = 4
+    ts[:, ::5] = np.where(ts[:, ::5] == 127, 127, 4)
+    ts[0, :len(q)] = q              # N against N, all along the diagonal
+    t_lens[0] = len(q)
+    got = port_scores(q, ts, t_lens, 33)
+    np.testing.assert_array_equal(got, ref_scores(q, ts, t_lens, 33))
+    n_n = int((q == 4).sum())
+    assert got[0] == 2 * (len(q) - n_n) - 4 * n_n
+
+
+def test_custom_score_params():
+    q, ts, t_lens = make_batch(9, 33)
+    p = dict(match=3, mismatch=5, gap_open=7, gap_extend=1)
+    got = port_scores(q, ts, t_lens, 33, banded_dp.ScoreParams(**p))
+    np.testing.assert_array_equal(
+        got, ref_scores(q, ts, t_lens, 33, ref.ScoreParams(**p)))
+    assert (got != port_scores(q, ts, t_lens, 33)).any()
+
+
+def test_matrix_equals_reference_many2many():
+    """The (Q, T) form against the reference's vmapped queries."""
+    from pwasm_tpu.parallel.many2many import many2many_scores
+
+    rng = np.random.default_rng(10)
+    q, ts, t_lens = make_batch(10, 64, T=9)
+    qs = np.stack([q] + [_mutate(rng, q, 5, 0) for _ in range(2)])
+    want = np.asarray(many2many_scores(jnp.asarray(qs), jnp.asarray(ts),
+                                       jnp.asarray(t_lens), band=64))
+    got = banded_dp.banded_scores_matrix(
+        torch.from_numpy(qs), torch.from_numpy(ts),
+        torch.from_numpy(t_lens), band=64).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        banded_dp.banded_scores(torch.from_numpy(q), torch.from_numpy(ts),
+                                torch.from_numpy(t_lens), 64).numpy(),
+        want[0])
+
+
+def test_cpu_tensors_never_reach_the_build(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"a CPU call tried to build {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(banded_dp, "_FNS", {})
+    q, ts, t_lens = make_batch(11, 16, T=4)
+    args = (torch.from_numpy(q), torch.from_numpy(ts),
+            torch.from_numpy(t_lens))
+    banded_dp.banded_scores(*args, band=16)
+    banded_dp.banded_scores_matrix(args[0][None], *args[1:], band=16)
+    from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
+    many2many_scores_ragged([q, q[:50]], list(ts), band=16,
+                            device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="band must be >= 1"):
+        banded_dp.banded_scores_matrix(args[0][None], *args[1:], band=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_dp.scores_kernel(args[0][None], args[1], args[2], band=16)

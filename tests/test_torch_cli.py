@@ -121,7 +121,7 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--trace-json=t.json", "obs"), ("--many2many", "slice 3"),
+    ("--trace-json=t.json", "obs"), ("--m2m-stream", "surveil"),
     ("--shard", "multi-GPU"), ("--stats=s.json", "--stats"),
     ("--resume", "resilience"), ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
