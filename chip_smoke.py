@@ -37,11 +37,13 @@ Phases, one JSON line each; any failure exits non-zero:
 9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
               1,200-1,800 bases against 10,240 targets) through the CLI's
               ``--many2many`` with --device=cuda: stage times, dispatches
-              and scores-kernel launches; then --device=cpu with only the
-              shortest and the longest CDS, whose sections and -s lines
-              must equal the cuda run's byte for byte; the scores kernel
-              checked and timed on the inputs of the cuda run's largest
-              dispatch;
+              and scores-kernel launches, every dispatch holding only
+              in-band targets (its cells, the run's bound, must equal
+              the in-band pairs' m x band; cells_all counts every
+              pair's); then --device=cpu with only the shortest and the
+              longest CDS, whose sections and -s lines must equal the
+              cuda run's byte for byte; the scores kernel checked and
+              timed on the inputs of the cuda run's largest dispatch;
 10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
               4 targets of ~116 kb, the least length at which the budget
               streams: the streamed scores kernel runs, and its scores
@@ -50,10 +52,15 @@ Phases, one JSON line each; any failure exits non-zero:
    prints them, and the final ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
-against the plain version at 3 queries x 37 targets for bands 2 to
-4,096, once from a misaligned address (which the wrapper copies to
-aligned rows and the launcher itself refuses), and at BASELINE.md
-config 2's shape (1 x 10,240 targets of ~1,500 bases, band 64).
+against the plain version at 3 queries x 37 targets for bands 1 to
+4,096 (the edges of the resident kernel's sub-warp layout and past it,
+each shape's resident body checked against the Python mirrors of its
+layout and row split), at band 64 with fewer rows than the band and
+with an empty interior, at band 7 with 2,000 rows (a two-warp block),
+once from a misaligned address (which the wrapper copies to aligned
+rows and the launcher itself refuses), at BASELINE.md config 2's shape
+(1 x 10,240 targets of ~1,500 bases, band 64) and at a many-lanes shape
+(7 x 9,143 x 1,725, band 64).
 
 Outputs are written under ``chip_smoke_out/``.
 """
@@ -71,9 +78,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# int32 operations: 64 INT32 lanes per SM (NVIDIA H100 white paper) x 132
-# SMs x the 1.98 GHz boost clock, each add, compare or max one operation
-INT_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 instructions: an SM's 4 schedulers each issue one warp
+# instruction (32 threads) a cycle, x 132 SMs x the 1.98 GHz boost clock.
+# The 64 INT32 lanes per SM of NVIDIA's H100 white paper are not the
+# ceiling: the compiler moves integer adds to the FP32 (FMA) pipe, and
+# the resident scores kernel ran faster than 11 operations a cell over
+# 64 lanes would allow; no integer instruction issues faster than this
+INT_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
            "contig.info", "cons.fa")
 # the realign dispatches (T, m_max, n, band) of the 200-alignment
@@ -82,31 +93,46 @@ OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
 REALIGN_DISPATCHES = [(1, 1536, 1408, 64), (1, 1536, 1408, 256),
                       (176, 1536, 1536, 64), (41, 1536, 1536, 256),
                       (23, 1536, 1664, 64), (23, 1536, 1664, 256)]
-# int32 operations that the realign forward pass needs per interior band
-# cell: the scores recurrence's 11 (below), 4 for the diagonal argmax
+# int32 instructions that the realign forward pass needs per interior
+# band cell: the scores recurrence's 8 (below), 4 for the diagonal argmax
 # (M against the max of Ix and Iy, Ix against Iy, two selects), 1 for
 # Ix's extend bit (a compare of its two candidates), 3 for Iy's (two
 # subtractions and a compare) and 4 to pack the byte (two shifts, two
 # ors).  The kernel's loads, range tests, edge masks and scan
 # bookkeeping are not counted: the bound is the least work
-FWD_OPS_PER_CELL = 23
+FWD_OPS_PER_CELL = 20
 # the walk: per live row its fixed work, per pointer byte it reads a
 # load, a test and a ballot lane
 WALK_OPS_PER_ROW = 20
 WALK_OPS_PER_CELL = 3
-# int32 operations that the scores recurrence needs per interior band
-# cell: the score's compare and select (q < 4 is tested once a row), M's
-# two maxima and add, Ix's two subtractions and maximum, the prefix's
-# add (of the cell's constant b*ge) and maximum, and Iy's one
-# subtraction (of the cell's constant go + (b-1)*ge).  The masks act only
-# at the band's edges.  score_row in csrc/banded_dp.cu spends ~30, its
-# range tests and selects included; Hopper's fused DPX forms (3-way max,
-# add-max) would need 8, at a rate the card's tables do not give
-SCORE_OPS_PER_CELL = 11
+# int32 instructions that the scores recurrence needs per interior band
+# cell: its 11 operations (the score's compare and select, q < 4 tested
+# once a row; M's two maxima and add; Ix's two subtractions and maximum;
+# the prefix's add of the cell's constant b*ge and maximum; Iy's one
+# subtraction of the cell's constant go + (b-1)*ge) as Hopper issues
+# them, three pairs fused by DPX: M's maxima in one 3-way max, Ix's go
+# subtraction and maximum in one add-max, and the prefix's add and
+# maximum in another.  The masks act only at the band's edges.  The
+# sub-warp body's interior in csrc/banded_dp.cu issues ~10 (with a
+# shared byte load and the exclusive prefix's max), plus ~10 a row for
+# the shuffles; the block-wide score_row ~30, range tests and selects
+# included
+SCORE_OPS_PER_CELL = 8
 # cudaErrorMisalignedAddress (CUDA's driver_types.h)
 CUDA_ERROR_MISALIGNED = 716
-# the scores kernels' fixed shapes: bands at 3 queries x 37 targets
-SCORE_BANDS = (2, 3, 16, 33, 64, 256, 1024, 4096)
+# the scores kernels' fixed shapes: bands at 3 queries x 37 targets, at
+# the edges of the sub-warp layout (C cells a thread, G threads a lane)
+# and past it
+SCORE_BANDS = (1, 2, 3, 7, 8, 9, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255,
+               256, 257, 1024, 4096)
+# (Q, T, m, n, band): at band 64 rows fewer than the band and an empty
+# interior; at band 7 rows so long that four warps' 128 targets overflow
+# shared memory, so the sub-warp block has two warps
+SCORE_SHAPES = ((3, 37, 20, 51, 64), (3, 37, 45, 76, 64),
+                (3, 37, 2000, 2003, 7))
+# the many-lanes shape at band 64 (the largest dispatch before the
+# config-3 run sent only in-band targets), timed beside config 2
+MANY_LANES = (7, 9143, 1725, 1725)
 
 
 def emit(obj: dict) -> None:
@@ -659,6 +685,21 @@ def check_scores(lanes, band: int, cycles_per_s: float | None,
         err = max(err, e)
     out = dict(shape=[Q, T, m, n, band], max_abs_err=err,
                in_band=int((plain > bd.NEG).sum()))
+    # which resident body ran, against the Python mirrors of its layout
+    # and row split (every band a warp holds fits these shapes' blocks)
+    plan = bd.resident_plan(m, n, band)
+    layout = bd.subwarp_layout(band)
+    if layout is None:
+        want = None
+    else:
+        want = dict(body="subwarp", cells=layout[0], threads=layout[1],
+                    interior=bd.interior_rows(m, n, bd.band_dlo(m, n, band),
+                                              band))
+    if (want is None) != (plan["body"] == "block") or want is not None \
+            and any(plan[k] != want[k] for k in want):
+        raise AssertionError(f"the resident plan {plan} at {what} is not "
+                             f"the mirrors' {want}")
+    out["plan"] = plan
     if misaligned:
         tp = bd.pad16(ts)
         buf = torch.empty(tp.numel() + 16, dtype=torch.int8, device=ts.device)
@@ -705,9 +746,11 @@ def check_scores(lanes, band: int, cycles_per_s: float | None,
 def logged_scores():
     """Wrap ``banded_scores_matrix`` as ``parallel/many2many.py`` calls
     it, while the block runs; yields the list of its calls as (Q, T, m,
-    n, kernel, band), the kernel read from the launch counters ("plain" when
-    none moved), and a dict that keeps the CUDA inputs of the largest
-    call (by Q x T x m): ``inputs`` (qs, ts, t_lens) and ``band``."""
+    n, kernel, band, out_of_band), the kernel read from the launch
+    counters ("plain" when none moved) and out_of_band the count of
+    targets whose end cell the band misses, and a dict that keeps the
+    CUDA inputs of the largest call (by Q x T x m): ``inputs`` (qs, ts,
+    t_lens) and ``band``."""
     from pwasm_tpu_torch.ops import banded_dp as bd
     from pwasm_tpu_torch.parallel import many2many as m2m
 
@@ -722,8 +765,10 @@ def logged_scores():
                           ("scores_long", "streamed")):
             if bd.LAUNCHES[key] > before[key]:
                 kernel = name
-        log.append((qs.shape[0], ts.shape[0], qs.shape[1], ts.shape[1],
-                    kernel, band))
+        m, n = qs.shape[1], ts.shape[1]
+        b_end = t_lens.long() - m - bd.band_dlo(m, n, band)
+        log.append((qs.shape[0], ts.shape[0], m, n, kernel, band,
+                    int(((b_end < 0) | (b_end >= band)).sum())))
         size = qs.shape[0] * ts.shape[0] * qs.shape[1]
         if qs.is_cuda and size > largest.get("size", -1):
             largest.update(size=size, inputs=(qs, ts, t_lens), band=band)
@@ -814,12 +859,31 @@ def run_many2many(work: str, cycles_per_s: float | None,
             summ = f.read()
         kernels = sorted({d[4] for d in dispatches})
         # the run's bound: every dispatch's sequences read once, its
-        # scores written once, all m rows of every lane's band computed
-        cells = sum(Q * T * m * b for Q, T, m, _n, _k, b in dispatches)
+        # scores written once, all m rows of every lane's band computed;
+        # the dispatches hold only in-band targets, so its cells are the
+        # in-band pairs' m x band.  cells_all: every pair's, as when all
+        # targets were dispatched
+        cells = sum(Q * T * m * b for Q, T, m, _n, _k, b, _o in dispatches)
         bound_ms, bound_by = bound(
             sum(Q * m + T * (n + 4) + 4 * Q * T
-                for Q, T, m, n, _k, _b in dispatches),
+                for Q, T, m, n, _k, _b, _o in dispatches),
             SCORE_OPS_PER_CELL * cells)
+        heads = [ln.split(b"\t") for ln in body.splitlines()
+                 if ln.startswith(b">")]
+        band = dispatches[0][5]
+        cells_all = band * sum(int(h[1]) * int(h[2]) for h in heads)
+        cells_in_band, m_q = 0, 0
+        for ln in body.splitlines():
+            if ln.startswith(b">"):
+                m_q = int(ln.split(b"\t")[1])
+            elif not ln.endswith(b"\t."):
+                cells_in_band += m_q * band
+        out_of_band = sum(d[6] for d in dispatches)
+        if out_of_band or cells != cells_in_band:
+            raise AssertionError(
+                f"--many2many --device={dev} dispatched {out_of_band} "
+                f"out-of-band lanes; {cells} cells launched against the "
+                f"in-band pairs' {cells_in_band}")
         runs[dev] = dict(largest=largest, sections=sections(body),
                          sums={ln.split(b"\t", 1)[0]: ln
                                for ln in summ.splitlines()})
@@ -827,6 +891,9 @@ def run_many2many(work: str, cycles_per_s: float | None,
                   stage_s=st["times"], run_s=st["wall_s"], pairs=st["pairs"],
                   dispatches=st["dispatches"], kernels=kernels,
                   cells=cells, bound_s=bound_ms / 1e3, bound_by=bound_by,
+                  cells_all=cells_all,
+                  bound_all_s=SCORE_OPS_PER_CELL * cells_all
+                  / INT_OPS_PER_S,
                   launches=launches, report_bytes=len(body),
                   in_band=sum(1 for ln in body.splitlines()
                               if not ln.startswith(b">")
@@ -941,7 +1008,7 @@ def main() -> int:
               per_source_s=secs,
               ptxas=[ln for log in _build.BUILD_LOG.values()
                      for ln in log.splitlines() if "registers" in ln
-                     or "spill" in ln]))
+                     or "spill" in ln or "entry function" in ln]))
 
     # 3. kernel vs plain at fixed shapes
     cycles_per_s = sleep_cycles_per_s()
@@ -979,9 +1046,10 @@ def main() -> int:
         emit(dict(phase="kernel", name="walk", planes=case, max_abs_err=err))
 
     # the scores kernels, both variants forced: 3 queries x 37 targets at
-    # each band (n = m + (band - 1) // 2, the widest the band can place),
-    # the band-64 inputs again from a misaligned address (the wrapper
-    # realigns them; the launcher refuses them), and config 2
+    # each band (n = m + (band - 1) // 2, the widest the band can place)
+    # and at SCORE_SHAPES, the band-64 inputs again from a misaligned
+    # address (the wrapper realigns them; the launcher refuses them),
+    # config 2 and the many-lanes shape
     from pwasm_tpu_torch.ops import banded_dp as bd
     sc_checks = []
     for k, band in enumerate(SCORE_BANDS):
@@ -993,9 +1061,15 @@ def main() -> int:
                                           misaligned=True))
             emit(dict(phase="kernel", name="scores", misaligned=True,
                       **sc_checks[-1]))
+    for k, (*shape, band) in enumerate(SCORE_SHAPES):
+        sc_checks.append(check_scores(scores_lanes(50 + k, *shape), band,
+                                      cycles_per_s))
+        emit(dict(phase="kernel", name="scores", **sc_checks[-1]))
     cfg2 = check_scores(config2_lanes(), 64, cycles_per_s)
     emit(dict(phase="kernel", name="scores", config=2, **cfg2))
-    sc_checks.append(cfg2)
+    many = check_scores(scores_lanes(60, *MANY_LANES), 64, cycles_per_s)
+    emit(dict(phase="kernel", name="scores", many_lanes=True, **many))
+    sc_checks += [cfg2, many]
 
     work = os.path.join(ROOT, "chip_smoke_out")
     shutil.rmtree(work, ignore_errors=True)
@@ -1219,10 +1293,10 @@ def main() -> int:
     no_library = "no torch call computes banded Gotoh with pointers"
     no_scores_library = "no torch call computes banded Gotoh scores"
     sc_err = max(c["max_abs_err"] for c in sc_checks)
-    sc_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
-                      ms_streamed=c["ms_streamed"], plain_ms=c["plain_ms"],
-                      bound_ms=c["bound_ms"]) for c in sc_checks
-                 if "ms_resident" in c]
+    sc_shapes = [dict(shape=c["shape"], body=c["plan"]["body"],
+                      ms=c["ms_resident"], ms_streamed=c["ms_streamed"],
+                      plain_ms=c["plain_ms"], bound_ms=c["bound_ms"])
+                 for c in sc_checks if "ms_resident" in c]
     emit({"kernels": [dict(
         name="consensus", route="cuda",
         source="pwasm_tpu_torch/csrc/consensus.cu",
@@ -1272,7 +1346,8 @@ def main() -> int:
         ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
         bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
         library_ms=None, library=no_scores_library, shape=main_sc["shape"],
-        shapes=sc_shapes), dict(
+        body=main_sc["plan"]["body"], config2_ms=cfg2["ms_resident"],
+        many_lanes_ms=many["ms_resident"], shapes=sc_shapes), dict(
         name="scores_long", route="cuda",
         source="pwasm_tpu_torch/csrc/banded_dp.cu",
         replaces="pwasm_tpu/ops/banded_dp.py:420",

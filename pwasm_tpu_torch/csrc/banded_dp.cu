@@ -18,39 +18,82 @@
 // cell's band index t_len - m - dlo lies outside [0, band).  n is the
 // dispatch's padded width, t_len the target's true length.
 //
-// Design.  One block per (query, target) lane; one launch covers the
-// Q x T cross product of a dispatch (blockIdx.x = q * T + t).  The
-// threads lie across the band, each owning C adjacent cells (C = 2 up to
-// band 2,048, then the least power of two that keeps the block at 1,024
-// threads, so bands 1 to 32,768 run; band 64 is one warp).  A thread
-// keeps its cells' M, Ix and Iy in registers from row to row: the
-// diagonal stays in the thread, the cell above-right (b + 1) comes from
-// the next lane by __shfl_down_sync, and across a warp boundary from the
-// next warp's first cell, which that warp left in shared memory in the
-// previous row.  The Iy chain is a block-wide inclusive prefix max of
-// M + b*ge: thread-local over its C cells, __shfl_up_sync within a warp,
-// the warp totals through shared memory.  The exchange slots are double
-// buffered by row parity, so a row has one block barrier.  Both variants
-// call the same score_row and step through the rows 8 at a time: the
-// resident one with the lane's query and target in shared memory, the
-// streamed one staging each step's (band+22)-byte target window and 8
-// query bases through a cp.async double-buffered ring, so its shared
-// memory depends on the band alone and long reads fit.  No pointers are
-// written; the thread that owns the end cell writes the score.
+// Design.  Two bodies, chosen by shape in one launcher; both are
+// `LAUNCHES["scores"]` (resident) or `["scores_long"]` (streamed).
+//
+// The sub-warp body (resident, bands up to 256: scores_subwarp_kernel).  A
+// lane is a group of G threads inside a warp, each thread owning C
+// adjacent band cells in registers (C the least power of two >= band, at
+// most 8; G the least power of two with G * C >= band: at band 64, C = 8
+// and G = 8, four lanes a warp).  A block is up to four warps whose lanes
+// share one query; the grid is (query, run of targets).  The block stages
+// the query once and its lanes' targets with cp.async 16-byte copies (rows
+// are 16-byte aligned; 256 guard bytes before and after them, so a masked
+// cell's load needs no clamp), then runs the m rows with no block barrier
+// and no shared exchange: the up-right neighbour (b + 1) comes from the
+// next thread of the group by __shfl_down_sync(width = G), NEG past the
+// group's last cell; the Iy prefix max of M + b*ge is thread-local over
+// the C cells, then a log2(G)-step segmented __shfl_up_sync scan (a thread
+// below the offset gets its own value back, so no select) and one more
+// segmented shuffle for the exclusive value.  Every thread of a warp runs
+// every row (a slot past the last target works on the first target's row
+// and writes nothing), so each full-warp shuffle mask covers exactly the
+// threads that reach it.  Rows are split as the reference splits them
+// (pwasm_tpu/ops/banded_dp.py:338-341): row i is interior iff 1 - dlo <= i
+// <= n - band - dlo + 1, where every band cell has 1 <= j <= n; interior
+// rows run an unmasked body with no range test, the head and tail rows the
+// masked one (its masks are selects, one unsigned compare each).  Where
+// the band has pad cells (G * C > band), the interior body also holds
+// their M and Ix at NEG with a select, and a pad cell's load, like a
+// masked cell's, may read a guard byte.  The per-cell work
+// uses Hopper's DPX forms: __vimax3_s32 for the diagonal's three-way max,
+// __viaddmax_s32 for Ix and for the prefix; the query code is hoisted per
+// row (an N maps to a code no int8 target byte takes), so the score is one
+// compare and a select.  Tensor cores, wgmma and TMA do not apply: this is
+// an int32 max-plus recurrence with no product in it, and a lane's inputs
+// are two short byte rows.
+//
+// The block-wide body (bands above 256, a narrow band whose one-warp
+// block of targets does not fit shared memory, and the streamed variant:
+// scores_kernel<C, kStream>).  One block per (query, target) lane over
+// the Q x T cross product (blockIdx.x = q * T + t).  The threads lie
+// across the band, each owning C adjacent cells (C = 2 up to band 2,048,
+// then the least power of two that keeps the block at 1,024 threads, so
+// bands 1 to 32,768 run).  The cell above-right comes by
+// __shfl_down_sync, and across a warp boundary from the next warp's first
+// cell, which that warp left in shared memory in the previous row.  The
+// Iy chain is a block-wide inclusive prefix max of M + b*ge: thread-local
+// over its C cells, __shfl_up_sync within a warp, the warp totals through
+// shared memory.  The exchange slots are double buffered by row parity,
+// so a row has one block barrier.  Both variants call the same score_row
+// and step through the rows 8 at a time: the resident one with the lane's
+// query and target in shared memory, the streamed one staging each step's
+// (band+22)-byte target window and 8 query bases through a cp.async
+// double-buffered ring, so its shared memory depends on the band alone
+// and long reads fit.
+//
+// No pointers are written; the thread that owns the end cell writes the
+// score.
 //
 // Bound: the recurrence needs 11 int32 operations per interior band
-// cell (SCORE_OPS_PER_CELL in chip_smoke.py: the score's compare and
-// select, M's two maxima and add, Ix's two subtractions and maximum, the
-// prefix's add and maximum, Iy's one subtraction; the masks act only at
-// the band's edges and the per-cell constants are set once), and nothing
-// but the sequences in and one int32 out per lane, so the card's int32
-// rate bounds a dispatch.  score_row spends ~30 operations a cell, its
-// range tests and selects included.  Each lane is a chain of m rows with a barrier, a
-// shuffle scan and a shared round trip per row; the design keeps the
-// chain's state in registers, runs one warp per lane at the common bands
-// (no barrier waits on a second warp) and relies on many lanes per SM
-// (up to 32 blocks) to hide the chain's latency.
+// cell (the score's compare and select, M's two maxima and add, Ix's two
+// subtractions and maximum, the prefix's add and maximum, Iy's one
+// subtraction; the masks act only at the band's edges and the per-cell
+// constants are set once), which Hopper issues as 8 instructions with
+// three pairs fused by DPX (SCORE_OPS_PER_CELL in chip_smoke.py), and
+// nothing but the sequences in and one int32 out per lane, so the card's
+// instruction issue rate (4 warp instructions a cycle per SM) bounds a
+// dispatch.  The sub-warp body's interior issues about 10 a cell (a
+// shared byte load, the compare and select, one 3-way max and an add, a
+// subtraction and an add-max for Ix, an add-max for the prefix, a max
+// and a subtraction for Iy) plus about 10 a row for the shuffles and the
+// scan, spread over C cells; score_row spends ~30 a cell, its range
+// tests and selects included.  Each lane is a chain of m dependent rows;
+// the sub-warp body keeps the chain inside a warp (no barrier waits on
+// another warp) and packs several lanes into each warp, so fewer threads
+// idle on pad cells and more lanes hide each other's latency.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -108,6 +151,10 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// ---------------------------------------------------------------------
+// the block-wide body (bands above 256, and the streamed variant)
+// ---------------------------------------------------------------------
 
 // One DP row on this thread's C cells (M, X, Y hold row i-1 on entry,
 // row i on return).  tw[j - 1 - tw_off] is the target code of column j
@@ -314,6 +361,283 @@ int cells_for(int band) {
   return c;
 }
 
+// ---------------------------------------------------------------------
+// the sub-warp body (resident, bands up to 256)
+// ---------------------------------------------------------------------
+constexpr int kSubWarps = 4;          // warps a block at most
+// bytes before and after the block's target rows: a masked cell's load
+// may fall up to band - 1 bytes before its row or G * C - 2 past its
+// column n, and reads a guard or a neighbour's row, never used
+constexpr int kGuard = 256;
+
+// C cells a thread (the least power of two >= band, at most 8) and G
+// threads a lane (the least power of two with G * C >= band); G > 32
+// means no warp holds the band.  ops/banded_dp.py::subwarp_layout
+// mirrors it.
+void sub_layout(int band, int* C, int* G) {
+  int c = 1;
+  while (c < band && c < 8) c <<= 1;
+  int g = 1;
+  while (g * c < band) g <<= 1;
+  *C = c;
+  *G = g;
+}
+
+// 0-based rows [head, int_end) are interior: every band cell has
+// 1 <= j <= n (the reference's split).  ops/banded_dp.py::interior_rows
+// mirrors it.
+void interior_rows(int m, int n, int dlo, int band, int* head,
+                   int* int_end) {
+  const int h = std::min(std::max(0, -dlo), m);
+  *head = h;
+  *int_end = std::max(h, std::min(m, n - band - dlo + 1));
+}
+
+struct SubPlan {
+  int C, G, warps;    // warps == 0: the sub-warp body does not take it
+  long long smem;
+};
+
+// bytes of a sub-warp block: the query, then one target row per lane
+// between two guards
+long long sub_smem(int m, int n, int lanes) {
+  return round16(std::max(m, 1)) + 2 * kGuard +
+         static_cast<long long>(lanes) * round16(std::max(n, 1));
+}
+
+// four warps a block, fewer where their lanes' targets do not fit the
+// 227 KB a block may opt into
+SubPlan sub_plan(int m, int n, int band) {
+  SubPlan p{0, 0, 0, 0};
+  sub_layout(band, &p.C, &p.G);
+  if (p.G > 32) return p;
+  for (int w = kSubWarps; w >= 1; w >>= 1) {
+    const long long smem = sub_smem(m, n, 32 / p.G * w);
+    if (smem <= kSmemLimit) {
+      p.warps = w;
+      p.smem = smem;
+      return p;
+    }
+  }
+  return p;
+}
+
+// One DP row of one lane on this thread's C cells (M, X, Y hold row i-1
+// on entry, row i on return; base = g * C is the thread's first band
+// index).  tw[j - 1] is the target code of column j (any byte outside
+// 1..n); qe the row's query code, or a code no target byte takes where
+// the query has no base that can match.  kMasked: the head and tail rows
+// (and every row of a band with pad cells), with the reference's masks;
+// else an interior row, where every cell has 1 <= j <= n.  floor0 is the
+// Iy chain's start at band index 0 (NEG) in the group's first thread,
+// INT_MIN elsewhere.  kPad: the band has pad cells (G * C > band), whose
+// M and Ix must stay NEG for the last real cell's up-right read; the
+// masked body keeps them so, the interior body selects them so.
+template <int C, int G, bool kMasked, bool kPad>
+__device__ __forceinline__ void sub_row(int i, int qe,
+                                        const int8_t* __restrict__ tw,
+                                        int (&M)[C], int (&X)[C],
+                                        int (&Y)[C], int g, int floor0,
+                                        const Dp& d) {
+  const int base = g * C;
+  // row i-1's M and Ix at the cell after this thread's last one
+  int um = kNeg, ux = kNeg;
+  if constexpr (G > 1) {
+    um = __shfl_down_sync(kFull, M[0], 1, G);
+    ux = __shfl_down_sync(kFull, X[0], 1, G);
+    if (g == G - 1) {
+      um = kNeg;
+      ux = kNeg;
+    }
+  }
+  const int j0 = i + d.dlo + base;    // the column of cell 0
+  // the row's last live column (the band's or the target's end) and the
+  // leading-gap Ix of column 0
+  [[maybe_unused]] const unsigned jlim = min(d.n, i + d.dlo + d.band - 1);
+  [[maybe_unused]] const int x_lead = -(d.go + (i - 1) * d.ge);
+  int uc[C];                          // max of M + b*ge up to cell c
+  int run = INT_MIN;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    // M[c + 1] and X[c + 1] still hold row i-1 here
+    const int upm = c + 1 < C ? M[c + 1] : um;
+    const int upx = c + 1 < C ? X[c + 1] : ux;
+    const int b = base + c, j = j0 + c;
+    if constexpr (!kMasked) {
+      const int s = tw[j - 1] == qe ? d.match : -d.mismatch;
+      M[c] = __vimax3_s32(M[c], X[c], Y[c]) + s;
+      X[c] = __viaddmax_s32(upm, -d.go, upx - d.ge);
+      if constexpr (kPad) {
+        if (b >= d.band) {
+          M[c] = kNeg;
+          X[c] = kNeg;
+        }
+      }
+      run = __viaddmax_s32(M[c], b * d.ge, run);
+    } else {
+      // the reference's masks as selects, no branch: M and Iy live where
+      // 1 <= j <= jlim, Ix where 0 <= j <= jlim (jlim folds in b < band).
+      // The prefix takes every cell: a pad cell (b >= band) only feeds
+      // later pad cells, whose Iy is masked
+      const int s = tw[j - 1] == qe ? d.match : -d.mismatch;
+      const int mn = static_cast<unsigned>(j - 1) < jlim
+                         ? __vimax3_s32(M[c], X[c], Y[c]) + s
+                         : kNeg;
+      const int xn =
+          j == 0 ? x_lead : __viaddmax_s32(upm, -d.go, upx - d.ge);
+      run = __viaddmax_s32(mn, b * d.ge, run);
+      M[c] = mn;
+      X[c] = static_cast<unsigned>(j) <= jlim ? xn : kNeg;
+    }
+    uc[c] = run;
+  }
+  // the group's inclusive prefix max of the thread totals, then the
+  // exclusive value
+  int v = run;
+  int excl = INT_MIN;
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+      v = max(v, __shfl_up_sync(kFull, v, off, G));
+    excl = __shfl_up_sync(kFull, v, 1, G);
+    if (g == 0) excl = INT_MIN;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int run_prev = c == 0 ? max(excl, floor0) : max(excl, uc[c - 1]);
+    const int iy = run_prev - (d.go + (base + c - 1) * d.ge);
+    if constexpr (!kMasked)
+      Y[c] = iy;
+    else
+      Y[c] = static_cast<unsigned>(j0 + c - 1) < jlim ? iy : kNeg;
+  }
+}
+
+// scores, the sub-warp body: blockIdx.x = q * t_blocks + (run of
+// targets); blockDim.x / G lanes a block, one per target of the run.
+// Rows [1, head] and [int_end + 1, m] (1-based) run masked, the rows
+// between unmasked.  Rows of qs and ts start at 16-byte boundaries and
+// their strides are multiples of 16.  kPad: G * C > band.
+template <int C, int G, bool kPad>
+__global__ void __launch_bounds__(32 * kSubWarps, 1)
+scores_subwarp_kernel(const int8_t* __restrict__ qs, int q_stride, int m,
+                      const int8_t* __restrict__ ts, int t_stride,
+                      const int32_t* __restrict__ t_lens, int T, Dp d,
+                      int head, int int_end, int t_blocks,
+                      int32_t* __restrict__ out) {
+  extern __shared__ int4 smem4[];
+  int8_t* sq = reinterpret_cast<int8_t*>(smem4);
+  int8_t* st = sq + round16(max(m, 1)) + kGuard;
+  const int row_b = static_cast<int>(round16(max(d.n, 1)));
+  const int per_block = static_cast<int>(blockDim.x) / G;
+  const int q_row = blockIdx.x / t_blocks;
+  const int t0 = (blockIdx.x - q_row * t_blocks) * per_block;
+  const int tid = threadIdx.x, g = tid & (G - 1), slot = tid / G;
+  const int live = min(per_block, T - t0);    // lanes with a target
+  const int8_t* qg = qs + static_cast<size_t>(q_row) * q_stride;
+
+  // stage the query and the run's targets, 16 bytes a copy
+  const int qc = (m + 15) / 16, tc = (d.n + 15) / 16;
+  for (int k = tid; k < qc; k += blockDim.x)
+    cp_async16(sq + 16 * k, qg + 16 * k);
+  for (int k = tid; k < live * tc; k += blockDim.x) {
+    const int l = k / tc, c = k - l * tc;
+    cp_async16(st + l * row_b + 16 * c,
+               ts + static_cast<size_t>(t0 + l) * t_stride + 16 * c);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // a slot past the run's last target works on the first target's row
+  const int8_t* tw = st + (slot < live ? slot : 0) * row_b;
+
+  const int base = g * C;
+  int M[C], X[C], Y[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = base + c, j0 = d.dlo + b;
+    const bool in = b < d.band;
+    M[c] = in && j0 == 0 ? 0 : kNeg;
+    X[c] = kNeg;
+    Y[c] = in && j0 >= 1 && j0 <= d.n ? -(d.go + (j0 - 1) * d.ge) : kNeg;
+  }
+  const int floor0 = g == 0 ? kNeg : INT_MIN;
+  int i = 1;
+  for (; i <= head; ++i) {
+    const int qi = sq[i - 1];
+    sub_row<C, G, true, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                              floor0, d);
+  }
+  for (; i <= int_end; ++i) {
+    const int qi = sq[i - 1];
+    sub_row<C, G, false, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                               floor0, d);
+  }
+  for (; i <= m; ++i) {
+    const int qi = sq[i - 1];
+    sub_row<C, G, true, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                              floor0, d);
+  }
+  if (slot >= live) return;
+  // the end cell (m, t_len): its owner writes the score, the group's
+  // first thread NEG when the band misses it
+  const int ti = t0 + slot;
+  const long long b_end = static_cast<long long>(t_lens[ti]) - m - d.dlo;
+  int32_t* dst = out + static_cast<size_t>(q_row) * T + ti;
+  if (b_end < 0 || b_end >= d.band) {
+    if (g == 0) *dst = kNeg;
+  } else if (static_cast<int>(b_end) / C == g) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (base + c == static_cast<int>(b_end))
+        *dst = __vimax3_s32(M[c], X[c], Y[c]);
+  }
+}
+
+template <int C, int G>
+int launch_subwarp(const SubPlan& p, const int8_t* qs, int q_stride, int Q,
+                   int m, const int8_t* ts, int t_stride,
+                   const int32_t* t_lens, int T, const Dp& d, int32_t* out,
+                   cudaStream_t stream) {
+  int head, int_end;
+  interior_rows(m, d.n, d.dlo, d.band, &head, &int_end);
+  const int threads = 32 * p.warps, per_block = threads / G;
+  const long long t_blocks =
+      (static_cast<long long>(T) + per_block - 1) / per_block;
+  const long long grid = static_cast<long long>(Q) * t_blocks;
+  if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = C * G == d.band ? scores_subwarp_kernel<C, G, false>
+                               : scores_subwarp_kernel<C, G, true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(p.smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<static_cast<unsigned>(grid), threads, static_cast<size_t>(p.smem),
+         stream>>>(qs, q_stride, m, ts, t_stride, t_lens, T, d, head,
+                   int_end, static_cast<int>(t_blocks), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_sub(const SubPlan& p, const int8_t* qs, int q_stride, int Q,
+               int m, const int8_t* ts, int t_stride, const int32_t* t_lens,
+               int T, const Dp& d, int32_t* out, cudaStream_t st) {
+#define PW_SUB(CC, GG)                                                     \
+  if (p.C == CC && p.G == GG)                                              \
+    return launch_subwarp<CC, GG>(p, qs, q_stride, Q, m, ts, t_stride,     \
+                                  t_lens, T, d, out, st);
+  PW_SUB(1, 1)
+  PW_SUB(2, 1)
+  PW_SUB(4, 1)
+  PW_SUB(8, 1)
+  PW_SUB(8, 2)
+  PW_SUB(8, 4)
+  PW_SUB(8, 8)
+  PW_SUB(8, 16)
+  PW_SUB(8, 32)
+#undef PW_SUB
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Launches the scores kernel on `stream`; returns a CUDA error code (0 on
@@ -334,6 +658,9 @@ extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
       (reinterpret_cast<uintptr_t>(qs) | reinterpret_cast<uintptr_t>(ts)) &
           15)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  // the band must cover diagonals 0 and n - m (ops/banded_dp.py::band_dlo)
+  if (dlo > 0 || dlo + band - 1 < 0 || dlo > n - m || dlo + band - 1 < n - m)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Dp d{n, band, dlo, match, mismatch, go, ge};
   const auto* q = static_cast<const int8_t*>(qs);
   const auto* t = static_cast<const int8_t*>(ts);
@@ -341,6 +668,11 @@ extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const bool s = streamed != 0;
+  if (!s) {
+    const SubPlan p = sub_plan(m, n, band);
+    if (p.warps) return launch_sub(p, q, q_stride, Q, m, t, t_stride, tl, T,
+                                   d, o, st);
+  }
   switch (cells_for(band)) {
     case 2:
       return launch_scores<2>(s, q, q_stride, Q, m, t, t_stride, tl, T, d, o,
@@ -364,9 +696,39 @@ extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
 
 // Bytes of shared memory one scores block of this shape needs, or 0 when
 // the variant does not take the shape (a band outside 1..32,768, or more
-// than the 227 KB a block may opt into).
+// than the 227 KB a block may opt into).  The resident variant's is the
+// sub-warp body's where that body takes the shape, else the block-wide
+// body's.
 extern "C" long long pw_scores_smem(int streamed, int m, int n, int band) {
   if (band < 1 || band > kMaxBand || m < 0 || n < 0) return 0;
+  if (!streamed) {
+    const SubPlan p = sub_plan(m, n, band);
+    if (p.warps) return p.smem;
+  }
   const long long smem = scores_smem(streamed != 0, m, n, band);
   return smem > kSmemLimit ? 0 : smem;
+}
+
+// The resident variant's plan for a shape, into out[6]: the body (1 the
+// sub-warp one, 0 the block-wide one), C cells a thread, threads a lane,
+// lanes a block, and the 0-based rows [out[4], out[5]) it runs unmasked
+// (empty for the block-wide body).
+// Returns 0, or cudaErrorInvalidValue where no resident body takes the
+// shape.
+extern "C" int pw_scores_plan(int m, int n, int band, int dlo, int* out) {
+  if (!pw_scores_smem(0, m, n, band))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SubPlan p = sub_plan(m, n, band);
+  int head = m, int_end = m;
+  if (p.warps) {
+    interior_rows(m, n, dlo, band, &head, &int_end);
+    const int v[6] = {1, p.C, p.G, 32 * p.warps / p.G, head, int_end};
+    std::copy(v, v + 6, out);
+  } else {
+    const int c = cells_for(band);
+    const int v[6] = {0, c, ((band + c - 1) / c + 31) / 32 * 32, 1, head,
+                      int_end};
+    std::copy(v, v + 6, out);
+  }
+  return 0;
 }

@@ -40,10 +40,11 @@
 // read and stay unwritten); the last row's wavefront gives score, b0
 // (the end cell's band index, clamped) and mat0 (the end cell's argmax).
 //
-// Bound: the recurrence and its pointer need ~23 int32 operations per
+// Bound: the recurrence and its pointer need ~20 int32 instructions per
 // interior cell (FWD_OPS_PER_CELL in chip_smoke.py) and write one
 // pointer byte per cell, so at the main shape (176 lanes x 1,536 rows x
-// band 64 = 17.3 M cells) its least time is ~24 us of integer work.  But
+// band 64 = 17.3 M cells) its least time is ~10 us of issued integer
+// work.  But
 // the rows of a lane form a serial chain of m steps, each with two block
 // barriers and a shared-memory round trip, and a narrow band gives each
 // block only 2 warps: the chain's latency, not bytes or operations, sets

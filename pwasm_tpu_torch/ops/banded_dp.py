@@ -9,6 +9,9 @@ target) pair one lane) and, for CUDA tensors, the scores kernels of
 ``banded_scores_matrix`` (Q queries x T targets: the reference's
 ``parallel/many2many.py::many2many_scores``) and ``banded_scores`` (one
 query: on a CPU tensor, the reference's ``banded_scores_batch``).
+``resident_plan`` reads from the built library which body the resident
+kernel runs at a shape; ``subwarp_layout`` and ``interior_rows`` are the
+CPU-tested mirrors of its sub-warp layout and row split.
 ``full_gotoh_score`` is the numpy oracle.
 
 Formulation.  DP matrices M (match/mismatch), Ix (gap in target,
@@ -185,6 +188,33 @@ def banded_scores_plain(qs: torch.Tensor, ts: torch.Tensor,
     return final_score(*wave, tl, m, dlo, band).view(Q, T)
 
 
+def interior_rows(m: int, n: int, dlo: int, band: int) -> tuple[int, int]:
+    """The 0-based rows ``[head, int_end)`` of a lane whose every band
+    cell has ``1 <= j <= n`` (row ``i = ii + 1`` is interior iff ``1 -
+    dlo <= i <= n - band - dlo + 1``): the reference's split into a
+    masked head, an unmasked interior and a masked tail
+    (``pwasm_tpu/ops/banded_dp.py::_banded_kernel``).  The resident
+    kernel's sub-warp body runs these rows without masks
+    (``csrc/banded_dp.cu::interior_rows`` is the same formula)."""
+    head = min(max(0, -dlo), m)
+    return head, max(head, min(m, n - band - dlo + 1))
+
+
+def subwarp_layout(band: int) -> tuple[int, int] | None:
+    """The resident kernel's sub-warp layout of a band as (C, G): C
+    cells a thread, the least power of two >= band but at most 8, and G
+    threads a lane, the least power of two with G * C >= band; None
+    where G would pass 32 (bands above 256), which take the block-wide
+    body (``csrc/banded_dp.cu::sub_layout`` is the same rule)."""
+    c = 1
+    while c < band and c < 8:
+        c <<= 1
+    g = 1
+    while g * c < band:
+        g <<= 1
+    return (c, g) if g <= 32 else None
+
+
 def full_gotoh_score(q: np.ndarray, t: np.ndarray,
                      params: ScoreParams = ScoreParams()) -> int:
     """Unbanded full-matrix Gotoh global score, identical recurrence
@@ -219,6 +249,7 @@ _SIGS = {
     "pw_scores": ([_I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P], _I),
     "pw_scores_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "pw_scores_plan": ([_I, _I, _I, _I, _P], _I),
 }
 
 
@@ -226,6 +257,20 @@ def _fn(name: str):
     """The C entry point ``pw_scores`` or ``pw_scores_smem`` of
     ``csrc/banded_dp.cu``, built and bound on first use."""
     return _build.bind("banded_dp", _SIGS, _FNS)[name]
+
+
+def resident_plan(m: int, n: int, band: int) -> dict | None:
+    """What the resident kernel runs at a shape, from the built library
+    (``pw_scores_plan``): ``body`` ("subwarp" or "block"), ``cells`` a
+    thread, ``threads`` a lane, ``lanes`` a block and the 0-based rows
+    ``interior`` it runs unmasked; None where it does not take the
+    shape."""
+    out = (ctypes.c_int * 6)()
+    dlo = band_dlo(m, n, band)
+    if _fn("pw_scores_plan")(m, n, band, dlo, ctypes.addressof(out)):
+        return None
+    return dict(body="subwarp" if out[0] else "block", cells=out[1],
+                threads=out[2], lanes=out[3], interior=(out[4], out[5]))
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams,
+from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, band_dlo,
                                            banded_scores_matrix)
 from pwasm_tpu_torch.parallel.bucketing import (bucket_queries, encode_seqs,
                                                 pad_to_width)
@@ -41,14 +41,21 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
       diagonal is out of band (NEG either way).
 
     Cells whose end diagonal falls outside [-band//2, band-2] are NEG.
-    The targets are clipped and padded once to the widest width any
-    group needs (the longest query + band - 2, whatever the longest
-    target) and sent to the device once; each group takes its rows and
-    first ``n`` columns there, which is ``pad_to_width`` of those targets
-    at that width.  Results scatter back to input order.  ``stats``,
-    when given, gains ``bucket_s`` (host bucketing and upload),
-    ``score_s`` (the dispatches, through the copy of the scores to the
-    host) and ``dispatches``."""
+    Whether a target's end cell (m, t_len) lies in a group's band
+    depends on the target alone (``0 <= t_len - m - dlo < band``, m and
+    dlo fixed per group), so only the in-band targets are dispatched:
+    the others keep the NEG ``out`` starts with, which is what the
+    kernel would give them.  The group's ``band_dlo`` runs before that
+    filter, so a band too narrow for a group that has targets still
+    raises ``BandPlacementError``.  The targets are clipped and padded
+    once to the widest width any group needs (the longest query + band
+    - 2, whatever the longest target) and sent to the device once; each
+    group takes its rows and first ``n`` columns there, which is
+    ``pad_to_width`` of those targets at that width.  Results scatter
+    back to input order.  ``stats``, when given, gains ``bucket_s``
+    (host bucketing and upload), ``score_s`` (the dispatches, through
+    the copy of the scores to the host) and ``dispatches`` (the
+    launches made)."""
     t0 = time.perf_counter()
     qbs = bucket_queries(list(qs))
     ts_enc = encode_seqs(ts)
@@ -65,8 +72,11 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
         m = qb.width
         qd = torch.from_numpy(qb.data).to(device)
         rows = torch.from_numpy(qb.idx).to(device)
-        for keep, n_eff in ((np.flatnonzero(t_len <= m), m),
-                            (np.flatnonzero(t_len > m), m + band - 2)):
+        for group, n_eff in ((t_len <= m, m), (t_len > m, m + band - 2)):
+            if not group.any():
+                continue
+            b_end = t_len - m - band_dlo(m, n_eff, band)
+            keep = np.flatnonzero(group & (b_end >= 0) & (b_end < band))
             if not len(keep):
                 continue
             cols = torch.from_numpy(keep).to(device)

@@ -2,9 +2,11 @@
 on the CPU against the JAX package: the plain version against the XLA
 path (``banded_scores_batch``), the two Pallas kernels in interpret mode
 and the full-matrix numpy oracle, plus the band placement's error, the
-end cell outside the band, N codes, custom scores and the rule that a
-CPU tensor never reaches the kernel build.  All comparisons are exact
-(integer math)."""
+end cell outside the band, N codes, custom scores, the rule that a CPU
+tensor never reaches the kernel build, and the CPU mirrors of the
+resident kernel's row split (``interior_rows`` against the reference's
+formula) and sub-warp layout (``subwarp_layout``).  All comparisons are
+exact (integer math)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -213,3 +215,56 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
         banded_dp.banded_scores_matrix(args[0][None], *args[1:], band=0)
     with pytest.raises(ValueError, match="CUDA"):
         banded_dp.scores_kernel(args[0][None], args[1], args[2], band=16)
+
+
+def _reference_split(m, n, band, dlo):
+    """The reference's head/interior split, read from the source of
+    ``_banded_kernel`` (its ``head = ...`` and ``int_end = ...`` lines)
+    and evaluated at these sizes."""
+    import inspect
+    import re
+
+    src = inspect.getsource(ref._banded_kernel)
+    scope = dict(m=m, n=n, band=band, dlo=dlo)
+    for name in ("head", "int_end"):
+        line = re.search(rf"^\s*{name} = (.+?)(\s+#.*)?$", src, re.M)
+        scope[name] = eval(line.group(1), {"min": min, "max": max}, scope)
+    return scope["head"], scope["int_end"]
+
+
+@pytest.mark.parametrize("band", [1, 2, 7, 8, 33, 64, 256])
+def test_interior_rows_matches_the_reference_split(band):
+    """``interior_rows`` equals the reference's formula over a grid of
+    shapes the band can place (empty interiors included), and its rows
+    are exactly those whose every band cell has 1 <= j <= n."""
+    empty = 0
+    for m in (0, 1, 5, 20, 45, 150):
+        for n in range(max(0, m - band // 2 - 2), m + band + 2, 3):
+            try:
+                dlo = banded_dp.band_dlo(m, n, band)
+            except banded_dp.BandPlacementError:
+                continue
+            head, int_end = banded_dp.interior_rows(m, n, dlo, band)
+            assert (head, int_end) == _reference_split(m, n, band, dlo)
+            assert 0 <= head <= int_end <= m
+            empty += head == int_end
+            for ii in range(m):
+                j = ii + 1 + dlo + np.arange(band)
+                full = bool(((j >= 1) & (j <= n)).all())
+                assert full == (head <= ii < int_end), (m, n, dlo, ii)
+    assert empty
+
+
+def test_subwarp_layout_covers_every_band_a_warp_holds():
+    """For bands 1 to 256 the sub-warp layout gives G * C >= band with G
+    a power of two of at most 32 and C one of at most 8, and no smaller
+    G would do; wider bands take the block-wide body."""
+    for band in range(1, 257):
+        c, g = banded_dp.subwarp_layout(band)
+        assert g & (g - 1) == 0 and 1 <= g <= 32, band
+        assert c & (c - 1) == 0 and 1 <= c <= 8, band
+        assert g * c >= band > (g // 2) * c, band
+        assert c == min(8, 1 << (band - 1).bit_length()), band
+    assert banded_dp.subwarp_layout(64) == (8, 8)
+    for band in (257, 1024, 4096, 32_768):
+        assert banded_dp.subwarp_layout(band) is None

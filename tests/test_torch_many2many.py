@@ -1,7 +1,9 @@
 """The port's many-to-many scoring, bucketing and 2-bit packing on the
 CPU against the JAX package: ``many2many_scores`` (the port's
 ``banded_scores_matrix``) and ``many2many_scores_ragged`` on ragged
-lists, a target far longer than every query, ``encode_seqs``,
+lists, a target far longer than every query, the in-band compaction
+(targets at every edge of both width groups' band windows, and a spy
+that no out-of-band target reaches a dispatch), ``encode_seqs``,
 ``bucket_queries`` and ``pad_to_width`` field by field, and
 ``pack_targets``, ``unpack_targets_device`` and ``banded_scores_packed``.
 All comparisons are exact."""
@@ -14,7 +16,7 @@ import torch
 from pwasm_tpu.ops import pack as ref_pack
 from pwasm_tpu.parallel import bucketing as ref_bucketing
 from pwasm_tpu.parallel import many2many as ref_m2m
-from pwasm_tpu_torch.ops import pack
+from pwasm_tpu_torch.ops import banded_dp, pack
 from pwasm_tpu_torch.ops.banded_dp import banded_scores_matrix
 from pwasm_tpu_torch.parallel import bucketing, many2many
 
@@ -151,6 +153,81 @@ def test_ragged_clips_a_long_target(monkeypatch):
         got, ref_m2m.many2many_scores_ragged(qs, ts, band=16))
     assert (got[:, 2] == -(2 ** 30)).all()
     assert (got > -(2 ** 29)).sum() >= len(qs)
+
+
+def window_edges(band, m=60, seed=0, longer=True):
+    """A query of m bases (and one of m + 13) against mutated copies cut
+    or extended to every edge of both width groups' band windows at
+    m: m - band//2 - 1 and m - band//2 (the short group's lower edge),
+    m - 1, m, m + 1, m + band - 2 and m + band - 1 (the long group's
+    upper edge), and far off on both sides.  ``longer=False`` keeps only
+    the targets no longer than m."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, m).astype(np.int8)
+    qs = [q, np.concatenate([_mutate(rng, q, 4, 0),
+                             rng.integers(0, 4, 13).astype(np.int8)])]
+    lens = [m - band // 2 - 1, m - band // 2, m - 1, m, m + 1,
+            m + band - 2, m + band - 1, m // 3, m + band + 40]
+    ts = []
+    for L in lens:
+        if L > m and not longer:
+            continue
+        t = _mutate(rng, q, 3, 0)
+        t = np.concatenate([t, rng.integers(0, 4, max(0, L - m))
+                            .astype(np.int8)])[:L]
+        ts.append(t)
+    return qs, ts
+
+
+@pytest.mark.parametrize("band", [1, 2, 7, 64])
+def test_compaction_at_the_band_window_edges(band):
+    """Only in-band targets are dispatched; the scores at every edge of
+    both groups' windows equal the reference's.  At band 1 a target
+    longer than its query has no placement: both packages raise the
+    same error, and without such targets they agree."""
+    qs, ts = window_edges(band, longer=band > 1)
+    stats = {}
+    got = many2many.many2many_scores_ragged(qs, ts, band=band, device=CPU,
+                                            stats=stats)
+    np.testing.assert_array_equal(
+        got, ref_m2m.many2many_scores_ragged(qs, ts, band=band))
+    assert (got > -(2 ** 29)).any()
+    assert stats["dispatches"] <= 4
+    if band == 1:
+        qs, ts = window_edges(band)
+        with pytest.raises(ValueError, match="too narrow") as want:
+            ref_m2m.many2many_scores_ragged(qs, ts, band=band)
+        with pytest.raises(banded_dp.BandPlacementError) as err:
+            many2many.many2many_scores_ragged(qs, ts, band=band, device=CPU)
+        assert str(err.value) == str(want.value)
+
+
+@pytest.mark.parametrize("band", [2, 7, 64])
+def test_no_out_of_band_target_reaches_a_dispatch(band, monkeypatch):
+    """A spy on ``banded_scores_matrix``: every target it is given has
+    its end cell in the band, the lanes dispatched are exactly the
+    pairs that score, and ``dispatches`` counts the calls."""
+    calls = []
+    real = many2many.banded_scores_matrix
+
+    def spy(qs, ts, t_lens, band, params):
+        m, n = qs.shape[1], ts.shape[1]
+        b_end = t_lens.long() - m - banded_dp.band_dlo(m, n, band)
+        assert ((b_end >= 0) & (b_end < band)).all(), (m, n, b_end)
+        calls.append(qs.shape[0] * ts.shape[0])
+        return real(qs, ts, t_lens, band, params)
+
+    monkeypatch.setattr(many2many, "banded_scores_matrix", spy)
+    qs, ts = window_edges(band, seed=band)
+    qs2, ts2 = ragged(band, band)
+    stats = {}
+    got = many2many.many2many_scores_ragged(qs + qs2, ts + ts2, band=band,
+                                            device=CPU, stats=stats)
+    np.testing.assert_array_equal(
+        got, ref_m2m.many2many_scores_ragged(qs + qs2, ts + ts2, band=band))
+    assert stats["dispatches"] == len(calls) > 0
+    assert sum(calls) == int((got != banded_dp.NEG).sum())
+    assert sum(calls) < got.size
 
 
 @pytest.mark.parametrize("n", [37, 40])
