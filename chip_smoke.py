@@ -45,22 +45,35 @@ Phases, one JSON line each; any failure exits non-zero:
               cuda run's byte for byte; the scores kernel checked and
               timed on the inputs of the cuda run's largest dispatch;
 10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
-              4 targets of ~116 kb, the least length at which the budget
-              streams: the streamed scores kernel runs, and its scores
-              equal the plain version's on the host CPU;
-11. the ``kernels`` line, the card's name and power limit as nvidia-smi
+              4 targets of ~116 kb: the streamed scores kernel runs (its
+              sub-warp body), and its scores equal the plain version's on
+              the host CPU; its device time and time a row;
+11. config 5 — BASELINE.md config 5 (256 targets of ~50 kb against one
+              50,000-base query, band 64, as the reference's bench makes
+              them) through ``banded_scores_long`` on the card: one
+              streamed launch, bit-equal to the plain version on the same
+              CUDA tensors, timed with its bound and time a row;
+12. the ``kernels`` line, the card's name and power limit as nvidia-smi
    prints them, and the final ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
 against the plain version at 3 queries x 37 targets for bands 1 to
-4,096 (the edges of the resident kernel's sub-warp layout and past it,
-each shape's resident body checked against the Python mirrors of its
-layout and row split), at band 64 with fewer rows than the band and
-with an empty interior, at band 7 with 2,000 rows (a two-warp block),
-once from a misaligned address (which the wrapper copies to aligned
-rows and the launcher itself refuses), at BASELINE.md config 2's shape
-(1 x 10,240 targets of ~1,500 bases, band 64) and at a many-lanes shape
-(7 x 9,143 x 1,725, band 64).
+4,096 (the edges of the sub-warp layout and past it, each shape's
+resident and streamed plans checked against the Python mirrors of the
+layout, the row split and the streamed ring), at band 64 with fewer rows
+than the band and with an empty interior, at band 7 with 2,000 rows (a
+two-warp block), once from a misaligned address (which the wrapper
+copies to aligned rows and the launcher itself refuses), at BASELINE.md
+config 2's shape (1 x 10,240 targets of ~1,500 bases, band 64) and at a
+many-lanes shape (7 x 9,143 x 1,725, band 64).
+
+    python3 chip_smoke.py --compare PARENT/pwasm_tpu_torch/csrc/banded_dp.cu
+
+also builds that source (a parent commit's scores kernels) and this
+tree's scores source at the windows W of 16, 32 and 64 that it does not
+ship, and times them in turns with this tree's streamed kernel at the
+long-read, config-5, config-2 and many-lanes inputs (the ``compare``
+line).
 
 Outputs are written under ``chip_smoke_out/``.
 """
@@ -620,12 +633,14 @@ def scores_lanes(seed: int, Q: int, T: int, m: int, n: int):
     return [torch.from_numpy(x).cuda() for x in (qs, ts, t_lens)]
 
 
-def config2_lanes(T: int = 10_240, m: int = 1500, band: int = 64,
-                  seed: int = 0):
-    """BASELINE.md config 2's inputs as the reference's bench makes them
-    (``bench.py::_workload``): one query of m bases and T copies with
-    5-39 substitutions and 0-7 single-base indels, padded to
-    n = m + band // 2.  CUDA tensors (qs (1, m), ts, t_lens)."""
+def workload_lanes(T: int, m: int, seed: int, max_subs: int = 40,
+                   max_indels: int = 8, band: int = 64):
+    """The reference bench's scores inputs (``bench.py::_workload``): one
+    query of m bases and T copies with 5 to max_subs - 1 substitutions
+    and 0 to max_indels - 1 single-base indels, padded to
+    n = m + band // 2.  BASELINE.md config 2 is (10,240, 1,500, seed 0),
+    config 5 (256, 50,000, seed 5, 400, 12).  CUDA tensors (qs (1, m),
+    ts, t_lens)."""
     import numpy as np
     import torch
 
@@ -636,9 +651,9 @@ def config2_lanes(T: int = 10_240, m: int = 1500, band: int = 64,
     t_lens = np.zeros(T, dtype=np.int32)
     for k in range(T):
         t = list(q)
-        for _ in range(int(rng.integers(5, 40))):
+        for _ in range(int(rng.integers(5, max_subs))):
             t[int(rng.integers(0, len(t)))] = int(rng.integers(0, 4))
-        for _ in range(int(rng.integers(0, 8))):
+        for _ in range(int(rng.integers(0, max_indels))):
             p = int(rng.integers(1, len(t) - 1))
             if rng.random() < 0.5:
                 t.insert(p, int(rng.integers(0, 4)))
@@ -648,6 +663,34 @@ def config2_lanes(T: int = 10_240, m: int = 1500, band: int = 64,
         ts[k, :len(t)] = t
         t_lens[k] = len(t)
     return [torch.from_numpy(x).cuda() for x in (q[None], ts, t_lens)]
+
+
+def check_plan(m: int, n: int, band: int, streamed: bool) -> dict:
+    """A scores variant's plan at a shape, from the built library
+    (``scores_plan``), against the Python mirrors: bands up to 256 run a
+    sub-warp body with ``subwarp_layout``'s cells and threads and
+    ``interior_rows``' split, the streamed one with ``stream_plan``'s
+    lanes, window and shared memory; wider bands the block-wide body.
+    Returns the plan; raises where they differ."""
+    from pwasm_tpu_torch.ops import banded_dp as bd
+
+    plan = bd.scores_plan(m, n, band, streamed)
+    layout = bd.subwarp_layout(band)
+    if layout is None:
+        want = dict(body="block", window=8 if streamed else 0)
+    else:
+        want = dict(body="subwarp", cells=layout[0], threads=layout[1],
+                    interior=bd.interior_rows(m, n, bd.band_dlo(m, n, band),
+                                              band), window=0)
+        if streamed:
+            sp = bd.stream_plan(band)
+            want.update(lanes=sp["lanes"], window=sp["window"],
+                        smem=sp["smem"])
+    if plan is None or any(plan[k] != want[k] for k in want):
+        raise AssertionError(
+            f"the {'streamed' if streamed else 'resident'} plan {plan} at "
+            f"m={m} n={n} band={band} is not the mirrors' {want}")
+    return plan
 
 
 def check_scores(lanes, band: int, cycles_per_s: float | None,
@@ -685,21 +728,10 @@ def check_scores(lanes, band: int, cycles_per_s: float | None,
         err = max(err, e)
     out = dict(shape=[Q, T, m, n, band], max_abs_err=err,
                in_band=int((plain > bd.NEG).sum()))
-    # which resident body ran, against the Python mirrors of its layout
-    # and row split (every band a warp holds fits these shapes' blocks)
-    plan = bd.resident_plan(m, n, band)
-    layout = bd.subwarp_layout(band)
-    if layout is None:
-        want = None
-    else:
-        want = dict(body="subwarp", cells=layout[0], threads=layout[1],
-                    interior=bd.interior_rows(m, n, bd.band_dlo(m, n, band),
-                                              band))
-    if (want is None) != (plan["body"] == "block") or want is not None \
-            and any(plan[k] != want[k] for k in want):
-        raise AssertionError(f"the resident plan {plan} at {what} is not "
-                             f"the mirrors' {want}")
-    out["plan"] = plan
+    # which body each variant ran (every band a warp holds fits these
+    # shapes' resident blocks)
+    out["plan"] = check_plan(m, n, band, streamed=False)
+    out["plan_streamed"] = check_plan(m, n, band, streamed=True)
     if misaligned:
         tp = bd.pad16(ts)
         buf = torch.empty(tp.numel() + 16, dtype=torch.int8, device=ts.device)
@@ -934,6 +966,7 @@ def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
 
     qs, ts = m2m_long_inputs(seed=13, m=m)
     want_picks = {(m, m, 64): "streamed", (m, m + 62, 64): "streamed",
+                  (50_000, 50_032, 64): "streamed",
                   (1800, 1862, 64): "resident",
                   (1800, 1800, 32_768): "resident",
                   (128, 128, 40_000): None}
@@ -972,13 +1005,163 @@ def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
         lambda: bd.launch_scores(True, qp, tp, tl32, mq, n, dlo, 64,
                                  bd.ScoreParams(), out), 3, 1,
         cycles_per_s))
+    rec["us_per_row"] = rec["ms"] * 1e3 / mq
     rec["bound_ms"], rec["bound_by"] = bound(
         Q * mq + T * (n + 4) + 4 * Q * T, SCORE_OPS_PER_CELL * cells)
-    emit(dict(phase="m2m long-read", **rec))
+    rec["plan"] = check_plan(mq, n, 64, streamed=True)
+    rec["inputs"] = (qp, tp, tl32, mq, n, dlo)
+    emit(dict(phase="m2m long-read",
+              **{k: v for k, v in rec.items() if k != "inputs"}))
     return rec
 
 
-def main() -> int:
+def run_config5(cycles_per_s: float) -> dict:
+    """Phase 11: BASELINE.md config 5 (the reference's ``cfg5_longread``:
+    256 targets of ~50 kb against one 50,000-base query, band 64, as
+    ``bench.py::_workload(T=256, m=50_000, seed=5, max_subs=400,
+    max_indels=12)`` makes them) through ``banded_scores_long`` on the
+    card: the budget streams (no resident block holds a warp of 50 kb
+    targets), the streamed kernel launches once, and its 256 scores
+    equal the plain version's on the same CUDA tensors.  Then the
+    kernel's device time, its time a row and its bound.  Returns the
+    phase's record.  Raises on a failure."""
+    import torch
+
+    from pwasm_tpu_torch.ops import banded_dp as bd
+
+    band = 64
+    t0 = time.perf_counter()
+    qs, ts, tl = workload_lanes(256, 50_000, seed=5, max_subs=400,
+                                max_indels=12, band=band)
+    inputs_s = time.perf_counter() - t0
+    (_, m), (T, n) = qs.shape, ts.shape
+    if bd.select_kernel(m, n, band) != "streamed":
+        raise AssertionError(f"the scores budget picked "
+                             f"{bd.select_kernel(m, n, band)} at config 5")
+    for key in bd.LAUNCHES:
+        bd.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    got = bd.banded_scores_long(qs[0], ts, tl, band=band)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(bd.LAUNCHES)
+    if launches != {"scores": 0, "scores_long": 1}:
+        raise AssertionError(f"config 5 launched {launches}")
+    t0 = time.perf_counter()
+    want = bd.banded_scores_plain(qs, ts, tl, band)[0]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max_err([(got, want)])
+    if err or not torch.equal(got, want) or int((got > bd.NEG).sum()) < T:
+        raise AssertionError(f"config 5: streamed != plain (max abs err "
+                             f"{err}) or a lane out of band")
+    qp, tp, tl32 = bd.pad16(qs), bd.pad16(ts), tl.int().contiguous()
+    dlo = bd.band_dlo(m, n, band)
+    out = torch.empty((1, T), dtype=torch.int32, device=qs.device)
+    ms = cuda_ms(lambda: bd.launch_scores(True, qp, tp, tl32, m, n, dlo,
+                                          band, bd.ScoreParams(), out),
+                 3, 1, cycles_per_s)
+    cells = T * m * band
+    bound_ms, bound_by = bound(m + T * (n + 4) + 4 * T,
+                               SCORE_OPS_PER_CELL * cells)
+    rec = dict(shape=[1, T, m, n, band], inputs_s=inputs_s, wall_s=wall,
+               launches=launches, max_abs_err=err, plain_s=plain_s, ms=ms,
+               us_per_row=ms * 1e3 / m, cells=cells, bound_ms=bound_ms,
+               bound_by=bound_by, plan=check_plan(m, n, band, True),
+               score_min=int(got.min()), score_max=int(got.max()))
+    emit(dict(phase="config5", **rec))
+    rec["inputs"] = (qp, tp, tl32, m, n, dlo)
+    return rec
+
+
+def compare_builds(parent_src: str, shapes: dict,
+                   cycles_per_s: float) -> dict:
+    """``--compare PARENT_SRC``: the scores kernels of other builds timed
+    in turns with this tree's on the same card, at ``shapes`` (name ->
+    the (qp, tp, tl32, m, n, dlo) launch inputs, band 64): the parent's
+    ``banded_dp.cu`` (PARENT_SRC; the variant its own budget picks:
+    streamed where its resident block does not fit) and this tree's
+    source built with the two windows W (``PW_SCORES_WINDOW``) of 16, 32
+    and 64 that it does not ship, their streamed variant like this
+    tree's ("this").  Each build's scores must equal this tree's.
+    Returns, per shape, each build's device times in the order run:
+    parent, the smaller W, this tree, the larger W, then the reverse."""
+    import ctypes
+
+    import torch
+
+    from pwasm_tpu_torch.ops import _build
+    from pwasm_tpu_torch.ops import banded_dp as bd
+
+    vdir = os.path.join(ROOT, "chip_smoke_out", "variants")
+    os.makedirs(vdir, exist_ok=True)
+    own = os.path.join(_build.CSRC, "banded_dp.cu")
+    windows = [w for w in (16, 32, 64) if w != bd.STREAM_WINDOW]
+    builds = {"parent": (parent_src, ())}
+    for w in windows:
+        builds[f"w{w}"] = (own, (f"-DPW_SCORES_WINDOW={w}",))
+    procs = {}
+    for name, (src, defs) in builds.items():
+        lib = os.path.join(vdir, f"lib{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defs, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"nvcc failed on the {name} build:\n{log}")
+        dll = ctypes.CDLL(lib)
+        for sym in ("pw_scores", "pw_scores_smem"):
+            getattr(dll, sym).argtypes, getattr(dll, sym).restype = \
+                bd._SIGS[sym]
+        fns[name] = dll
+    p = bd.ScoreParams()
+    res = {}
+    for shape, (qp, tp, tl32, m, n, dlo) in shapes.items():
+        ref = torch.empty((qp.shape[0], tp.shape[0]), dtype=torch.int32,
+                          device=qp.device)
+        bd.launch_scores(True, qp, tp, tl32, m, n, dlo, 64, p, ref)
+
+        def launcher(name, out):
+            if name == "this":
+                return lambda: bd.launch_scores(True, qp, tp, tl32, m, n,
+                                                dlo, 64, p, out)
+            # the parent's budget: resident where its block fits
+            streamed = name != "parent" or not fns[name].pw_scores_smem(
+                0, m, n, 64)
+            fn = fns[name].pw_scores
+
+            def go():
+                rc = fn(int(streamed), qp.data_ptr(), qp.stride(0),
+                        qp.shape[0], m, tp.data_ptr(), tp.stride(0),
+                        tl32.data_ptr(), tp.shape[0], n, dlo, 64, p.match,
+                        p.mismatch, p.go, p.gap_extend, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                bd.check_launch(rc, name)
+            return go
+        order = ["parent", f"w{windows[0]}", "this", f"w{windows[1]}"]
+        times = {k: [] for k in order}
+        for name in order + order[::-1]:
+            out = torch.full_like(ref, 7)
+            fn = launcher(name, out)
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"the {name} build's scores differ at "
+                                     f"{shape}")
+            times[name].append(cuda_ms(fn, 3, 1, cycles_per_s))
+        res[shape] = times
+    return res
+
+
+def main(argv: list[str]) -> int:
+    compare = None
+    if argv[:1] == ["--compare"] and len(argv) == 2:
+        compare = os.path.abspath(argv[1])
+    elif argv:
+        return fail("usage", "python3 chip_smoke.py [--compare "
+                    "PARENT/pwasm_tpu_torch/csrc/banded_dp.cu]")
     try:
         import torch
     except ImportError as e:
@@ -1065,7 +1248,8 @@ def main() -> int:
         sc_checks.append(check_scores(scores_lanes(50 + k, *shape), band,
                                       cycles_per_s))
         emit(dict(phase="kernel", name="scores", **sc_checks[-1]))
-    cfg2 = check_scores(config2_lanes(), 64, cycles_per_s)
+    cfg2 = check_scores(workload_lanes(10_240, 1500, seed=0), 64,
+                        cycles_per_s)
     emit(dict(phase="kernel", name="scores", config=2, **cfg2))
     many = check_scores(scores_lanes(60, *MANY_LANES), 64, cycles_per_s)
     emit(dict(phase="kernel", name="scores", many_lanes=True, **many))
@@ -1280,8 +1464,26 @@ def main() -> int:
     m2m_launches, main_sc = run_many2many(work, cycles_per_s)
     sc_checks.append(main_sc)
     m2m_long = run_m2m_long(cycles_per_s)
+    lr_inputs = m2m_long.pop("inputs")
 
-    # 11. the kernels line, the card, the verdict
+    # 11. config 5 through banded_scores_long; with --compare, other
+    # builds of the scores kernel timed in turns with this one
+    cfg5 = run_config5(cycles_per_s)
+    cfg5_inputs = cfg5.pop("inputs")
+    if compare:
+        shapes = {"long_read": lr_inputs, "config5": cfg5_inputs}
+        for name, (qs, ts, tl) in (
+                ("config2", workload_lanes(10_240, 1500, seed=0)),
+                ("many_lanes", scores_lanes(60, *MANY_LANES))):
+            (_, m), (_, n) = qs.shape, ts.shape
+            shapes[name] = (bd.pad16(qs), bd.pad16(ts), tl.int().contiguous(),
+                            m, n, bd.band_dlo(m, n, 64))
+        emit(dict(phase="compare", parent=compare, window=bd.STREAM_WINDOW,
+                  **compare_builds(compare, shapes, cycles_per_s)))
+        del shapes
+    del lr_inputs, cfg5_inputs
+
+    # 12. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"], ms_walk=c["ms_walk"],
@@ -1294,6 +1496,7 @@ def main() -> int:
     no_scores_library = "no torch call computes banded Gotoh scores"
     sc_err = max(c["max_abs_err"] for c in sc_checks)
     sc_shapes = [dict(shape=c["shape"], body=c["plan"]["body"],
+                      body_streamed=c["plan_streamed"]["body"],
                       ms=c["ms_resident"], ms_streamed=c["ms_streamed"],
                       plain_ms=c["plain_ms"], bound_ms=c["bound_ms"])
                  for c in sc_checks if "ms_resident" in c]
@@ -1351,15 +1554,22 @@ def main() -> int:
         name="scores_long", route="cuda",
         source="pwasm_tpu_torch/csrc/banded_dp.cu",
         replaces="pwasm_tpu/ops/banded_dp.py:420",
-        # its path is the long-read dispatch (phase 10); its times are
-        # taken at the main path's largest dispatch, forced, beside the
-        # resident kernel's, and at the long-read shape, where its plain
-        # version ran on the host CPU
-        launches=m2m_long["launches"]["scores_long"], max_abs_err=sc_err,
+        # its paths are the long-read dispatch (phase 10, whose count is
+        # `launches`) and config 5 (phase 11); its times are taken at the
+        # main path's largest dispatch, forced, beside the resident
+        # kernel's, and at both long shapes (the long read's plain
+        # version ran on the host CPU, config 5's on the card)
+        launches=m2m_long["launches"]["scores_long"],
+        config5_launches=cfg5["launches"]["scores_long"],
+        max_abs_err=max(sc_err, cfg5["max_abs_err"]),
         ms=main_sc["ms_streamed"], plain_ms=main_sc["plain_ms"],
         bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
         library_ms=None, library=no_scores_library, shape=main_sc["shape"],
-        long_read=m2m_long)]})
+        body=m2m_long["plan"]["body"], long_read_ms=m2m_long["ms"],
+        config5_ms=cfg5["ms"],
+        us_per_row=dict(long_read=m2m_long["us_per_row"],
+                        config5=cfg5["us_per_row"]),
+        long_read=m2m_long, config5=cfg5)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1367,4 +1577,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

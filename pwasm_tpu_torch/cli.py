@@ -302,8 +302,10 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
     from pwasm_tpu_torch.report.device_report import submit_diff_info_batch
+    from pwasm_tpu_torch.utils.runstats import RunStats
 
     t_run = time.perf_counter()
+    run_stats = RunStats()
     times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
                            "consensus", "refine", "write")
                           + (("realign",) if cfg.realign else ()), 0.0)
@@ -449,6 +451,9 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
             refseq_aln = refseq_rc if al.reverse else refseq
             aln = extract_alignment(rec, refseq_aln)
             times["parse_extract"] += time.perf_counter() - t0
+            run_stats.alignments += 1
+            run_stats.aligned_bases += al.t_alnend - al.t_alnstart
+            run_stats.events += len(aln.tdiffs)
             tlabel = f"{al.t_id}:{al.t_alnstart}-{al.t_alnend}" \
                 + ("-" if al.reverse else "+")
             rlabel = al.r_id
@@ -503,6 +508,8 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
                  alignments=numalns, device=str(device))
     if cfg.realign:
         stats["realigned"] = realigned
+    if cfg.verbose:
+        print(run_stats.brief(), file=stderr)
     return 0
 
 

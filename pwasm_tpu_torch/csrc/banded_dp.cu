@@ -2,8 +2,9 @@
 // target, the target resident in shared memory or streamed.
 //
 // Replaces the TPU kernels of pwasm_tpu/ops/banded_dp.py:
-//   scores_kernel<C, false>  <- _banded_kernel       (sequences resident)
-//   scores_kernel<C, true>   <- _banded_kernel_long  (target streamed)
+//   resident  <- _banded_kernel       (:310; sequences resident)
+//   streamed  <- _banded_kernel_long  (:420; the target streamed from HBM
+//                in windows, called by banded_scores_long, :526)
 // and computes what the port's plain version computes
 // (pwasm_tpu_torch/ops/banded_dp.py::banded_scores_plain), bit for bit:
 // all arithmetic is int32.
@@ -18,80 +19,95 @@
 // cell's band index t_len - m - dlo lies outside [0, band).  n is the
 // dispatch's padded width, t_len the target's true length.
 //
-// Design.  Two bodies, chosen by shape in one launcher; both are
-// `LAUNCHES["scores"]` (resident) or `["scores_long"]` (streamed).
+// What bounds it.  The recurrence needs 11 int32 operations per interior
+// band cell (the score's compare and select, M's two maxima and add, Ix's
+// two subtractions and maximum, the prefix's add and maximum, Iy's one
+// subtraction), which Hopper issues as 8 instructions with three pairs
+// fused by DPX (SCORE_OPS_PER_CELL in chip_smoke.py); the sequences in
+// and one int32 out per lane are next to nothing, so with many lanes the
+// card's issue rate (4 warp instructions a cycle per SM, 33.5 T/s) bounds
+// a dispatch.  With few lanes (a long read: 2 x 2 lanes of 116 kb;
+// config 5: 256 lanes of 50 kb) the bound is each lane's chain of m
+// dependent rows: a row cannot start before the one above it ends.
 //
-// The sub-warp body (resident, bands up to 256: scores_subwarp_kernel).  A
-// lane is a group of G threads inside a warp, each thread owning C
-// adjacent band cells in registers (C the least power of two >= band, at
-// most 8; G the least power of two with G * C >= band: at band 64, C = 8
-// and G = 8, four lanes a warp).  A block is up to four warps whose lanes
-// share one query; the grid is (query, run of targets).  The block stages
-// the query once and its lanes' targets with cp.async 16-byte copies (rows
-// are 16-byte aligned; 256 guard bytes before and after them, so a masked
-// cell's load needs no clamp), then runs the m rows with no block barrier
-// and no shared exchange: the up-right neighbour (b + 1) comes from the
-// next thread of the group by __shfl_down_sync(width = G), NEG past the
-// group's last cell; the Iy prefix max of M + b*ge is thread-local over
-// the C cells, then a log2(G)-step segmented __shfl_up_sync scan (a thread
-// below the offset gets its own value back, so no select) and one more
-// segmented shuffle for the exclusive value.  Every thread of a warp runs
-// every row (a slot past the last target works on the first target's row
-// and writes nothing), so each full-warp shuffle mask covers exactly the
-// threads that reach it.  Rows are split as the reference splits them
-// (pwasm_tpu/ops/banded_dp.py:338-341): row i is interior iff 1 - dlo <= i
-// <= n - band - dlo + 1, where every band cell has 1 <= j <= n; interior
-// rows run an unmasked body with no range test, the head and tail rows the
-// masked one (its masks are selects, one unsigned compare each).  Where
-// the band has pad cells (G * C > band), the interior body also holds
-// their M and Ix at NEG with a select, and a pad cell's load, like a
-// masked cell's, may read a guard byte.  The per-cell work
-// uses Hopper's DPX forms: __vimax3_s32 for the diagonal's three-way max,
-// __viaddmax_s32 for Ix and for the prefix; the query code is hoisted per
-// row (an N maps to a code no int8 target byte takes), so the score is one
-// compare and a select.  Tensor cores, wgmma and TMA do not apply: this is
-// an int32 max-plus recurrence with no product in it, and a lane's inputs
-// are two short byte rows.
+// What the design does about each.  Bands up to 256 run the sub-warp
+// body, resident (scores_subwarp_kernel) or streamed
+// (scores_stream_kernel), which share one row (sub_row) and differ only
+// in where the target bytes come from.
+//   - Issue: a lane is a group of G threads inside a warp, each thread
+//     owning C adjacent band cells in registers (C the least power of two
+//     >= band, at most 8; G the least power of two with G * C >= band: at
+//     band 64, C = 8 and G = 8, four lanes a warp), so few threads idle on
+//     pad cells.  Rows are split as the reference splits them
+//     (pwasm_tpu/ops/banded_dp.py:338-341): row i is interior iff
+//     1 - dlo <= i <= n - band - dlo + 1, where every band cell has
+//     1 <= j <= n; interior rows run an unmasked body of ~10 issued
+//     instructions a cell (a shared byte load, the compare and select, one
+//     3-way max and an add, a subtraction and an add-max for Ix, an
+//     add-max for the prefix, a max and a subtraction for Iy) plus ~10 a
+//     row for the shuffles, the head and tail rows a masked one (its masks
+//     are selects, one unsigned compare each).  Where the band has pad
+//     cells (G * C > band) the interior body holds their M and Ix at NEG
+//     with a select.  DPX: __vimax3_s32 for the diagonal's three-way max,
+//     __viaddmax_s32 for Ix and for the prefix; the query code is hoisted
+//     per row (an N maps to a code no int8 target byte takes), so the
+//     score is one compare and a select.
+//   - Chain: no block barrier and no shared exchange on a row.  The
+//     up-right neighbour (b + 1) comes from the next thread of the group
+//     by __shfl_down_sync(width = G), NEG past the group's last cell; the
+//     Iy prefix max of M + b*ge is thread-local over the C cells, then a
+//     log2(G)-step segmented __shfl_up_sync scan and one more segmented
+//     shuffle for the exclusive value.  Every thread of a warp runs every
+//     row (a lane slot past the last target works on the warp's or the
+//     block's first target and writes nothing), so each full-warp mask
+//     covers exactly the threads that reach it.
+//   - Resident: a block is up to four warps whose lanes share one query;
+//     the grid is (query, run of targets).  The block stages the query and
+//     its lanes' whole targets once by cp.async 16-byte copies between
+//     256-byte guards (a masked cell's load needs no clamp).  Its shared
+//     memory grows with m and n, so it takes a shape only where a block
+//     fits the 227 KB limit.
+//   - Streamed, any length: no lane's target is ever whole in shared
+//     memory.  Each warp owns a private ring of kRing slots; a slot holds
+//     the W (kWindow) query codes of one W-row step and, for each of the
+//     warp's lanes, the 16-byte-aligned cover of the target bytes those W
+//     rows read: columns j - 1 = i - 1 + dlo + b for the step's rows and
+//     every b < G * C, pad slots included, W + G*C - 1 bytes from a
+//     16-byte floor, so round16(W + G*C + 14) a lane.  Copies before
+//     column 0 or past the row's stride are filled with 127 (never a valid
+//     cell, never the next target's bytes); a lane slot past the warp's
+//     last target stages the warp's first target.  The warp issues step
+//     k + 1's copies before it computes step k, waits with
+//     cp.async.wait_group and one __syncwarp a step (three slots, so the
+//     slot a copy refills was last read two steps earlier, before the
+//     previous __syncwarp), and hands sub_row the window through a shifted
+//     base pointer (tw - window start), so the interior body has no added
+//     offset.  The block's warps never wait on each other: a warp with no
+//     target returns at once.  Shared memory depends on the band and W
+//     alone (at band 64: 1,200 bytes a warp).  W = 16, by measurement
+//     (`chip_smoke.py --compare` builds W = 16, 32 and 64 and times them
+//     in turns on one card; PERF.md): 16 ran fastest at the long read,
+//     at config 2 and at the many-lanes shape (0.634 ms at config 2
+//     against 0.776 and 0.764; 16.7 ms at the long read against 18.5 and
+//     17.8), and within 3% of 64 at config 5.  A step's compute (~2.4 us
+//     at ~0.15 us a row) still hides the copies' latency.
 //
-// The block-wide body (bands above 256, a narrow band whose one-warp
-// block of targets does not fit shared memory, and the streamed variant:
-// scores_kernel<C, kStream>).  One block per (query, target) lane over
-// the Q x T cross product (blockIdx.x = q * T + t).  The threads lie
-// across the band, each owning C adjacent cells (C = 2 up to band 2,048,
-// then the least power of two that keeps the block at 1,024 threads, so
-// bands 1 to 32,768 run).  The cell above-right comes by
-// __shfl_down_sync, and across a warp boundary from the next warp's first
-// cell, which that warp left in shared memory in the previous row.  The
-// Iy chain is a block-wide inclusive prefix max of M + b*ge: thread-local
-// over its C cells, __shfl_up_sync within a warp, the warp totals through
-// shared memory.  The exchange slots are double buffered by row parity,
-// so a row has one block barrier.  Both variants call the same score_row
-// and step through the rows 8 at a time: the resident one with the lane's
-// query and target in shared memory, the streamed one staging each step's
-// (band+22)-byte target window and 8 query bases through a cp.async
-// double-buffered ring, so its shared memory depends on the band alone
-// and long reads fit.
+// Bands above 256 (no warp holds them) run the block-wide body,
+// scores_kernel<C, kStream>: one block per (query, target) lane, the
+// threads across the band with C cells each (C = 2 up to band 2,048, then
+// the least power of two that keeps the block at 1,024 threads, so bands
+// to 32,768 run), the up-right cell by __shfl_down_sync and across a warp
+// boundary through shared memory, the Iy chain a block-wide prefix max
+// (warp totals through shared memory, exchange slots double-buffered by
+// row parity: one block barrier a row, ~30 instructions a cell).  Its
+// resident form holds the lane's query and target in shared memory, its
+// streamed form stages 8-row (band+22)-byte windows through a block-wide
+// cp.async ring.
 //
-// No pointers are written; the thread that owns the end cell writes the
-// score.
-//
-// Bound: the recurrence needs 11 int32 operations per interior band
-// cell (the score's compare and select, M's two maxima and add, Ix's two
-// subtractions and maximum, the prefix's add and maximum, Iy's one
-// subtraction; the masks act only at the band's edges and the per-cell
-// constants are set once), which Hopper issues as 8 instructions with
-// three pairs fused by DPX (SCORE_OPS_PER_CELL in chip_smoke.py), and
-// nothing but the sequences in and one int32 out per lane, so the card's
-// instruction issue rate (4 warp instructions a cycle per SM) bounds a
-// dispatch.  The sub-warp body's interior issues about 10 a cell (a
-// shared byte load, the compare and select, one 3-way max and an add, a
-// subtraction and an add-max for Ix, an add-max for the prefix, a max
-// and a subtraction for Iy) plus about 10 a row for the shuffles and the
-// scan, spread over C cells; score_row spends ~30 a cell, its range
-// tests and selects included.  Each lane is a chain of m dependent rows;
-// the sub-warp body keeps the chain inside a warp (no barrier waits on
-// another warp) and packs several lanes into each warp, so fewer threads
-// idle on pad cells and more lanes hide each other's latency.
+// Tensor cores, wgmma and TMA do not apply: this is an int32 max-plus
+// recurrence with no product in it, and a lane's inputs are two byte
+// rows.  No pointers are written; the thread that owns the end cell
+// writes the score.
 
 #include <algorithm>
 #include <climits>
@@ -153,7 +169,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------
-// the block-wide body (bands above 256, and the streamed variant)
+// the block-wide body (bands above 256)
 // ---------------------------------------------------------------------
 
 // One DP row on this thread's C cells (M, X, Y hold row i-1 on entry,
@@ -362,9 +378,22 @@ int cells_for(int band) {
 }
 
 // ---------------------------------------------------------------------
-// the sub-warp body (resident, bands up to 256)
+// the sub-warp body (bands up to 256), resident and streamed
 // ---------------------------------------------------------------------
 constexpr int kSubWarps = 4;          // warps a block at most
+// the streamed body's W: rows a ring slot covers (a multiple of 16, so a
+// step's query codes are whole 16-byte copies), and slots a warp
+#ifndef PW_SCORES_WINDOW
+#define PW_SCORES_WINDOW 16
+#endif
+constexpr int kWindow = PW_SCORES_WINDOW;
+constexpr int kRing = 3;
+static_assert(kWindow >= 16 && kWindow % 16 == 0, "W: a multiple of 16");
+// bytes of one lane's window in a slot: a step's rows read W + gc - 1
+// bytes (gc = G * C) from up to 15 bytes past a 16-byte floor
+__host__ __device__ constexpr int stream_lane_bytes(int gc) {
+  return (kWindow + gc + 14 + 15) & ~15;
+}
 // bytes before and after the block's target rows: a masked cell's load
 // may fall up to band - 1 bytes before its row or G * C - 2 past its
 // column n, and reads a guard or a neighbour's row, never used
@@ -396,6 +425,7 @@ void interior_rows(int m, int n, int dlo, int band, int* head,
 struct SubPlan {
   int C, G, warps;    // warps == 0: the sub-warp body does not take it
   long long smem;
+  int window;         // rows a ring slot covers (0: resident)
 };
 
 // bytes of a sub-warp block: the query, then one target row per lane
@@ -408,7 +438,7 @@ long long sub_smem(int m, int n, int lanes) {
 // four warps a block, fewer where their lanes' targets do not fit the
 // 227 KB a block may opt into
 SubPlan sub_plan(int m, int n, int band) {
-  SubPlan p{0, 0, 0, 0};
+  SubPlan p{0, 0, 0, 0, 0};
   sub_layout(band, &p.C, &p.G);
   if (p.G > 32) return p;
   for (int w = kSubWarps; w >= 1; w >>= 1) {
@@ -419,6 +449,21 @@ SubPlan sub_plan(int m, int n, int band) {
       return p;
     }
   }
+  return p;
+}
+
+// the streamed body: four warps a block, each with a ring of kRing slots
+// of W query codes and one lane window for each of its 32 / G lanes; its
+// shared memory depends on the band alone.
+// ops/banded_dp.py::stream_plan mirrors it.
+SubPlan stream_plan(int band) {
+  SubPlan p{0, 0, 0, 0, 0};
+  sub_layout(band, &p.C, &p.G);
+  if (p.G > 32) return p;
+  p.warps = kSubWarps;
+  p.window = kWindow;
+  const int slot = kWindow + 32 / p.G * stream_lane_bytes(p.G * p.C);
+  p.smem = static_cast<long long>(kSubWarps) * kRing * slot;
   return p;
 }
 
@@ -513,7 +558,40 @@ __device__ __forceinline__ void sub_row(int i, int qe,
   }
 }
 
-// scores, the sub-warp body: blockIdx.x = q * t_blocks + (run of
+// row 0 of a lane on this thread's C cells, base its first band index
+template <int C>
+__device__ __forceinline__ void sub_init(int base, const Dp& d, int (&M)[C],
+                                         int (&X)[C], int (&Y)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = base + c, j0 = d.dlo + b;
+    const bool in = b < d.band;
+    M[c] = in && j0 == 0 ? 0 : kNeg;
+    X[c] = kNeg;
+    Y[c] = in && j0 >= 1 && j0 <= d.n ? -(d.go + (j0 - 1) * d.ge) : kNeg;
+  }
+}
+
+// the end cell (m, t_len) of a lane after its last row: the thread that
+// owns it writes the score to dst, the group's first thread NEG when the
+// band misses it
+template <int C>
+__device__ __forceinline__ void sub_score(int t_len, int m, int g,
+                                          const Dp& d, const int (&M)[C],
+                                          const int (&X)[C],
+                                          const int (&Y)[C], int32_t* dst) {
+  const long long b_end = static_cast<long long>(t_len) - m - d.dlo;
+  if (b_end < 0 || b_end >= d.band) {
+    if (g == 0) *dst = kNeg;
+  } else if (static_cast<int>(b_end) / C == g) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (g * C + c == static_cast<int>(b_end))
+        *dst = __vimax3_s32(M[c], X[c], Y[c]);
+  }
+}
+
+// scores, the resident sub-warp body: blockIdx.x = q * t_blocks + (run of
 // targets); blockDim.x / G lanes a block, one per target of the run.
 // Rows [1, head] and [int_end + 1, m] (1-based) run masked, the rows
 // between unmasked.  Rows of qs and ts start at 16-byte boundaries and
@@ -551,16 +629,8 @@ scores_subwarp_kernel(const int8_t* __restrict__ qs, int q_stride, int m,
   // a slot past the run's last target works on the first target's row
   const int8_t* tw = st + (slot < live ? slot : 0) * row_b;
 
-  const int base = g * C;
   int M[C], X[C], Y[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int b = base + c, j0 = d.dlo + b;
-    const bool in = b < d.band;
-    M[c] = in && j0 == 0 ? 0 : kNeg;
-    X[c] = kNeg;
-    Y[c] = in && j0 >= 1 && j0 <= d.n ? -(d.go + (j0 - 1) * d.ge) : kNeg;
-  }
+  sub_init<C>(g * C, d, M, X, Y);
   const int floor0 = g == 0 ? kNeg : INT_MIN;
   int i = 1;
   for (; i <= head; ++i) {
@@ -579,21 +649,119 @@ scores_subwarp_kernel(const int8_t* __restrict__ qs, int q_stride, int m,
                               floor0, d);
   }
   if (slot >= live) return;
-  // the end cell (m, t_len): its owner writes the score, the group's
-  // first thread NEG when the band misses it
   const int ti = t0 + slot;
-  const long long b_end = static_cast<long long>(t_lens[ti]) - m - d.dlo;
-  int32_t* dst = out + static_cast<size_t>(q_row) * T + ti;
-  if (b_end < 0 || b_end >= d.band) {
-    if (g == 0) *dst = kNeg;
-  } else if (static_cast<int>(b_end) / C == g) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (base + c == static_cast<int>(b_end))
-        *dst = __vimax3_s32(M[c], X[c], Y[c]);
-  }
+  sub_score<C>(t_lens[ti], m, g, d, M, X, Y,
+               out + static_cast<size_t>(q_row) * T + ti);
 }
 
+// scores, the streamed sub-warp body: the resident body's grid, blocks
+// and lanes (blockIdx.x = q * t_blocks + run of targets; warp w of a
+// block holds lanes [w * 32 / G, (w + 1) * 32 / G) of the run), but each
+// warp streams its lanes' targets through its own ring of kRing slots,
+// W = kWindow rows a step, and never waits on another warp.  A slot holds
+// the step's W query codes, then one lane window of LB bytes for each of
+// the warp's lanes: bytes [ws, ws + LB) of the lane's target row, ws the
+// 16-byte floor of k * W + dlo (the j - 1 of the step's first row at band
+// index 0).  Rows of qs and ts start at 16-byte boundaries and their
+// strides are multiples of 16.  kPad: G * C > band.
+template <int C, int G, bool kPad>
+__global__ void __launch_bounds__(32 * kSubWarps, 1)
+scores_stream_kernel(const int8_t* __restrict__ qs, int q_stride, int m,
+                     const int8_t* __restrict__ ts, int t_stride,
+                     const int32_t* __restrict__ t_lens, int T, Dp d,
+                     int head, int int_end, int t_blocks,
+                     int32_t* __restrict__ out) {
+  constexpr int L = 32 / G;                       // lanes a warp
+  constexpr int LB = stream_lane_bytes(G * C);    // one lane's window
+  constexpr int SB = kWindow + L * LB;            // one slot
+  constexpr int QC = kWindow / 16, NC = QC + L * (LB / 16);  // copies
+  extern __shared__ int4 smem4[];
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int g = wl & (G - 1), slot = wl / G;
+  const int q_row = blockIdx.x / t_blocks;
+  // the warp's first target, and how many of its lanes hold one
+  const int t0 = (blockIdx.x - q_row * t_blocks) *
+                     (static_cast<int>(blockDim.x) / G) + warp * L;
+  const int live = min(L, T - t0);
+  if (live <= 0) return;        // no barrier follows: the warps run alone
+  int8_t* ring = reinterpret_cast<int8_t*>(smem4) + warp * kRing * SB;
+  const int8_t* qg = qs + static_cast<size_t>(q_row) * q_stride;
+
+  // stage step k into dst, one 16-byte copy a thread at a time; a copy
+  // outside the query's or the target's row (before column 0, past the
+  // stride) is filled with 127 instead.  A lane slot past the warp's
+  // last target stages the warp's first target
+  const auto stage = [&](int k, int8_t* dst) {
+    const int r0 = k * kWindow, ws = (r0 + d.dlo) & ~15;
+    for (int c = wl; c < NC; c += 32) {
+      int8_t* to;
+      const int8_t* row;
+      int off, stride;
+      if (c < QC) {
+        to = dst + 16 * c;
+        row = qg;
+        off = r0 + 16 * c;
+        stride = q_stride;
+      } else {
+        const int l = (c - QC) / (LB / 16), ch = c - QC - l * (LB / 16);
+        to = dst + kWindow + l * LB + 16 * ch;
+        row = ts + static_cast<size_t>(t0 + (l < live ? l : 0)) * t_stride;
+        off = ws + 16 * ch;
+        stride = t_stride;
+      }
+      if (off >= 0 && off + 16 <= stride)
+        cp_async16(to, row + off);
+      else
+        *reinterpret_cast<int4*>(to) =
+            make_int4(0x7f7f7f7f, 0x7f7f7f7f, 0x7f7f7f7f, 0x7f7f7f7f);
+    }
+  };
+
+  const int steps = (m + kWindow - 1) / kWindow;
+  if (steps) stage(0, ring);
+  cp_async_commit();
+  int M[C], X[C], Y[C];
+  sub_init<C>(g * C, d, M, X, Y);
+  const int floor0 = g == 0 ? kNeg : INT_MIN;
+  int8_t* cur = ring;
+  for (int k = 0; k < steps; ++k) {
+    int8_t* next = cur + SB == ring + kRing * SB ? ring : cur + SB;
+    if (k + 1 < steps) stage(k + 1, next);
+    cp_async_commit();
+    cp_async_wait<1>();   // this thread's copies of step k have landed
+    __syncwarp();         // and every thread's, and the slot that step
+                          // k + 2 refills was last read before this
+    const int r0 = k * kWindow, r1 = min(m, r0 + kWindow);
+    const int8_t* qw = cur - r0;     // qw[i - 1]: row i's query code
+    // tw[j - 1]: column j's target code, for every column the step reads
+    const int8_t* tw = cur + kWindow + slot * LB - ((r0 + d.dlo) & ~15);
+    int i = r0 + 1;
+    for (; i <= min(r1, head); ++i) {
+      const int qi = qw[i - 1];
+      sub_row<C, G, true, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                                floor0, d);
+    }
+    for (; i <= min(r1, int_end); ++i) {
+      const int qi = qw[i - 1];
+      sub_row<C, G, false, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                                 floor0, d);
+    }
+    for (; i <= r1; ++i) {
+      const int qi = qw[i - 1];
+      sub_row<C, G, true, kPad>(i, qi < 4 ? qi : 0x100, tw, M, X, Y, g,
+                                floor0, d);
+    }
+    cur = next;
+  }
+  cp_async_wait<0>();
+  if (slot >= live) return;
+  const int ti = t0 + slot;
+  sub_score<C>(t_lens[ti], m, g, d, M, X, Y,
+               out + static_cast<size_t>(q_row) * T + ti);
+}
+
+// one sub-warp launch: the resident body (p from sub_plan) or the
+// streamed one (p from stream_plan, p.window > 0)
 template <int C, int G>
 int launch_subwarp(const SubPlan& p, const int8_t* qs, int q_stride, int Q,
                    int m, const int8_t* ts, int t_stride,
@@ -606,8 +774,11 @@ int launch_subwarp(const SubPlan& p, const int8_t* qs, int q_stride, int Q,
       (static_cast<long long>(T) + per_block - 1) / per_block;
   const long long grid = static_cast<long long>(Q) * t_blocks;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = C * G == d.band ? scores_subwarp_kernel<C, G, false>
-                               : scores_subwarp_kernel<C, G, true>;
+  const bool pad = C * G != d.band;
+  auto kern = p.window ? (pad ? scores_stream_kernel<C, G, true>
+                              : scores_stream_kernel<C, G, false>)
+                       : (pad ? scores_subwarp_kernel<C, G, true>
+                              : scores_subwarp_kernel<C, G, false>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(p.smem));
@@ -638,12 +809,21 @@ int launch_sub(const SubPlan& p, const int8_t* qs, int q_stride, int Q,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the sub-warp plan of a variant at a shape: the streamed body's, or the
+// resident body's (warps == 0 where its block does not fit); G > 32 for
+// the bands above 256, which no sub-warp body takes
+SubPlan variant_plan(bool streamed, int m, int n, int band) {
+  return streamed ? stream_plan(band) : sub_plan(m, n, band);
+}
+
 }  // namespace
 
 // Launches the scores kernel on `stream`; returns a CUDA error code (0 on
 // success).  qs (Q, q_stride) and ts (T, t_stride) int8 codes, rows
 // 16-byte aligned with strides multiple of 16; the caller allocates out
-// (Q, T) int32.
+// (Q, T) int32.  Bands up to 256 run a sub-warp body: the resident one
+// where its block fits (else the resident variant refuses the shape),
+// the streamed one at any length; wider bands run the block-wide body.
 extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
                          int m, const void* ts, int t_stride,
                          const void* t_lens, int T, int n, int dlo,
@@ -668,10 +848,10 @@ extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
   auto* o = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const bool s = streamed != 0;
-  if (!s) {
-    const SubPlan p = sub_plan(m, n, band);
-    if (p.warps) return launch_sub(p, q, q_stride, Q, m, t, t_stride, tl, T,
-                                   d, o, st);
+  const SubPlan p = variant_plan(s, m, n, band);
+  if (p.G <= 32) {
+    if (!p.warps) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_sub(p, q, q_stride, Q, m, t, t_stride, tl, T, d, o, st);
   }
   switch (cells_for(band)) {
     case 2:
@@ -696,39 +876,40 @@ extern "C" int pw_scores(int streamed, const void* qs, int q_stride, int Q,
 
 // Bytes of shared memory one scores block of this shape needs, or 0 when
 // the variant does not take the shape (a band outside 1..32,768, or more
-// than the 227 KB a block may opt into).  The resident variant's is the
-// sub-warp body's where that body takes the shape, else the block-wide
-// body's.
+// than the 227 KB a block may opt into).  Bands up to 256: the sub-warp
+// body's (the resident one's grows with m and n, the streamed one's
+// depends on the band alone); wider bands: the block-wide body's.
 extern "C" long long pw_scores_smem(int streamed, int m, int n, int band) {
   if (band < 1 || band > kMaxBand || m < 0 || n < 0) return 0;
-  if (!streamed) {
-    const SubPlan p = sub_plan(m, n, band);
-    if (p.warps) return p.smem;
-  }
+  const SubPlan p = variant_plan(streamed != 0, m, n, band);
+  if (p.G <= 32) return p.warps ? p.smem : 0;
   const long long smem = scores_smem(streamed != 0, m, n, band);
   return smem > kSmemLimit ? 0 : smem;
 }
 
-// The resident variant's plan for a shape, into out[6]: the body (1 the
-// sub-warp one, 0 the block-wide one), C cells a thread, threads a lane,
-// lanes a block, and the 0-based rows [out[4], out[5]) it runs unmasked
-// (empty for the block-wide body).
-// Returns 0, or cudaErrorInvalidValue where no resident body takes the
-// shape.
-extern "C" int pw_scores_plan(int m, int n, int band, int dlo, int* out) {
-  if (!pw_scores_smem(0, m, n, band))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SubPlan p = sub_plan(m, n, band);
+// A variant's plan for a shape, into out[8]: the body (1 a sub-warp one,
+// 0 the block-wide one), C cells a thread, threads a lane, lanes a block,
+// the 0-based rows [out[4], out[5]) it runs unmasked (empty for the
+// block-wide body), the rows a streamed window covers (0 resident) and
+// the block's shared-memory bytes.
+// Returns 0, or cudaErrorInvalidValue where the variant does not take
+// the shape.
+extern "C" int pw_scores_plan(int streamed, int m, int n, int band, int dlo,
+                              int* out) {
+  const long long smem = pw_scores_smem(streamed, m, n, band);
+  if (!smem) return static_cast<int>(cudaErrorInvalidValue);
+  const SubPlan p = variant_plan(streamed != 0, m, n, band);
   int head = m, int_end = m;
   if (p.warps) {
     interior_rows(m, n, dlo, band, &head, &int_end);
-    const int v[6] = {1, p.C, p.G, 32 * p.warps / p.G, head, int_end};
-    std::copy(v, v + 6, out);
+    const int v[8] = {1, p.C, p.G, 32 * p.warps / p.G, head, int_end,
+                      p.window, static_cast<int>(smem)};
+    std::copy(v, v + 8, out);
   } else {
     const int c = cells_for(band);
-    const int v[6] = {0, c, ((band + c - 1) / c + 31) / 32 * 32, 1, head,
-                      int_end};
-    std::copy(v, v + 6, out);
+    const int v[8] = {0, c, ((band + c - 1) / c + 31) / 32 * 32, 1, head,
+                      int_end, streamed ? 8 : 0, static_cast<int>(smem)};
+    std::copy(v, v + 8, out);
   }
   return 0;
 }

@@ -7,11 +7,13 @@ version: the reference's ``banded_scores_batch`` with every (query,
 target) pair one lane) and, for CUDA tensors, the scores kernels of
 ``csrc/banded_dp.cu`` (resident and streamed), reached through
 ``banded_scores_matrix`` (Q queries x T targets: the reference's
-``parallel/many2many.py::many2many_scores``) and ``banded_scores`` (one
-query: on a CPU tensor, the reference's ``banded_scores_batch``).
-``resident_plan`` reads from the built library which body the resident
-kernel runs at a shape; ``subwarp_layout`` and ``interior_rows`` are the
-CPU-tested mirrors of its sub-warp layout and row split.
+``parallel/many2many.py::many2many_scores``), ``banded_scores`` (one
+query: on a CPU tensor, the reference's ``banded_scores_batch``) and
+``banded_scores_long`` (one query, the streamed variant: the reference's
+``banded_scores_long``).  ``scores_plan`` reads from the built library
+which body a variant runs at a shape; ``subwarp_layout``,
+``interior_rows`` and ``stream_plan`` are the CPU-tested mirrors of the
+sub-warp layout, the row split and the streamed body's ring.
 ``full_gotoh_score`` is the numpy oracle.
 
 Formulation.  DP matrices M (match/mismatch), Ix (gap in target,
@@ -201,11 +203,11 @@ def interior_rows(m: int, n: int, dlo: int, band: int) -> tuple[int, int]:
 
 
 def subwarp_layout(band: int) -> tuple[int, int] | None:
-    """The resident kernel's sub-warp layout of a band as (C, G): C
-    cells a thread, the least power of two >= band but at most 8, and G
-    threads a lane, the least power of two with G * C >= band; None
-    where G would pass 32 (bands above 256), which take the block-wide
-    body (``csrc/banded_dp.cu::sub_layout`` is the same rule)."""
+    """The sub-warp layout of a band as (C, G): C cells a thread, the
+    least power of two >= band but at most 8, and G threads a lane, the
+    least power of two with G * C >= band; None where G would pass 32
+    (bands above 256), which take the block-wide body
+    (``csrc/banded_dp.cu::sub_layout`` is the same rule)."""
     c = 1
     while c < band and c < 8:
         c <<= 1
@@ -213,6 +215,45 @@ def subwarp_layout(band: int) -> tuple[int, int] | None:
     while g * c < band:
         g <<= 1
     return (c, g) if g <= 32 else None
+
+
+# the streamed sub-warp body's ring (csrc/banded_dp.cu kWindow, kRing,
+# kSubWarps): W rows a slot, slots a warp, warps a block
+STREAM_WINDOW = 16
+STREAM_RING = 3
+SUB_WARPS = 4
+
+
+def stream_plan(band: int) -> dict | None:
+    """The streamed sub-warp body's plan for a band, the mirror of
+    ``csrc/banded_dp.cu::stream_plan``: ``cells`` a thread and
+    ``threads`` a lane (``subwarp_layout``), ``lanes`` a block (four
+    warps of 32 / G), ``window`` rows a step (W), ``lane_bytes`` of one
+    lane's target window (a step's rows read W + G*C - 1 bytes from up to
+    15 bytes past a 16-byte floor: round16(W + G*C + 14)), ``slot_bytes``
+    (the step's W query codes, then one window a lane of the warp) and
+    the block's shared-memory bytes ``smem`` (a ring of STREAM_RING slots
+    a warp), which depend on the band alone.  None for bands above 256,
+    which take the block-wide body."""
+    layout = subwarp_layout(band)
+    if layout is None:
+        return None
+    c, g = layout
+    lane_bytes = (STREAM_WINDOW + g * c + 14 + 15) // 16 * 16
+    slot_bytes = STREAM_WINDOW + 32 // g * lane_bytes
+    return dict(cells=c, threads=g, lanes=SUB_WARPS * 32 // g,
+                window=STREAM_WINDOW, lane_bytes=lane_bytes,
+                slot_bytes=slot_bytes,
+                smem=SUB_WARPS * STREAM_RING * slot_bytes)
+
+
+def stream_window_start(step: int, dlo: int) -> int:
+    """The target byte at which every lane's window of W-row step
+    ``step`` starts in the streamed sub-warp body: the 16-byte floor of
+    ``step * W + dlo``, the byte ``j - 1`` that the step's first row
+    reads at band index 0 (negative before the row; the kernel fills
+    those copies with pad code 127)."""
+    return (step * STREAM_WINDOW + dlo) & ~15
 
 
 def full_gotoh_score(q: np.ndarray, t: np.ndarray,
@@ -249,7 +290,7 @@ _SIGS = {
     "pw_scores": ([_I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P, _P], _I),
     "pw_scores_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "pw_scores_plan": ([_I, _I, _I, _I, _P], _I),
+    "pw_scores_plan": ([_I, _I, _I, _I, _I, _P], _I),
 }
 
 
@@ -259,18 +300,22 @@ def _fn(name: str):
     return _build.bind("banded_dp", _SIGS, _FNS)[name]
 
 
-def resident_plan(m: int, n: int, band: int) -> dict | None:
-    """What the resident kernel runs at a shape, from the built library
-    (``pw_scores_plan``): ``body`` ("subwarp" or "block"), ``cells`` a
-    thread, ``threads`` a lane, ``lanes`` a block and the 0-based rows
-    ``interior`` it runs unmasked; None where it does not take the
-    shape."""
-    out = (ctypes.c_int * 6)()
+def scores_plan(m: int, n: int, band: int,
+                streamed: bool = False) -> dict | None:
+    """What a variant of the scores kernel runs at a shape, from the
+    built library (``pw_scores_plan``): ``body`` ("subwarp" or
+    "block"), ``cells`` a thread, ``threads`` a lane, ``lanes`` a block,
+    the 0-based rows ``interior`` it runs unmasked, the rows a streamed
+    ``window`` covers (0 resident) and the block's shared-memory bytes
+    ``smem``; None where the variant does not take the shape."""
+    out = (ctypes.c_int * 8)()
     dlo = band_dlo(m, n, band)
-    if _fn("pw_scores_plan")(m, n, band, dlo, ctypes.addressof(out)):
+    if _fn("pw_scores_plan")(int(streamed), m, n, band, dlo,
+                             ctypes.addressof(out)):
         return None
     return dict(body="subwarp" if out[0] else "block", cells=out[1],
-                threads=out[2], lanes=out[3], interior=(out[4], out[5]))
+                threads=out[2], lanes=out[3], interior=(out[4], out[5]),
+                window=out[6], smem=out[7])
 
 
 def check_launch(rc: int, what: str) -> None:
@@ -282,9 +327,10 @@ def check_launch(rc: int, what: str) -> None:
 def pad16(x: torch.Tensor) -> torch.Tensor:
     """A contiguous int8 copy of ``x`` whose rows start at 16-byte
     boundaries (width a multiple of 16, pad code 127), or ``x`` itself
-    when it already is one."""
+    when it already is one.  The row stride must be the width: a
+    one-row view (numpy's ``q[None]``) may carry a row stride of 0."""
     T, w = x.shape
-    if w % 16 == 0 and x.is_contiguous() and x.data_ptr() % 16 == 0:
+    if w % 16 == 0 and x.stride() == (w, 1) and x.data_ptr() % 16 == 0:
         return x
     width = (max(w, 1) + 15) // 16 * 16
     out = torch.full((T, width), 127, dtype=torch.int8, device=x.device)
@@ -293,11 +339,12 @@ def pad16(x: torch.Tensor) -> torch.Tensor:
 
 
 def select_kernel(m: int, n: int, band: int) -> str | None:
-    """The budget: ``"resident"`` when a lane's query and target fit a
-    block's shared memory, else ``"streamed"`` when the band's staging
-    ring does, else None (no kernel takes the shape).  The sizes come
-    from the kernel's own layout (``pw_scores_smem``), so this needs the
-    built library."""
+    """The budget: ``"resident"`` when a block of lanes with their
+    queries and targets fits a block's shared memory, else
+    ``"streamed"`` when the band's staging ring does (bands up to 256
+    always: their ring depends on the band alone), else None (no kernel
+    takes the shape).  The sizes come from the kernel's own layout
+    (``pw_scores_smem``), so this needs the built library."""
     for name in ("resident", "streamed"):
         if _fn("pw_scores_smem")(int(name == "streamed"), m, n, band):
             return name
@@ -383,6 +430,26 @@ def banded_scores_matrix(qs: torch.Tensor, ts: torch.Tensor,
                          f"m={qs.shape[1]}, n={ts.shape[1]}: {_LIMITS}")
     return scores_kernel(qs, ts, t_lens, band, params,
                          streamed=name == "streamed")
+
+
+def banded_scores_long(q: torch.Tensor, ts: torch.Tensor,
+                       t_lens: torch.Tensor, band: int = 128,
+                       params: ScoreParams = ScoreParams()) -> torch.Tensor:
+    """Long reads: one query (m,) against (T, n) padded targets -> (T,)
+    int32 scores, bit-exact with ``banded_scores`` (the reference's
+    ``banded_scores_long``, with its default band).
+
+    A CPU tensor takes the plain version.  A CUDA tensor launches the
+    streamed variant of the scores kernel, whose shared memory depends
+    on the band alone, so any length fits, or raises.  The reference's
+    ``block_t``, ``chunk`` and ``interpret`` tile a TPU's VMEM and run
+    its interpreter; nothing here takes their place."""
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    if q.device.type == "cpu":
+        return banded_scores_plain(q[None], ts, t_lens, band, params)[0]
+    return scores_kernel(q[None], ts, t_lens, band, params,
+                         streamed=True)[0]
 
 
 def banded_scores(q: torch.Tensor, ts: torch.Tensor, t_lens: torch.Tensor,

@@ -31,6 +31,7 @@ import time
 import numpy as np
 
 from pwasm_tpu_torch.core.errors import EXIT_USAGE, PwasmError
+from pwasm_tpu_torch.utils.runstats import RunStats
 
 M2M_USAGE = """Usage:
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
@@ -192,9 +193,12 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     tnames, ts = load_fasta(positional[0], "target")
     tlens = [len(t) for t in ts]
     times["load"] = time.perf_counter() - t0
+    run_stats = RunStats()
+    pairs = len(qs) * len(ts)
     if cfg.verbose:
-        print(f"many2many: {len(qs) * len(ts)} pair(s), band {cfg.band}, "
-              f"on {device}", file=stderr)
+        print(f"many2many: {pairs} of {pairs} pair(s), band {cfg.band}, "
+              f"one {'device' if device.type == 'cuda' else 'cpu'} "
+              "session", file=stderr)
     sc: dict = {}
     try:
         scores = many2many_scores_ragged(qs, ts, band=cfg.band,
@@ -218,6 +222,12 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     times["write"] = time.perf_counter() - t0
     if stats is not None:
         stats.update(times=times, wall_s=time.perf_counter() - t_run,
-                     dispatches=sc["dispatches"],
-                     pairs=len(qs) * len(ts), device=str(device))
+                     dispatches=sc["dispatches"], pairs=pairs,
+                     device=str(device))
+    if cfg.verbose:
+        # every pair is scored: alignments are the pairs, events none,
+        # aligned bases every target once per query
+        run_stats.alignments = pairs
+        run_stats.aligned_bases = sum(tlens) * len(qs)
+        print(run_stats.brief(), file=stderr)
     return 0

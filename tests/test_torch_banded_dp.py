@@ -80,17 +80,16 @@ def test_plain_equals_pallas_resident_kernel():
     np.testing.assert_array_equal(port_scores(q, ts, t_lens, band), want)
 
 
-@pytest.mark.parametrize("geometry", ["plain", "interior_pairs"])
-def test_plain_equals_pallas_streamed_kernel(geometry):
-    """The streamed kernel, also at the geometry of
-    tests/test_banded_dp.py::test_long_kernel_interior_pairs (whole DMA
-    pairs in the mask-elided interior phase)."""
-    if geometry == "plain":
-        rng = np.random.default_rng(22)
-        m, n, band, T = 96, 112, 32, 16
-    else:
-        rng = np.random.default_rng(13)
-        m, n, band, T = 256, 280, 32, 7
+def _streamed_inputs(geometry):
+    """A query, padded targets, their lengths and the band at a geometry
+    of the reference's streamed kernel tests: "plain", "interior_pairs"
+    (tests/test_banded_dp.py::test_long_kernel_interior_pairs: whole DMA
+    pairs in the mask-elided interior phase) and "short" (fewer query
+    rows than the band)."""
+    m, n, band, T, seed = {"plain": (96, 112, 32, 16, 22),
+                           "interior_pairs": (256, 280, 32, 7, 13),
+                           "short": (20, 45, 64, 9, 23)}[geometry]
+    rng = np.random.default_rng(seed)
     q = rng.integers(0, 4, m).astype(np.int8)
     ts = np.full((T, n), 127, dtype=np.int8)
     t_lens = np.zeros(T, dtype=np.int32)
@@ -99,10 +98,42 @@ def test_plain_equals_pallas_streamed_kernel(geometry):
                     int(rng.integers(0, 4)))[:n]
         ts[k, :len(t)] = t
         t_lens[k] = len(t)
-    want = np.asarray(ref.banded_scores_long(
+    return q, ts, t_lens, band
+
+
+def _ref_long(q, ts, t_lens, band):
+    return np.asarray(ref.banded_scores_long(
         jnp.asarray(q), jnp.asarray(ts), jnp.asarray(t_lens), band=band,
         block_t=8, chunk=32, interpret=True))
+
+
+@pytest.mark.parametrize("geometry", ["plain", "interior_pairs"])
+def test_plain_equals_pallas_streamed_kernel(geometry):
+    """The streamed kernel, also at the geometry of
+    tests/test_banded_dp.py::test_long_kernel_interior_pairs (whole DMA
+    pairs in the mask-elided interior phase)."""
+    q, ts, t_lens, band = _streamed_inputs(geometry)
+    want = _ref_long(q, ts, t_lens, band)
     np.testing.assert_array_equal(port_scores(q, ts, t_lens, band), want)
+
+
+@pytest.mark.parametrize("geometry", ["plain", "interior_pairs", "short"])
+def test_long_equals_pallas_streamed_kernel(geometry):
+    """``banded_scores_long`` on CPU tensors against the reference's
+    ``banded_scores_long`` in interpret mode, with the band passed and
+    with the default band (128) where it can place."""
+    q, ts, t_lens, band = _streamed_inputs(geometry)
+    args = (torch.from_numpy(q), torch.from_numpy(ts),
+            torch.from_numpy(t_lens))
+    got = banded_dp.banded_scores_long(*args, band=band).numpy()
+    assert got.dtype == np.int32
+    want = _ref_long(q, ts, t_lens, band)
+    np.testing.assert_array_equal(got, want)
+    assert (got > NEG).sum() >= 2
+    if geometry == "short":
+        np.testing.assert_array_equal(
+            banded_dp.banded_scores_long(*args).numpy(),
+            _ref_long(q, ts, t_lens, 128))
 
 
 @pytest.mark.parametrize("seed", [4, 5])
@@ -217,6 +248,49 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
         banded_dp.scores_kernel(args[0][None], args[1], args[2], band=16)
 
 
+def test_pad16_gives_rows_the_launchers_take():
+    """``pad16``'s rows start 16 bytes apart, whatever the input's
+    strides: a one-row view with row stride 0 (numpy's ``q[None]``), a
+    column slice, an odd width; an aligned contiguous input is returned
+    as it is."""
+    q = np.arange(64, dtype=np.int8)
+    for x in (torch.from_numpy(q[None]), torch.from_numpy(q[None, :48]),
+              torch.from_numpy(np.stack([q, q]))[:, 16:],
+              torch.from_numpy(np.stack([q, q]))[:, :37]):
+        T, w = x.shape
+        got = banded_dp.pad16(x)
+        assert got.shape[0] == T and got.shape[1] % 16 == 0
+        assert got.stride() == (got.shape[1], 1)
+        assert got.data_ptr() % 16 == 0
+        np.testing.assert_array_equal(got[:, :w].numpy(), x.numpy())
+        assert (got[:, w:] == 127).all()
+    x = torch.from_numpy(np.stack([q, q]))
+    if x.data_ptr() % 16 == 0:
+        assert banded_dp.pad16(x) is x
+
+
+def test_long_cpu_tensors_never_reach_the_build(monkeypatch):
+    """``banded_scores_long`` on CPU tensors takes the plain version and
+    builds nothing; a tensor on neither device raises."""
+    def no_build(name):
+        raise AssertionError(f"a CPU call tried to build {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(banded_dp, "_FNS", {})
+    q, ts, t_lens = make_batch(12, 64, T=5)
+    args = (torch.from_numpy(q), torch.from_numpy(ts),
+            torch.from_numpy(t_lens))
+    before = dict(banded_dp.LAUNCHES)
+    np.testing.assert_array_equal(
+        banded_dp.banded_scores_long(*args, band=64).numpy(),
+        port_scores(q, ts, t_lens, 64))
+    assert banded_dp.LAUNCHES == before
+    with pytest.raises(ValueError, match="band must be >= 1"):
+        banded_dp.banded_scores_long(*args, band=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_dp.banded_scores_long(*(a.to("meta") for a in args), band=64)
+
+
 def _reference_split(m, n, band, dlo):
     """The reference's head/interior split, read from the source of
     ``_banded_kernel`` (its ``head = ...`` and ``int_end = ...`` lines)
@@ -268,3 +342,45 @@ def test_subwarp_layout_covers_every_band_a_warp_holds():
     assert banded_dp.subwarp_layout(64) == (8, 8)
     for band in (257, 1024, 4096, 32_768):
         assert banded_dp.subwarp_layout(band) is None
+
+
+def test_stream_plan_windows_cover_every_read():
+    """The streamed body's ring (``stream_plan``, the mirror of
+    csrc/banded_dp.cu::stream_plan): for bands 1 to 256, dlo across its
+    legal range and m from 0 to a few hundred, the window of every W-row
+    step starts on a 16-byte boundary and its ``lane_bytes`` cover every
+    column j - 1 that a row of the step reads, for every band index
+    b < G * C (pad slots included); where the row is interior, those
+    bytes lie in 16-byte copies inside the target's row, so they are
+    real bytes, not fill."""
+    W = banded_dp.STREAM_WINDOW
+    for band in range(1, 257):
+        plan = banded_dp.stream_plan(band)
+        c, g = banded_dp.subwarp_layout(band)
+        assert (plan["cells"], plan["threads"]) == (c, g)
+        assert plan["lanes"] == banded_dp.SUB_WARPS * 32 // g
+        assert plan["lane_bytes"] % 16 == 0 and plan["slot_bytes"] % 16 == 0
+        assert plan["smem"] <= 48 * 1024, band
+        gc = g * c
+        for dlo in sorted({1 - band, -(band // 2), 0}):
+            for m in (0, 1, 15, 16, 31, 32, 33, 95, 130, 333):
+                n = m + dlo + band - 1      # the widest n this dlo places
+                head, int_end = banded_dp.interior_rows(m, n, dlo, band)
+                for k in range((m + W - 1) // W):
+                    ws = banded_dp.stream_window_start(k, dlo)
+                    assert ws % 16 == 0 and ws <= k * W + dlo < ws + 16
+                    rows = np.arange(k * W + 1, min(m, k * W + W) + 1)
+                    first = rows - 1 + dlo             # b = 0
+                    last = first + gc - 1              # b = G * C - 1
+                    assert (first >= ws).all(), (band, dlo, m, k)
+                    assert (last < ws + plan["lane_bytes"]).all(), \
+                        (band, dlo, m, k)
+                    # an interior row's real cells (b < band): the
+                    # 16-byte copies holding their columns
+                    inner = (rows - 1 >= head) & (rows - 1 < int_end)
+                    lo = ws + (first[inner] - ws) // 16 * 16
+                    hi = ws + (first[inner] + band - 1 - ws) // 16 * 16 + 16
+                    assert (lo >= 0).all() and (first[inner] >= 0).all()
+                    assert (hi <= (n + 15) // 16 * 16).all()
+    assert banded_dp.stream_plan(257) is None
+    assert banded_dp.stream_plan(64)["smem"] == 4 * 3 * (16 + 4 * 96)
