@@ -11,8 +11,13 @@ Phases, one JSON line each; any failure exits non-zero:
               bit for bit, at fixed shapes (also through the wrappers'
               copy of a misaligned input), with device times per call
               and bounds; the realign kernels (forward resident and
-              streamed, walk) on fuzzed lanes at bands 1-4,096 and the
-              walk on hand-made pointer planes;
+              streamed, walk) on fuzzed lanes at bands 1-4,096, the
+              forward ones at the sub-warp layout's edges (FWD_BANDS,
+              each at four band placements, q_len from 1 to 160 inside a
+              warp, T no multiple of a warp's or a block's lanes; rows
+              fewer than the band; a misaligned input), each shape's
+              plans against their Python mirror, and the walk on
+              hand-made pointer planes;
 4. golden   — the CLI on ``tests/golden`` inputs with --device=cuda
               reproduces the six committed outputs byte for byte;
 5. realistic — the 200-alignment corpus through the CLI with
@@ -27,13 +32,14 @@ Phases, one JSON line each; any failure exits non-zero:
               then the kernels checked and timed on the inputs of that
               run's two largest dispatches (the streamed kernel forced
               at the first); both forward variants timed on all six
-              dispatches' inputs and at bands 1,024 and 4,096, and the
-              budget's choices at the edges;
+              dispatches' inputs and at bands 1,024 and 4,096, with
+              the time a row, and the budget's choices and plans at its
+              edges (FWD_EDGES);
 8. long-read — four ~118 kb pairs through ``realign_pairs``: the budget
               picks the streamed kernel; the streamed kernel and the
               walk equal their plain versions (run on the host CPU) on
               that dispatch's inputs, and every path re-scores to its
-              DP score;
+              DP score; the kernel's time and time a row;
 9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
               1,200-1,800 bases against 10,240 targets) through the CLI's
               ``--many2many`` with --device=cuda: stage times, dispatches
@@ -75,6 +81,15 @@ ship, and times them in turns with this tree's streamed kernel at the
 long-read, config-5, config-2 and many-lanes inputs (the ``compare``
 line).
 
+    python3 chip_smoke.py --compare-realign PARENT/pwasm_tpu_torch/csrc/realign.cu
+
+also builds that source (a parent commit's realign kernels) and times
+its forward kernels in turns with this tree's at the main path's largest
+band-64 and band-256 dispatches, at that band-64 dispatch's lanes with
+bands 8, 16 and 33 (reached through ``--realign --band=N``) and at the
+long read, the parent's outputs equal to this tree's (the
+``compare-realign`` line).  Both options may be given.
+
 Outputs are written under ``chip_smoke_out/``.
 """
 
@@ -106,6 +121,32 @@ OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
 REALIGN_DISPATCHES = [(1, 1536, 1408, 64), (1, 1536, 1408, 256),
                       (176, 1536, 1536, 64), (41, 1536, 1536, 256),
                       (23, 1536, 1664, 64), (23, 1536, 1664, 256)]
+# the forward kernels' fuzzed bands: the sub-warp layout's edges (C
+# cells a thread and G threads a lane change at 2, 8, 16, 64, 128 and
+# 256), bands that are no multiple of 8 (pointer bytes stored one by
+# one) and the block-wide body past 256; FWD_M rows a lane at most
+FWD_BANDS = (1, 2, 7, 8, 9, 16, 33, 63, 64, 65, 100, 127, 128, 129, 255,
+             256, 257, 1100)
+FWD_M = 160
+# the forward budget's edges, (m_max, n, band) -> the variant it picks:
+# a resident sub-warp block (one warp) holds 8 lanes at band 8 and 1 at
+# bands 64 and 256, so m_max + n of 29,024 and 232,192 are the last that
+# fit (8 x 29,024 + 256 guard bytes = 232,448, the 227 KB limit)
+FWD_EDGES = {(14_512, 14_512, 8): "resident",
+             (14_528, 14_512, 8): "streamed",
+             (116_096, 116_096, 64): "resident",
+             (116_112, 116_096, 64): "streamed",
+             (116_096, 116_096, 256): "resident",
+             (116_112, 116_096, 256): "streamed",
+             (1536, 1664, 4096): "resident", (118_016, 118_016, 64):
+             "streamed", (250_112, 250_112, 20_000): None,
+             (128, 128, 40_000): None}
+# (T, m_max, n, band, dlo): rows fewer than the band (an empty interior)
+# at bands 64 and 200; a band-7 dispatch of 37 lanes (8 lanes a warp,
+# the fifth warp part-filled);
+# a band-64 one with the band right of the diagonal
+FWD_SHAPES = ((9, 40, 60, 64, -32), (5, 90, 100, 200, -100),
+              (37, 300, 320, 7, -3), (13, 333, 300, 64, 7))
 # int32 instructions that the realign forward pass needs per interior
 # band cell: the scores recurrence's 8 (below), 4 for the diagonal argmax
 # (M against the max of Ix and Iy, Ix against Iy, two selects), 1 for
@@ -246,9 +287,7 @@ def check_consensus(depth: int, cols: int, seed: int,
     from pwasm_tpu_torch.ops import consensus as cons
 
     pile = torch.from_numpy(make_pile(depth, cols, seed)).cuda()
-    flat = torch.empty(depth * cols + 1, dtype=torch.int8, device="cuda")
-    flat[1:] = pile.flatten()
-    shifted = flat[1:].view(depth, cols)       # contiguous, misaligned
+    shifted = misaligned(pile)
     pv, pc = cons.consensus_counts_votes_plain(pile)
     err = 0
     for t in (pile, shifted):
@@ -363,10 +402,11 @@ def mutate(rng, q, n_subs: int, n_indels: int, maxgap: int = 3):
 
 
 def realign_lanes(seed: int, T: int, m_max: int, n_max: int,
-                  min_m: int = 1):
+                  min_m: int = 1, spread: bool = False):
     """T random (query, mutated target) lanes as CUDA tensors (codes
     0-4, pad 127; query lengths ``min_m``..``m_max``): qs, ts, q_lens,
-    t_lens."""
+    t_lens.  With ``spread`` every fourth lane has q_len 1 and the next
+    one m_max, so the lanes of a warp differ by up to m_max - 1 rows."""
     import numpy as np
     import torch
 
@@ -377,6 +417,8 @@ def realign_lanes(seed: int, T: int, m_max: int, n_max: int,
     tls = np.zeros(T, dtype=np.int32)
     for k in range(T):
         m = int(rng.integers(min_m, m_max + 1))
+        if spread and k % 4 < 2:
+            m = (1, m_max)[k % 4]
         q = rng.integers(0, 5, m).astype(np.int8)
         t = mutate(rng, q, int(rng.integers(0, 8)),
                    int(rng.integers(0, 6)))[:n_max]
@@ -423,6 +465,45 @@ def walk_planes(case: str, seed: int):
         wf[mat[k], k, b0[k]] = 40
     t_lens = (q_lens + dlo + b_end).astype(np.int32)
     return ptrs, q_lens, t_lens, wf, dlo, band
+
+
+def misaligned(x):
+    """A contiguous copy of ``x`` whose data starts one byte past a
+    16-byte boundary (a device allocation starts on one)."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.flatten()
+    return buf[1:].view(x.shape)
+
+
+def build_variants(builds: dict, sigs: dict, prefix: str) -> dict:
+    """Compile each of ``builds`` (name -> (source, extra nvcc flags))
+    into ``chip_smoke_out/variants/lib<prefix><name>.so``, one nvcc each,
+    all at once; returns name -> the loaded library, its entry points in
+    ``sigs`` bound.  Raises with nvcc's output when a build fails."""
+    import ctypes
+
+    from pwasm_tpu_torch.ops import _build
+
+    vdir = os.path.join(ROOT, "chip_smoke_out", "variants")
+    os.makedirs(vdir, exist_ok=True)
+    procs = {}
+    for name, (src, defs) in builds.items():
+        lib = os.path.join(vdir, f"lib{prefix}{name}.so")
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defs, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"nvcc failed on the {name} build:\n{log}")
+        dll = libs[name] = ctypes.CDLL(lib)
+        for sym, (argtypes, restype) in sigs.items():
+            getattr(dll, sym).argtypes = argtypes
+            getattr(dll, sym).restype = restype
+    return libs
 
 
 def max_err(pairs) -> int:
@@ -483,14 +564,52 @@ def time_forward(lanes, dlo: int, band: int, cycles_per_s: float) -> dict:
     return ms
 
 
+def check_fwd_plan(m_max: int, n: int, band: int, dlo: int) -> dict:
+    """Each forward variant's plan at a shape from the built library
+    (``kernel_plan``, csrc/realign.cu::pw_fwd_plan) against the Python
+    mirror (``forward_plan``): body, cells, threads, lanes, warps, the
+    interior rows, window and shared memory, or both None where the
+    variant does not take the shape.  Returns the plans by variant;
+    raises where they differ."""
+    from pwasm_tpu_torch.ops import realign as ra
+
+    plans = {}
+    for v in VARIANTS:
+        got = ra.kernel_plan(m_max, n, band, dlo, v == "streamed")
+        want = ra.forward_plan(m_max, n, band, dlo, v == "streamed")
+        if (got is None) != (want is None) or (
+                got is not None and any(got[k] != want[k] for k in got)):
+            raise AssertionError(
+                f"the {v} forward plan {got} at m_max={m_max} n={n} "
+                f"band={band} dlo={dlo} is not the mirror's {want}")
+        plans[v] = got
+    return plans
+
+
+def variant_record(lanes, dlo: int, band: int, cycles_per_s: float) -> dict:
+    """``time_forward`` at these inputs, with the shape and each
+    variant's time a row of the longest lane's chain."""
+    ms = time_forward(lanes, dlo, band, cycles_per_s)
+    chain = max(int(lanes[2].clamp(max=lanes[0].shape[1]).max()), 1)
+    return dict(shape=[*lanes[0].shape, lanes[1].shape[1], band], **ms,
+                **{f"us_per_row_{v}": t * 1e3 / chain for v, t in ms.items()})
+
+
 def check_realign(lanes, dlo: int, band: int,
-                  cycles_per_s: float | None = None) -> dict:
-    """The forward kernel (each variant) against forward_plain on the
-    same CUDA tensors — score, b0, mat0 and the pointers of every row
-    <= q_len — and the walk kernel against walk_plain on the plain
-    pointers.  With ``cycles_per_s``, also the kernels' device times
-    (launches into preallocated outputs, queued behind a spin), the
-    plain versions' times and the bounds at these inputs."""
+                  cycles_per_s: float | None = None,
+                  off16: bool = False) -> dict:
+    """The forward kernel (each variant, forced) against forward_plain on
+    the same CUDA tensors — score, b0, mat0 and the pointers of every row
+    <= q_len — each variant's plan against its mirror, and the walk
+    kernel against walk_plain on the plain pointers.  With
+    ``off16`` the targets reach the wrapper from an address one byte
+    past a 16-byte boundary, which it copies to aligned rows
+    (``pad16``); and the launcher, given such an address itself, must
+    refuse it with cudaErrorMisalignedAddress and launch nothing.  With
+    ``cycles_per_s``, also the kernels' device times (launches into
+    preallocated outputs, queued behind a spin) and time a row of the
+    longest lane, the plain versions' times and the bounds at these
+    inputs."""
     import torch
 
     from pwasm_tpu_torch.ops import realign as ra
@@ -502,9 +621,11 @@ def check_realign(lanes, dlo: int, band: int,
     plain = ra.forward_plain(qs, ts, ql, tl, dlo, band)
     rows = ql.long().clamp(0, m_max)
     live = torch.arange(m_max, device=qs.device)[None, :] < rows[:, None]
+    ts_in = misaligned(ts) if off16 else ts
+    plans = check_fwd_plan(m_max, n, band, dlo)
     err = 0
     for v in VARIANTS:
-        got = ra.forward_kernel(qs, ts, ql, tl, dlo, band,
+        got = ra.forward_kernel(qs, ts_in, ql, tl, dlo, band,
                                 streamed=v == "streamed")
         torch.cuda.synchronize()
         pairs = [(got[0][live], plain[0][live]), *zip(got[1:], plain[1:])]
@@ -515,12 +636,35 @@ def check_realign(lanes, dlo: int, band: int,
         err = max(err, e)
     err = max(err, check_walk(plain[0], plain[2], plain[3], ql, what))
     out = dict(shape=[T, m_max, n, band], dlo=dlo, max_abs_err=err,
-               ok_lanes=int((plain[1] > -(2 ** 29)).sum()))
+               ok_lanes=int((plain[1] > -(2 ** 29)).sum()),
+               q_len_spread=[int(ql.min()), int(ql.max())],
+               body=(plans["resident"] or plans["streamed"])["body"],
+               lanes_a_block=(plans["resident"] or plans["streamed"])[
+                   "lanes"])
+    if off16:
+        off = misaligned(ra.pad16(ts))
+        before = dict(ra.LAUNCHES)
+        outs = [torch.empty_like(x) for x in plain]
+        try:
+            ra.launch_forward(False, ra.pad16(qs), off, ql.int().contiguous(),
+                              tl.int().contiguous(), m_max, n, dlo, band,
+                              ra.ScoreParams(), *outs)
+        except RuntimeError as e:
+            if f"CUDA error {CUDA_ERROR_MISALIGNED}" not in str(e):
+                raise
+        else:
+            raise AssertionError("the forward launcher took a target "
+                                 "address off a 16-byte boundary")
+        if ra.LAUNCHES != before:
+            raise AssertionError("a refused forward launch was counted")
+        out["launcher_refused"] = CUDA_ERROR_MISALIGNED
     if cycles_per_s is None:
         return out
     # device times: launches alone, into preallocated outputs
+    chain = max(int(rows.max()), 1)
     for v, ms in time_forward(lanes, dlo, band, cycles_per_s).items():
         out[f"ms_{v}"] = ms
+        out[f"us_per_row_{v}"] = ms * 1e3 / chain
     ql32 = ql.int().contiguous()
     walked = ra.walk_plain(plain[0], plain[2], plain[3], ql)
     iy_runs = walked[0]
@@ -694,9 +838,9 @@ def check_plan(m: int, n: int, band: int, streamed: bool) -> dict:
 
 
 def check_scores(lanes, band: int, cycles_per_s: float | None,
-                 misaligned: bool = False) -> dict:
+                 off16: bool = False) -> dict:
     """Both scores kernels (forced) against banded_scores_plain on the
-    same CUDA tensors, bit for bit.  With ``misaligned`` the targets
+    same CUDA tensors, bit for bit.  With ``off16`` the targets
     reach the wrapper from an address one byte past a 16-byte boundary,
     which it copies to aligned rows (``pad16``); and the launcher, given
     such an address itself, must refuse it with
@@ -712,11 +856,7 @@ def check_scores(lanes, band: int, cycles_per_s: float | None,
     (Q, m), (T, n) = qs.shape, ts.shape
     what = f"Q={Q} T={T} m={m} n={n} band={band}"
     plain = bd.banded_scores_plain(qs, ts, tl, band)
-    ts_in = ts
-    if misaligned:
-        flat = torch.empty(T * n + 1, dtype=torch.int8, device=ts.device)
-        flat[1:] = ts.flatten()
-        ts_in = flat[1:].view(T, n)
+    ts_in = misaligned(ts) if off16 else ts
     err = 0
     for v in VARIANTS:
         got = bd.scores_kernel(qs, ts_in, tl, band, streamed=v == "streamed")
@@ -732,11 +872,8 @@ def check_scores(lanes, band: int, cycles_per_s: float | None,
     # shapes' resident blocks)
     out["plan"] = check_plan(m, n, band, streamed=False)
     out["plan_streamed"] = check_plan(m, n, band, streamed=True)
-    if misaligned:
-        tp = bd.pad16(ts)
-        buf = torch.empty(tp.numel() + 16, dtype=torch.int8, device=ts.device)
-        off = buf[1:1 + tp.numel()].view(tp.shape)
-        off.copy_(tp)
+    if off16:
+        off = misaligned(bd.pad16(ts))
         before = dict(bd.LAUNCHES)
         try:
             bd.launch_scores(False, bd.pad16(qs), off, tl.int().contiguous(),
@@ -1086,36 +1223,18 @@ def compare_builds(parent_src: str, shapes: dict,
     tree's ("this").  Each build's scores must equal this tree's.
     Returns, per shape, each build's device times in the order run:
     parent, the smaller W, this tree, the larger W, then the reverse."""
-    import ctypes
-
     import torch
 
     from pwasm_tpu_torch.ops import _build
     from pwasm_tpu_torch.ops import banded_dp as bd
 
-    vdir = os.path.join(ROOT, "chip_smoke_out", "variants")
-    os.makedirs(vdir, exist_ok=True)
     own = os.path.join(_build.CSRC, "banded_dp.cu")
     windows = [w for w in (16, 32, 64) if w != bd.STREAM_WINDOW]
     builds = {"parent": (parent_src, ())}
     for w in windows:
         builds[f"w{w}"] = (own, (f"-DPW_SCORES_WINDOW={w}",))
-    procs = {}
-    for name, (src, defs) in builds.items():
-        lib = os.path.join(vdir, f"lib{name}.so")
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *defs, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    fns = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise AssertionError(f"nvcc failed on the {name} build:\n{log}")
-        dll = ctypes.CDLL(lib)
-        for sym in ("pw_scores", "pw_scores_smem"):
-            getattr(dll, sym).argtypes, getattr(dll, sym).restype = \
-                bd._SIGS[sym]
-        fns[name] = dll
+    fns = build_variants(builds, {sym: bd._SIGS[sym] for sym in (
+        "pw_scores", "pw_scores_smem")}, "scores_")
     p = bd.ScoreParams()
     res = {}
     for shape, (qp, tp, tl32, m, n, dlo) in shapes.items():
@@ -1155,13 +1274,90 @@ def compare_builds(parent_src: str, shapes: dict,
     return res
 
 
+def compare_forward_builds(parent_src: str, shapes: dict,
+                           cycles_per_s: float) -> dict:
+    """``--compare-realign PARENT_SRC``: the forward kernels of the
+    parent's ``realign.cu`` (PARENT_SRC) timed in turns with this tree's
+    on the same card, at ``shapes`` (name -> (lanes, dlo, band)).  Each
+    build runs the variant its own budget picks (resident where its
+    block fits, else streamed), and the parent's outputs (score, b0,
+    mat0 and the pointers of rows <= q_len) must equal this tree's.
+    Returns, per shape, each build's variant, device times in the order
+    run (parent, this, this, parent) and time a row of the longest
+    lane."""
+    import torch
+
+    from pwasm_tpu_torch.ops import realign as ra
+
+    libs = build_variants({"parent": (parent_src, ())},
+                          {sym: ra._SIGS[sym] for sym in (
+                              "pw_fwdptr", "pw_fwd_smem")}, "fwd_")
+    fns = {"this": ra._fn}
+    for name, dll in libs.items():
+        fns[name] = lambda sym, dll=dll: getattr(dll, sym)
+    p = ra.ScoreParams()
+    res = {}
+    for shape, (lanes, dlo, band) in shapes.items():
+        qs, ts, ql, tl = lanes
+        T, m_max = qs.shape
+        n = ts.shape[1]
+        qp, tp = ra.pad16(qs), ra.pad16(ts)
+        ql32, tl32 = ql.int().contiguous(), tl.int().contiguous()
+        live = torch.arange(m_max, device=qs.device)[None, :] \
+            < ql.long().clamp(0, m_max)[:, None]
+        chain = max(int(ql.clamp(max=m_max).max()), 1)
+        ref = ra.forward_kernel(qs, ts, ql, tl, dlo, band,
+                                streamed=ra.select_kernel(m_max, n, band)
+                                == "streamed")
+        variant = {k: "resident" if fn("pw_fwd_smem")(0, m_max, n, band)
+                   else "streamed" for k, fn in fns.items()}
+
+        def launcher(name, outs):
+            fn = fns[name]("pw_fwdptr")
+            streamed = variant[name] == "streamed"
+
+            def go():
+                rc = fn(int(streamed), qp.data_ptr(), qp.stride(0),
+                        tp.data_ptr(), tp.stride(0), ql32.data_ptr(),
+                        tl32.data_ptr(), T, m_max, n, dlo, band, p.match,
+                        p.mismatch, p.go, p.gap_extend,
+                        *(x.data_ptr() for x in outs),
+                        torch.cuda.current_stream().cuda_stream)
+                ra.check_launch(rc, name)
+            return go
+        times = {"parent": [], "this": []}
+        for name in ("parent", "this", "this", "parent"):
+            outs = [torch.zeros_like(x) for x in ref]
+            fn = launcher(name, outs)
+            fn()
+            torch.cuda.synchronize()
+            if not (torch.equal(outs[0][live], ref[0][live]) and all(
+                    torch.equal(a, b) for a, b in zip(outs[1:], ref[1:]))):
+                raise AssertionError(f"the {name} build's forward outputs "
+                                     f"differ at {shape}")
+            times[name].append(cuda_ms(fn, 3, 1, cycles_per_s))
+        res[shape] = dict(shape=[T, m_max, n, band], variant=variant,
+                          ms=times, us_per_row={
+                              k: [t * 1e3 / chain for t in v]
+                              for k, v in times.items()})
+        del ref
+    return res
+
+
 def main(argv: list[str]) -> int:
-    compare = None
-    if argv[:1] == ["--compare"] and len(argv) == 2:
-        compare = os.path.abspath(argv[1])
-    elif argv:
+    compare = compare_realign = None
+    args = list(argv)
+    while len(args) >= 2 and args[0] in ("--compare", "--compare-realign"):
+        if args[0] == "--compare":
+            compare = os.path.abspath(args[1])
+        else:
+            compare_realign = os.path.abspath(args[1])
+        args = args[2:]
+    if args:
         return fail("usage", "python3 chip_smoke.py [--compare "
-                    "PARENT/pwasm_tpu_torch/csrc/banded_dp.cu]")
+                    "PARENT/pwasm_tpu_torch/csrc/banded_dp.cu] "
+                    "[--compare-realign "
+                    "PARENT/pwasm_tpu_torch/csrc/realign.cu]")
     try:
         import torch
     except ImportError as e:
@@ -1214,6 +1410,29 @@ def main(argv: list[str]) -> int:
         re_checks.append(check_realign(realign_lanes(seed, T, m, n), dlo,
                                        band))
         emit(dict(phase="kernel", name="fwdptr+walk", **re_checks[-1]))
+    # the forward kernels at the edges of the sub-warp layout and past
+    # it (FWD_BANDS), each at dlo 1 - band, centred, 0 and off-centre,
+    # with lanes whose q_len runs from 1 to m_max inside a warp and a T
+    # that fills neither a warp's nor a block's lanes; at band 64 rows
+    # fewer than the band (an empty interior), and the inputs once more
+    # from a misaligned address (the wrapper copies them, the launcher
+    # refuses them)
+    for k, band in enumerate(FWD_BANDS):
+        layout = ra.forward_layout(band)
+        T = min(4 * (32 // layout[1] if layout else 1) + 3, 67)
+        lanes = realign_lanes(100 + k, T, FWD_M, FWD_M + 20, spread=True)
+        for dlo in sorted({1 - band, -(band // 2), 0, 3 - band // 3}):
+            re_checks.append(check_realign(lanes, dlo, band))
+            emit(dict(phase="kernel", name="fwdptr+walk", edges=True,
+                      **re_checks[-1]))
+    for k, (T, m, n, band, dlo) in enumerate(FWD_SHAPES):
+        re_checks.append(check_realign(
+            realign_lanes(200 + k, T, m, n, spread=True), dlo, band))
+        emit(dict(phase="kernel", name="fwdptr+walk", **re_checks[-1]))
+    re_checks.append(check_realign(realign_lanes(210, 19, 150, 170), -32,
+                                   64, off16=True))
+    emit(dict(phase="kernel", name="fwdptr+walk", misaligned=True,
+              **re_checks[-1]))
     for k, case in enumerate(("no_zero_iy_bit_before_b",
                               "ix_from_last_band_index",
                               "end_cell_outside_band", "q_len_1",
@@ -1240,8 +1459,7 @@ def main(argv: list[str]) -> int:
         sc_checks.append(check_scores(lanes, band, cycles_per_s))
         emit(dict(phase="kernel", name="scores", **sc_checks[-1]))
         if band == 64:
-            sc_checks.append(check_scores(lanes, band, None,
-                                          misaligned=True))
+            sc_checks.append(check_scores(lanes, band, None, off16=True))
             emit(dict(phase="kernel", name="scores", misaligned=True,
                       **sc_checks[-1]))
     for k, (*shape, band) in enumerate(SCORE_SHAPES):
@@ -1386,21 +1604,25 @@ def main(argv: list[str]) -> int:
     # both forward variants on every dispatch's inputs and at bands
     # 1,024 and 4,096 (the escalation's next steps): the budget takes
     # the resident kernel wherever it fits
-    variant_ms = [dict(shape=[*c[0][0].shape, c[0][1].shape[1], c[1]],
-                       **time_forward(c[0], c[2], c[1], cycles_per_s))
+    variant_ms = [variant_record(c[0], c[2], c[1], cycles_per_s)
                   for c in captured]
     del captured
     for k, band_v in enumerate((1024, 4096)):
-        variant_ms.append(dict(shape=[41, 1536, 1536, band_v], **time_forward(
+        variant_ms.append(variant_record(
             realign_lanes(40 + k, 41, 1536, 1536, min_m=1400),
-            -(band_v // 2), band_v, cycles_per_s)))
+            -(band_v // 2), band_v, cycles_per_s))
     emit(dict(phase="kernel", name="fwdptr variants", shapes=variant_ms))
-    edges = {(1536, 1664, 4096): "resident", (118_016, 118_016, 64):
-             "streamed", (250_112, 250_112, 20_000): None,
-             (128, 128, 40_000): None}
-    picked = {k: ra.select_kernel(*k) for k in edges}
-    if picked != edges:
-        return fail("realign", f"the budget picked {picked}, want {edges}")
+    # the budget's choices at its edges, and the plans there: at bands 64
+    # and 256 the last shapes whose resident block of one warp fits 227
+    # KB and the first that stream; the long read; shapes no variant takes
+    picked = {k: ra.select_kernel(*k) for k in FWD_EDGES}
+    if picked != FWD_EDGES:
+        return fail("realign", f"the budget picked {picked}, want "
+                    f"{FWD_EDGES}")
+    edge_plans = {str(k): check_fwd_plan(*k, -(k[2] // 2))
+                  for k in FWD_EDGES}
+    emit(dict(phase="realign", budget={str(k): v for k, v in picked.items()},
+              plans=edge_plans))
 
     # 8. long reads: the budget picks the streamed kernel
     from pwasm_tpu_torch.core.dna import encode
@@ -1455,10 +1677,23 @@ def main(argv: list[str]) -> int:
                                 FWD_OPS_PER_CELL * cells)
     long_read = dict(shape=[T_l, m_l, n_l, band_l], wall_s=long_wall,
                      max_abs_err=long_err, plain_host_s=long_plain_s,
-                     ms=long_ms, walk_ms=long_walk_ms, bound_ms=long_bound,
+                     ms=long_ms, us_per_row=long_ms * 1e3 / m_l,
+                     walk_ms=long_walk_ms, bound_ms=long_bound,
                      bound_by=long_by, cells=cells, launches=long_launches,
-                     scores=[r[0] for r in res])
+                     scores=[r[0] for r in res],
+                     plan=check_fwd_plan(m_l, n_l, band_l, dlo_l)["streamed"])
     emit(dict(phase="long-read", **long_read))
+    del fouts, wouts
+    if compare_realign:
+        emit(dict(phase="compare-realign", parent=compare_realign,
+                  **compare_forward_builds(compare_realign, {
+                      "main_band64": (first[0], first[2], first[1]),
+                      "escalated_band256": (escalated[0], escalated[2],
+                                            escalated[1]),
+                      **{f"main_band{b}": (first[0], -(b // 2), b)
+                         for b in (8, 16, 33)},
+                      "long_read": (lanes, dlo_l, band_l)}, cycles_per_s)))
+    del first, escalated, lanes
 
     # 9. many2many at config 3's scale; 10. a long-read dispatch
     m2m_launches, main_sc = run_many2many(work, cycles_per_s)
@@ -1486,7 +1721,10 @@ def main(argv: list[str]) -> int:
     # 12. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
-                      ms_streamed=c["ms_streamed"], ms_walk=c["ms_walk"],
+                      ms_streamed=c["ms_streamed"],
+                      us_per_row=c["us_per_row_resident"],
+                      us_per_row_streamed=c["us_per_row_streamed"],
+                      ms_walk=c["ms_walk"],
                       plain_ms_fwd=c["plain_ms_fwd"],
                       plain_ms_walk=c["plain_ms_walk"],
                       bound_ms_fwd=c["bound_ms_fwd"],
@@ -1520,6 +1758,7 @@ def main(argv: list[str]) -> int:
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
         library_ms=None, library=no_library, shape=main_re["shape"],
+        body=main_re["body"], us_per_row=main_re["us_per_row_resident"],
         shapes=re_shapes, variants=variant_ms), dict(
         name="fwdptr_long", route="cuda",
         source="pwasm_tpu_torch/csrc/realign.cu",
@@ -1532,6 +1771,9 @@ def main(argv: list[str]) -> int:
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
         library_ms=None, library=no_library, shape=main_re["shape"],
+        body=long_read["plan"]["body"], long_read_ms=long_read["ms"],
+        us_per_row=dict(main_forced=main_re["us_per_row_streamed"],
+                        long_read=long_read["us_per_row"]),
         long_read=long_read), dict(
         name="walk", route="cuda",
         source="pwasm_tpu_torch/csrc/realign.cu",

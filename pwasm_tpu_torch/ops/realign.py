@@ -15,9 +15,11 @@ Two passes per dispatch, each a CUDA kernel for CUDA tensors
   argmax (0=M, 1=Ix, 2=Iy), bit 2 Ix from extend, bit 3 Iy from extend —
   into a (T, m_max, band) uint8 tensor, and the end cell's score, band
   index ``b0`` and argmax ``mat0``.  The kernel has two variants,
-  ``resident`` (the lane's sequences in shared memory) and ``streamed``
-  (8-row windows staged from device memory, for long reads);
-  ``banded_realign_rows`` picks one by a shared-memory budget.
+  ``resident`` (a block's lanes' sequences in shared memory) and
+  ``streamed`` (windows staged from device memory, for long reads);
+  bands up to 256 run both on a sub-warp body (``forward_plan``), wider
+  ones on a block-wide body, and ``banded_realign_rows`` picks a variant
+  by a shared-memory budget.
 - **walk** (``walk_plain`` / ``walk_kernel``): the row-parallel
   traceback.  It advances one query row per step: a run of Iy ops
   (gaps in the query, moving down the band) whose length is closed-form
@@ -46,8 +48,8 @@ import torch
 from pwasm_tpu_torch.core.events import GapData
 from pwasm_tpu_torch.ops import _build
 from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, check_launch,
-                                           initial_wavefront, make_row_step,
-                                           pad16)
+                                           initial_wavefront, interior_rows,
+                                           make_row_step, pad16)
 
 OP_DIAG, OP_IX, OP_IY = 1, 2, 3
 
@@ -167,16 +169,124 @@ def walk_plain(ptrs: torch.Tensor, b0: torch.Tensor, mat0: torch.Tensor,
 # the CUDA kernels (csrc/realign.cu)
 # ---------------------------------------------------------------------------
 def select_kernel(m_max: int, n: int, band: int) -> str | None:
-    """The budget: ``"resident"`` when the lane's sequences fit a
-    block's shared memory beside the wavefront, else ``"streamed"``
-    when the band alone fits, else None (no kernel takes the shape).
-    Where both fit, the resident kernel is the faster one at every shape
-    measured (PERF.md).  The sizes come from the kernel's own layout
-    (``pw_fwd_smem``), so this needs the built library."""
+    """The budget: ``"resident"`` when a block of lanes with their
+    sequences fits a block's shared memory, else ``"streamed"`` when the
+    band's staging ring does (bands up to 256 always: their ring depends
+    on the band alone), else None (no kernel takes the shape).  The sizes
+    come from the kernel's own layout (``pw_fwd_smem``), so this needs
+    the built library; ``forward_plan`` is their mirror."""
     for name in ("resident", "streamed"):
         if _fn("pw_fwd_smem")(int(name == "streamed"), m_max, n, band):
             return name
     return None
+
+
+# the sub-warp forward body's layout (csrc/realign.cu kCellsMax, kWindow,
+# kRing, kGuard): cells a thread at most where a warp's 32 threads hold
+# the band, W rows a streamed slot, slots a warp, bytes after a resident
+# block's target rows (a block is one warp, kSubWarps); and a block's
+# limits
+FWD_CELLS = 2
+FWD_WINDOW = 16
+FWD_RING = 3
+FWD_GUARD = 256
+SMEM_LIMIT = 232_448          # 227 KB, the opt-in maximum per block
+MAX_THREADS = 1024
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def forward_layout(band: int) -> tuple[int, int] | None:
+    """The sub-warp forward body's layout of a band as (C, G), the
+    mirror of ``csrc/realign.cu::sub_layout``: C cells a thread, the
+    least power of two >= band but at most FWD_CELLS, or more (at most
+    8) where 32 threads would not hold the band, and G threads a lane,
+    the least power of two with G * C >= band; None where G would pass
+    32 (bands above 256), which take the block-wide body.  Fewer cells a
+    thread than the scores kernels' ``subwarp_layout`` (at most 8): a
+    thread's share of a row is the serial part of the row's chain, and
+    the forward row holds twice the scores row's work (PERF.md)."""
+    c = 1
+    while c < band and c < FWD_CELLS:
+        c <<= 1
+    while c < 8 and 32 * c < band:
+        c <<= 1
+    g = 1
+    while g * c < band:
+        g <<= 1
+    return (c, g) if g <= 32 else None
+
+
+def block_smem(streamed: bool, m_max: int, n: int, band: int) -> int:
+    """Shared-memory bytes of one block of the block-wide forward body
+    (bands above 256; ``csrc/realign.cu::fwd_smem``): the wavefront's
+    three int32 rows and 32 warp totals, then the lane's target and query
+    (resident) or two target slots of an 8-row window and two 16-byte
+    query slots (streamed)."""
+    wave = _round16(12 * band) + 128
+    if streamed:
+        return wave + 2 * _round16(band + 22) + 32
+    return wave + _round16(n) + _round16(m_max)
+
+
+def forward_plan(m_max: int, n: int, band: int, dlo: int,
+                 streamed: bool = False) -> dict | None:
+    """What a forward variant runs at a shape, the mirror of
+    ``csrc/realign.cu::pw_fwd_plan`` (``kernel_plan`` reads that one from
+    the built library): ``body`` ("subwarp" or "block"), ``cells`` a
+    thread and ``threads`` a lane (``forward_layout``; the block-wide
+    body: its cells a thread and threads a block), ``lanes`` and
+    ``warps`` a block (a sub-warp block is one warp), the 0-based rows ``interior`` it runs unmasked
+    (``interior_rows``; empty for the block-wide body), the rows a
+    streamed ``window`` covers (0 resident) and the block's shared-memory
+    bytes ``smem``.  The streamed sub-warp plan also gives ``lane_bytes``
+    (one lane's target window: a step's rows read W + G*C - 1 bytes from
+    up to 15 bytes past a 16-byte floor, round16(W + G*C + 14)) and
+    ``slot_bytes`` (per lane of a warp, W query codes and its window).
+    None where the variant does not take the shape: a band outside
+    1..32,768, or no block that fits 227 KB."""
+    if band < 1 or band > 32 * MAX_THREADS or m_max < 0 or n < 0:
+        return None
+    layout = forward_layout(band)
+    if layout is None:
+        smem = block_smem(streamed, m_max, n, band)
+        if smem > SMEM_LIMIT:
+            return None
+        cells = 1
+        while cells * MAX_THREADS < band:
+            cells <<= 1
+        threads = ((band + cells - 1) // cells + 31) // 32 * 32
+        return dict(body="block", cells=cells, threads=threads, lanes=1,
+                    warps=threads // 32, interior=(m_max, m_max),
+                    window=8 if streamed else 0, smem=smem)
+    c, g = layout
+    plan = dict(body="subwarp", cells=c, threads=g,
+                interior=interior_rows(m_max, n, dlo, band))
+    if streamed:
+        lane_bytes = _round16(FWD_WINDOW + g * c + 14)
+        slot_bytes = 32 // g * (FWD_WINDOW + lane_bytes)
+        plan.update(lanes=32 // g, warps=1, window=FWD_WINDOW,
+                    lane_bytes=lane_bytes, slot_bytes=slot_bytes,
+                    smem=FWD_RING * slot_bytes)
+        return plan
+    lanes = 32 // g
+    smem = lanes * (_round16(max(m_max, 1)) + _round16(max(n, 1))) \
+        + FWD_GUARD
+    if smem > SMEM_LIMIT:
+        return None
+    plan.update(lanes=lanes, warps=1, window=0, smem=smem)
+    return plan
+
+
+def forward_window_start(step: int, dlo: int) -> int:
+    """The target byte at which every lane's window of W-row step
+    ``step`` starts in the streamed sub-warp body: the 16-byte floor of
+    ``step * W + dlo``, the byte ``j - 1`` that the step's first row
+    reads at band index 0 (negative before the row; the kernel fills
+    those copies with pad code 127)."""
+    return (step * FWD_WINDOW + dlo) & ~15
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -185,13 +295,29 @@ _SIGS = {
                    _I, _I, _P, _P, _P, _P, _P], _I),
     "pw_walk": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "pw_fwd_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "pw_fwd_plan": ([_I, _I, _I, _I, _I, _P], _I),
 }
 
 
 def _fn(name: str):
-    """The C entry point ``pw_fwdptr``, ``pw_walk`` or ``pw_fwd_smem``
-    of ``csrc/realign.cu``, built and bound on first use."""
+    """The C entry point ``pw_fwdptr``, ``pw_walk``, ``pw_fwd_smem`` or
+    ``pw_fwd_plan`` of ``csrc/realign.cu``, built and bound on first
+    use."""
     return _build.bind("realign", _SIGS, _FNS)[name]
+
+
+def kernel_plan(m_max: int, n: int, band: int, dlo: int,
+                streamed: bool = False) -> dict | None:
+    """A forward variant's plan at a shape from the built library
+    (``pw_fwd_plan``), with ``forward_plan``'s keys but the streamed
+    window's byte counts; None where the variant does not take it."""
+    out = (ctypes.c_int * 9)()
+    if _fn("pw_fwd_plan")(int(streamed), m_max, n, band, dlo,
+                          ctypes.addressof(out)):
+        return None
+    return dict(body="subwarp" if out[0] else "block", cells=out[1],
+                threads=out[2], lanes=out[3], warps=out[4],
+                interior=(out[5], out[6]), window=out[7], smem=out[8])
 
 
 def launch_forward(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,
