@@ -16,8 +16,14 @@ Phases, one JSON line each; any failure exits non-zero:
               each at four band placements, q_len from 1 to 160 inside a
               warp, T no multiple of a warp's or a block's lanes; rows
               fewer than the band; a misaligned input), each shape's
-              plans against their Python mirror, and the walk on
-              hand-made pointer planes;
+              plans against their Python mirror, and the walk on the
+              hand-made pointer planes of ``corpus.make_walk_planes`` at
+              bands 1-4,096 (WALK_BANDS; from the end cells' indices and
+              from raw indices outside the band) and on 5,000-row planes
+              that wrap its ring of chunks; the consensus kernel at
+              CONSENSUS_SHAPES (its byte counters' flush, cols % 4 != 0,
+              a misaligned start, 4,096 x 300 and 3 x 1,000,001), each
+              walk and consensus plan against its mirror;
 4. golden   — the CLI on ``tests/golden`` inputs with --device=cuda
               reproduces the six committed outputs byte for byte;
 5. realistic — the 200-alignment corpus through the CLI with
@@ -39,7 +45,8 @@ Phases, one JSON line each; any failure exits non-zero:
               picks the streamed kernel; the streamed kernel and the
               walk equal their plain versions (run on the host CPU) on
               that dispatch's inputs, and every path re-scores to its
-              DP score; the kernel's time and time a row;
+              DP score; both kernels' times and times a row, the
+              forward pass's bound, the walk's bound and chain bound;
 9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
               1,200-1,800 bases against 10,240 targets) through the CLI's
               ``--many2many`` with --device=cuda: stage times, dispatches
@@ -88,7 +95,15 @@ its forward kernels in turns with this tree's at the main path's largest
 band-64 and band-256 dispatches, at that band-64 dispatch's lanes with
 bands 8, 16 and 33 (reached through ``--realign --band=N``) and at the
 long read, the parent's outputs equal to this tree's (the
-``compare-realign`` line).  Both options may be given.
+``compare-realign`` line), and its walk at the band-64 and band-256
+dispatches and the long read, bit-equal (the ``compare-walk`` line).
+
+    python3 chip_smoke.py --compare-consensus PARENT/pwasm_tpu_torch/csrc/consensus.cu
+
+also builds that source and times its consensus kernel in turns with
+this tree's at the realistic pileup, one ten times deeper and 4,096 x
+300, bit-equal (the ``compare-consensus`` line).  The options may be
+combined.
 
 Outputs are written under ``chip_smoke_out/``.
 """
@@ -159,6 +174,26 @@ FWD_OPS_PER_CELL = 20
 # load, a test and a ballot lane
 WALK_OPS_PER_ROW = 20
 WALK_OPS_PER_CELL = 3
+# the walk's chain a row in its ring body (csrc/realign.cu
+# walk_ring_kernel), the least latency of a row's dependent steps: a DIAG
+# or IX row's byte, read one row earlier, sets mat (a shift, an AND, a
+# select); the next row's IX test (a compare) selects the address of the
+# byte after it (a select), which it reads.  So two rows take one
+# shared-memory read, ~30 cycles on Hopper as published microbenchmarks
+# give it, and 5 dependent integer instructions of 4 cycles, at the 1.98
+# GHz boost clock
+WALK_CHAIN_CYCLES = (30 + 5 * 4) / 2
+CLOCK_HZ = 1.98e9
+# the consensus kernel's fixed shapes (depth, cols): both sides of the
+# byte counters' 255-row flush, columns no multiple of 4, a deep narrow
+# pileup (one tile, a cluster of 8) and a shallow wide one (clusters of
+# one block); each also from a misaligned address (check_consensus)
+CONSENSUS_SHAPES = ((1, 1), (31, 129), (1025, 4097), (2001, 100_000),
+                    (254, 1001), (255, 1001), (256, 1001), (511, 1001),
+                    (1100, 1001), (4096, 300), (3, 1_000_001))
+# the walk's hand-made planes: the edges of the ring body's 32-cell
+# ballot windows up to its widest band, 256, and the wide body past it
+WALK_BANDS = (1, 31, 32, 33, 40, 63, 64, 65, 255, 256, 257, 1024, 4096)
 # int32 instructions that the scores recurrence needs per interior band
 # cell: its 11 operations (the score's compare and select, q < 4 tested
 # once a row; M's two maxima and add; Ix's two subtractions and maximum;
@@ -281,10 +316,18 @@ def check_consensus(depth: int, cols: int, seed: int,
                     cycles_per_s: float) -> dict:
     """Kernel vs plain version on the same CUDA tensor, and on a copy
     whose first byte is not 4-byte aligned: bit-equal outputs; the
-    kernel's and the plain version's times; the bound for this shape."""
+    kernel's plan (``kernel_plan``) against its mirror
+    (``consensus_plan``); the kernel's and the plain version's times;
+    the bound for this shape."""
     import torch
 
     from pwasm_tpu_torch.ops import consensus as cons
+
+    plan = cons.kernel_plan(depth, cols)
+    if plan != cons.consensus_plan(depth, cols):
+        raise AssertionError(f"the consensus plan {plan} at {depth}x{cols} "
+                             f"is not the mirror's "
+                             f"{cons.consensus_plan(depth, cols)}")
 
     pile = torch.from_numpy(make_pile(depth, cols, seed)).cuda()
     shifted = misaligned(pile)
@@ -305,7 +348,7 @@ def check_consensus(depth: int, cols: int, seed: int,
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
     iters = 200 if depth * cols < 10_000_000 else 20
     votes, counts = torch.empty_like(pv), torch.empty_like(pc)
-    return dict(shape=[depth, cols], max_abs_err=err,
+    return dict(shape=[depth, cols], max_abs_err=err, plan=plan,
                 ms=cuda_ms(lambda: cons.launch(pile, counts, votes), 7,
                            iters, cycles_per_s),
                 # the checked entry point, unqueued: what a caller waits
@@ -429,42 +472,60 @@ def realign_lanes(seed: int, T: int, m_max: int, n_max: int,
     return [torch.from_numpy(x).cuda() for x in (qs, ts, qls, tls)]
 
 
-def walk_planes(case: str, seed: int):
-    """Hand-made pointer planes for the walk (the cases of
-    tests/test_torch_realign.py): (ptrs, q_lens, t_lens, final
-    wavefront (3, T, band), dlo, band) as numpy arrays."""
+def check_walk_planes(band: int, seed: int) -> dict:
+    """The walk kernel against walk_plain on ``corpus.make_walk_planes``'
+    hand-made planes at ``band`` (the cases of
+    tests/test_torch_walk_plan.py): from the end cells' clamped indices,
+    and once more from raw indices outside the band (-7, -1, band, band +
+    3, 2 band) that no caller passes but the wrapper takes."""
     import numpy as np
+    import torch
+
+    from pwasm_tpu_torch.corpus import make_walk_planes
+    from pwasm_tpu_torch.ops import realign as ra
+
+    d = make_walk_planes(band, seed)
+    ptrs = torch.from_numpy(d["ptrs"]).cuda()
+    ql = torch.from_numpy(d["q_lens"]).cuda()
+    wf = torch.from_numpy(d["wf"]).cuda()
+    _score, b0, mat0 = ra.end_cell(wf[0], wf[1], wf[2], ql,
+                                   torch.from_numpy(d["t_lens"]).cuda(),
+                                   d["dlo"], band)
+    err = check_walk(ptrs, b0, mat0, ql, f"planes at band {band}")
+    T = len(d["q_lens"])
+    raw = np.resize(np.array([-7, -1, band, band + 3, 2 * band], np.int32),
+                    T)
+    err = max(err, check_walk(ptrs, torch.from_numpy(raw).cuda(), mat0, ql,
+                              f"raw indices at band {band}"))
+    return dict(band=band, lanes=T, m_max=int(ptrs.shape[1]),
+                max_abs_err=err)
+
+
+def check_walk_long_plane(band: int, seed: int, m_max: int = 5000) -> dict:
+    """The walk kernel against walk_plain on random planes of ``m_max``
+    rows (157 chunks of 32 at 5,000 rows, so each lane wraps the ring of
+    chunks 31 times), with long Iy runs (bit 3 set in 7 of 8 cells)."""
+    import numpy as np
+    import torch
 
     rng = np.random.default_rng(seed)
-    T, m_max, band, dlo = 6, 12, 40, -5
-    q_lens = rng.integers(2, m_max + 1, T).astype(np.int32)
-    b_end = rng.integers(0, band, T)
-    mat = rng.integers(0, 3, T)
-    b_y = rng.integers(0, 2, (T, m_max, band))
-    if case == "no_zero_iy_bit_before_b":
-        b_y[:] = 1
-        mat[:] = 2
-    elif case == "ix_from_last_band_index":
-        b_end[:] = band - 1
-        mat[:] = 1
-    elif case == "end_cell_outside_band":
-        b_end = np.array([band, band + 3, -1, -7, 2 * band, band - 1])
-    elif case == "q_len_1":
-        q_lens[:] = 1
+    T = 3
     ptrs = (rng.integers(0, 3, (T, m_max, band))
             | (rng.integers(0, 2, (T, m_max, band)) << 2)
-            | (b_y << 3)).astype(np.uint8)
-    if case == "leading_gap":
-        b_end = rng.integers(-dlo + 1, band, T)
-        mat[:] = 0
-        ptrs[:] = 0
-    wf = rng.integers(-50, 50, (3, T, band)).astype(np.int32)
-    b0 = np.clip(b_end, 0, band - 1)
-    for k in range(T):
-        wf[:, k, b0[k]] = 10
-        wf[mat[k], k, b0[k]] = 40
-    t_lens = (q_lens + dlo + b_end).astype(np.int32)
-    return ptrs, q_lens, t_lens, wf, dlo, band
+            | ((rng.random((T, m_max, band)) < 0.875) << 3)).astype(np.uint8)
+    q_lens = np.array([m_max, m_max - 1, 1234], np.int32)
+    b0 = rng.integers(0, band, T).astype(np.int32)
+    mat0 = rng.integers(0, 3, T).astype(np.int32)
+    err = check_walk(*(torch.from_numpy(x).cuda() for x in (ptrs, b0, mat0,
+                                                            q_lens)),
+                     f"a {m_max}-row plane at band {band}")
+    return dict(band=band, lanes=T, m_max=m_max, max_abs_err=err)
+
+
+def walk_chain_ms(rows: int) -> float:
+    """The least time of a walk whose longest lane has ``rows`` rows:
+    its chain of rows, each WALK_CHAIN_CYCLES at CLOCK_HZ."""
+    return rows * WALK_CHAIN_CYCLES / CLOCK_HZ * 1e3
 
 
 def misaligned(x):
@@ -514,11 +575,18 @@ def max_err(pairs) -> int:
 
 
 def check_walk(ptrs, b0, mat0, q_lens, what: str) -> int:
-    """The walk kernel against walk_plain on the same CUDA tensors."""
+    """The walk kernel against walk_plain on the same CUDA tensors, and
+    its plan at the shape (``walk_kernel_plan``) against the mirror."""
     import torch
 
     from pwasm_tpu_torch.ops import realign as ra
 
+    _T, m_max, band = ptrs.shape
+    plan, mirror = ra.walk_kernel_plan(m_max, band), ra.walk_plan(m_max,
+                                                                  band)
+    if plan != mirror:
+        raise AssertionError(f"the walk plan {plan} at m_max={m_max} "
+                             f"band={band} is not the mirror's {mirror}")
     want = ra.walk_plain(ptrs, b0, mat0, q_lens)
     got = ra.walk_kernel(ptrs, b0, mat0, q_lens)
     torch.cuda.synchronize()
@@ -688,6 +756,11 @@ def check_realign(lanes, dlo: int, band: int,
     out["bound_ms_walk"], out["bound_by_walk"] = bound(
         scanned + 5 * T * m_max + 16 * T,
         WALK_OPS_PER_ROW * int(rows.sum()) + WALK_OPS_PER_CELL * scanned)
+    out["chain_bound_ms_walk"] = walk_chain_ms(chain)
+    out["us_per_row_walk"] = out["ms_walk"] * 1e3 / chain
+    # rows that the walk leaves after an Iy run (the ring body's slow
+    # step) among the rows it walks
+    out["iy_rows"], out["rows"] = int((iy_runs > 0).sum()), int(rows.sum())
     return out
 
 
@@ -1274,10 +1347,120 @@ def compare_builds(parent_src: str, shapes: dict,
     return res
 
 
-def compare_forward_builds(parent_src: str, shapes: dict,
+def in_turns(makers: dict, fresh, check, iters: int, cycles_per_s: float,
+             what: str) -> dict:
+    """The launches of ``makers`` (name -> a function of fresh outputs,
+    from ``fresh()``, that returns the launch) each run once and checked
+    (``check(outs)``), then timed, in the order parent, this, this,
+    parent.  Returns name -> its two device times."""
+    import torch
+
+    times = {"parent": [], "this": []}
+    for name in ("parent", "this", "this", "parent"):
+        outs = fresh()
+        fn = makers[name](outs)
+        fn()
+        torch.cuda.synchronize()
+        if not check(outs):
+            raise AssertionError(f"the {name} build's outputs differ at "
+                                 f"{what}")
+        times[name].append(cuda_ms(fn, 3, iters, cycles_per_s))
+    return times
+
+
+def compare_walk_builds(parent, shapes: dict, cycles_per_s: float) -> dict:
+    """``--compare-realign``: the parent's walk (``parent``, its
+    ``realign.cu`` built by ``build_variants``) timed in turns with this
+    tree's at ``shapes`` (name -> (lanes, dlo, band)), on this tree's
+    forward pointers; the outputs must be bit-equal.  Returns, per shape,
+    the times in the order run (parent, this, this, parent), the time a
+    row of the longest lane and its chain bound."""
+    import torch
+
+    from pwasm_tpu_torch.ops import realign as ra
+
+    res = {}
+    for shape, (lanes, dlo, band) in shapes.items():
+        qs, ts, ql, tl = lanes
+        T, m_max = qs.shape
+        n = ts.shape[1]
+        ptrs, _score, b0, mat0 = ra.forward_kernel(
+            qs, ts, ql, tl, dlo, band,
+            streamed=ra.select_kernel(m_max, n, band) == "streamed")
+        ql32 = ql.int().contiguous()
+        ref = ra.walk_kernel(ptrs, b0, mat0, ql32)
+        chain = max(int(ql.clamp(max=m_max).max()), 1)
+
+        def launcher(fn):
+            def make(outs):
+                def go():
+                    rc = fn(ptrs.data_ptr(), b0.data_ptr(), mat0.data_ptr(),
+                            ql32.data_ptr(), T, m_max, band,
+                            *(x.data_ptr() for x in outs),
+                            torch.cuda.current_stream().cuda_stream)
+                    ra.check_launch(rc, "walk")
+                return go
+            return make
+        times = in_turns(
+            {"parent": launcher(parent.pw_walk),
+             "this": launcher(ra._fn("pw_walk"))},
+            lambda: [torch.full_like(x, -5) for x in ref],
+            lambda outs: all(torch.equal(a, b) for a, b in zip(outs, ref)),
+            5 if m_max * T < 10_000_000 else 1, cycles_per_s,
+            f"walk {shape}")
+        res[shape] = dict(shape=[T, m_max, n, band], ms=times,
+                          us_per_row={k: [t * 1e3 / chain for t in v]
+                                      for k, v in times.items()},
+                          chain_bound_ms=walk_chain_ms(chain))
+        del ptrs, ref
+    return res
+
+
+def compare_consensus_builds(parent_src: str, shapes: dict,
+                             cycles_per_s: float) -> dict:
+    """``--compare-consensus PARENT_SRC``: the parent's consensus kernel
+    (its ``consensus.cu``) timed in turns with this tree's at ``shapes``
+    (name -> (depth, cols)) on ``make_pile`` pileups; counts and votes
+    must be bit-equal.  Returns, per shape, the device times in the order
+    run (parent, this, this, parent) and this tree's plan."""
+    import torch
+
+    from pwasm_tpu_torch.ops import consensus as cons
+
+    parent = build_variants({"parent": (parent_src, ())}, {
+        "pw_consensus": cons._SIGS["pw_consensus"]}, "consensus_")["parent"]
+    res = {}
+    for k, (shape, (depth, cols)) in enumerate(shapes.items()):
+        pile = torch.from_numpy(make_pile(depth, cols, seed=500 + k)).cuda()
+        ref_votes, ref_counts = cons.consensus_counts_votes_plain(pile)
+
+        def launcher(fn):
+            def make(outs):
+                def go():
+                    rc = fn(pile.data_ptr(), depth, cols,
+                            outs[1].data_ptr(), outs[0].data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"consensus: CUDA error {rc}")
+                return go
+            return make
+        times = in_turns(
+            {"parent": launcher(parent.pw_consensus),
+             "this": launcher(cons._fn("pw_consensus"))},
+            lambda: [torch.full_like(ref_votes, 9),
+                     torch.full_like(ref_counts, -5)],
+            lambda outs: torch.equal(outs[0], ref_votes)
+            and torch.equal(outs[1], ref_counts), 200, cycles_per_s,
+            f"consensus {shape}")
+        res[shape] = dict(shape=[depth, cols], ms=times,
+                          plan=cons.consensus_plan(depth, cols))
+    return res
+
+
+def compare_forward_builds(parent, shapes: dict,
                            cycles_per_s: float) -> dict:
-    """``--compare-realign PARENT_SRC``: the forward kernels of the
-    parent's ``realign.cu`` (PARENT_SRC) timed in turns with this tree's
+    """``--compare-realign``: the forward kernels of the parent's
+    ``realign.cu`` (``parent``, built) timed in turns with this tree's
     on the same card, at ``shapes`` (name -> (lanes, dlo, band)).  Each
     build runs the variant its own budget picks (resident where its
     block fits, else streamed), and the parent's outputs (score, b0,
@@ -1289,12 +1472,7 @@ def compare_forward_builds(parent_src: str, shapes: dict,
 
     from pwasm_tpu_torch.ops import realign as ra
 
-    libs = build_variants({"parent": (parent_src, ())},
-                          {sym: ra._SIGS[sym] for sym in (
-                              "pw_fwdptr", "pw_fwd_smem")}, "fwd_")
-    fns = {"this": ra._fn}
-    for name, dll in libs.items():
-        fns[name] = lambda sym, dll=dll: getattr(dll, sym)
+    fns = {"this": ra._fn, "parent": lambda sym: getattr(parent, sym)}
     p = ra.ScoreParams()
     res = {}
     for shape, (lanes, dlo, band) in shapes.items():
@@ -1312,30 +1490,27 @@ def compare_forward_builds(parent_src: str, shapes: dict,
         variant = {k: "resident" if fn("pw_fwd_smem")(0, m_max, n, band)
                    else "streamed" for k, fn in fns.items()}
 
-        def launcher(name, outs):
+        def launcher(name):
             fn = fns[name]("pw_fwdptr")
             streamed = variant[name] == "streamed"
 
-            def go():
-                rc = fn(int(streamed), qp.data_ptr(), qp.stride(0),
-                        tp.data_ptr(), tp.stride(0), ql32.data_ptr(),
-                        tl32.data_ptr(), T, m_max, n, dlo, band, p.match,
-                        p.mismatch, p.go, p.gap_extend,
-                        *(x.data_ptr() for x in outs),
-                        torch.cuda.current_stream().cuda_stream)
-                ra.check_launch(rc, name)
-            return go
-        times = {"parent": [], "this": []}
-        for name in ("parent", "this", "this", "parent"):
-            outs = [torch.zeros_like(x) for x in ref]
-            fn = launcher(name, outs)
-            fn()
-            torch.cuda.synchronize()
-            if not (torch.equal(outs[0][live], ref[0][live]) and all(
-                    torch.equal(a, b) for a, b in zip(outs[1:], ref[1:]))):
-                raise AssertionError(f"the {name} build's forward outputs "
-                                     f"differ at {shape}")
-            times[name].append(cuda_ms(fn, 3, 1, cycles_per_s))
+            def make(outs):
+                def go():
+                    rc = fn(int(streamed), qp.data_ptr(), qp.stride(0),
+                            tp.data_ptr(), tp.stride(0), ql32.data_ptr(),
+                            tl32.data_ptr(), T, m_max, n, dlo, band,
+                            p.match, p.mismatch, p.go, p.gap_extend,
+                            *(x.data_ptr() for x in outs),
+                            torch.cuda.current_stream().cuda_stream)
+                    ra.check_launch(rc, name)
+                return go
+            return make
+        times = in_turns(
+            {name: launcher(name) for name in fns},
+            lambda: [torch.zeros_like(x) for x in ref],
+            lambda outs: torch.equal(outs[0][live], ref[0][live]) and all(
+                torch.equal(a, b) for a, b in zip(outs[1:], ref[1:])),
+            1, cycles_per_s, f"forward {shape}")
         res[shape] = dict(shape=[T, m_max, n, band], variant=variant,
                           ms=times, us_per_row={
                               k: [t * 1e3 / chain for t in v]
@@ -1345,19 +1520,20 @@ def compare_forward_builds(parent_src: str, shapes: dict,
 
 
 def main(argv: list[str]) -> int:
-    compare = compare_realign = None
+    opts = {"--compare": None, "--compare-realign": None,
+            "--compare-consensus": None}
     args = list(argv)
-    while len(args) >= 2 and args[0] in ("--compare", "--compare-realign"):
-        if args[0] == "--compare":
-            compare = os.path.abspath(args[1])
-        else:
-            compare_realign = os.path.abspath(args[1])
+    while len(args) >= 2 and args[0] in opts:
+        opts[args[0]] = os.path.abspath(args[1])
         args = args[2:]
     if args:
         return fail("usage", "python3 chip_smoke.py [--compare "
                     "PARENT/pwasm_tpu_torch/csrc/banded_dp.cu] "
                     "[--compare-realign "
-                    "PARENT/pwasm_tpu_torch/csrc/realign.cu]")
+                    "PARENT/pwasm_tpu_torch/csrc/realign.cu] "
+                    "[--compare-consensus "
+                    "PARENT/pwasm_tpu_torch/csrc/consensus.cu]")
+    compare, compare_realign, compare_consensus = opts.values()
     try:
         import torch
     except ImportError as e:
@@ -1391,7 +1567,7 @@ def main(argv: list[str]) -> int:
 
     # 3. kernel vs plain at fixed shapes
     cycles_per_s = sleep_cycles_per_s()
-    shapes = [(1, 1), (31, 129), (1025, 4097), (2001, 100_000)]
+    shapes = CONSENSUS_SHAPES
     checks = []
     for k, (depth, cols) in enumerate(shapes):
         checks.append(check_consensus(depth, cols, seed=k,
@@ -1433,19 +1609,17 @@ def main(argv: list[str]) -> int:
                                    64, off16=True))
     emit(dict(phase="kernel", name="fwdptr+walk", misaligned=True,
               **re_checks[-1]))
-    for k, case in enumerate(("no_zero_iy_bit_before_b",
-                              "ix_from_last_band_index",
-                              "end_cell_outside_band", "q_len_1",
-                              "leading_gap", "random")):
-        ptrs, q_lens, t_lens, wf, dlo, band = walk_planes(case, seed=k)
-        wf = torch.from_numpy(wf).cuda()
-        ql = torch.from_numpy(q_lens).cuda()
-        _score, b0, mat0 = ra.end_cell(wf[0], wf[1], wf[2], ql,
-                                       torch.from_numpy(t_lens).cuda(), dlo,
-                                       band)
-        err = check_walk(torch.from_numpy(ptrs).cuda(), b0, mat0, ql, case)
-        re_checks.append(dict(max_abs_err=err))
-        emit(dict(phase="kernel", name="walk", planes=case, max_abs_err=err))
+    # the walk on hand-made planes at the ring body's word edges and
+    # past it (WALK_BANDS), and on long planes that wrap its ring of
+    # chunks many times
+    for band in WALK_BANDS:
+        re_checks.append(check_walk_planes(band, seed=band))
+        emit(dict(phase="kernel", name="walk", planes=True,
+                  **re_checks[-1]))
+    for k, band in enumerate((64, 256)):
+        re_checks.append(check_walk_long_plane(band, seed=300 + k))
+        emit(dict(phase="kernel", name="walk", long_plane=True,
+                  **re_checks[-1]))
 
     # the scores kernels, both variants forced: 3 queries x 37 targets at
     # each band (n = m + (band - 1) // 2, the widest the band can place)
@@ -1540,6 +1714,12 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="kernel", name="consensus", main_path=True,
               **main_check))
     checks.append(main_check)
+    if compare_consensus:
+        emit(dict(phase="compare-consensus", parent=compare_consensus,
+                  **compare_consensus_builds(compare_consensus, {
+                      "realistic": (depth, cols),
+                      "deep": (10 * depth, cols),
+                      "deep_narrow": (4096, 300)}, cycles_per_s)))
 
     # 6. clip refinement on the card
     emit(dict(phase="refine", **check_refine(seed=7)))
@@ -1675,24 +1855,43 @@ def main(argv: list[str]) -> int:
     cells = int(lanes[2].sum()) * band_l
     long_bound, long_by = bound(T_l * (m_l + n_l + 8) + cells + 12 * T_l,
                                 FWD_OPS_PER_CELL * cells)
+    # the walk's bound counts the cells it must examine, as at the main
+    # dispatch; its chain bound, the longest lane's rows
+    long_rows = lanes[2].long().clamp(0, m_l)
+    scanned = int(wouts[0].sum()) + int(long_rows.sum())
+    walk_bound, walk_by = bound(
+        scanned + 5 * T_l * m_l + 16 * T_l,
+        WALK_OPS_PER_ROW * int(long_rows.sum()) + WALK_OPS_PER_CELL * scanned)
+    chain_l = max(int(long_rows.max()), 1)
     long_read = dict(shape=[T_l, m_l, n_l, band_l], wall_s=long_wall,
                      max_abs_err=long_err, plain_host_s=long_plain_s,
                      ms=long_ms, us_per_row=long_ms * 1e3 / m_l,
-                     walk_ms=long_walk_ms, bound_ms=long_bound,
+                     walk_ms=long_walk_ms,
+                     walk_us_per_row=long_walk_ms * 1e3 / chain_l,
+                     walk_bound_ms=walk_bound, walk_bound_by=walk_by,
+                     walk_chain_bound_ms=walk_chain_ms(chain_l),
+                     walk_plan=ra.walk_kernel_plan(m_l, band_l),
+                     bound_ms=long_bound,
                      bound_by=long_by, cells=cells, launches=long_launches,
                      scores=[r[0] for r in res],
                      plan=check_fwd_plan(m_l, n_l, band_l, dlo_l)["streamed"])
     emit(dict(phase="long-read", **long_read))
     del fouts, wouts
     if compare_realign:
+        parent = build_variants({"parent": (compare_realign, ())}, {
+            sym: ra._SIGS[sym] for sym in ("pw_fwdptr", "pw_fwd_smem",
+                                           "pw_walk")}, "realign_")["parent"]
+        main_shapes = {
+            "main_band64": (first[0], first[2], first[1]),
+            "escalated_band256": (escalated[0], escalated[2], escalated[1]),
+            "long_read": (lanes, dlo_l, band_l)}
         emit(dict(phase="compare-realign", parent=compare_realign,
-                  **compare_forward_builds(compare_realign, {
-                      "main_band64": (first[0], first[2], first[1]),
-                      "escalated_band256": (escalated[0], escalated[2],
-                                            escalated[1]),
+                  **compare_forward_builds(parent, {
+                      **main_shapes,
                       **{f"main_band{b}": (first[0], -(b // 2), b)
-                         for b in (8, 16, 33)},
-                      "long_read": (lanes, dlo_l, band_l)}, cycles_per_s)))
+                         for b in (8, 16, 33)}}, cycles_per_s)))
+        emit(dict(phase="compare-walk", parent=compare_realign,
+                  **compare_walk_builds(parent, main_shapes, cycles_per_s)))
     del first, escalated, lanes
 
     # 9. many2many at config 3's scale; 10. a long-read dispatch
@@ -1783,7 +1982,16 @@ def main(argv: list[str]) -> int:
         bound_ms=main_re["bound_ms_walk"],
         bound_by=main_re["bound_by_walk"], library_ms=None,
         library=no_library, shape=main_re["shape"],
-        long_read_ms=long_walk_ms), dict(
+        chain_bound_ms=main_re["chain_bound_ms_walk"],
+        us_per_row=main_re["us_per_row_walk"],
+        iy_rows=main_re["iy_rows"], rows=main_re["rows"],
+        body=ra.walk_plan(*main_re["shape"][1:4:2])["body"],
+        escalated_ms=esc_re["ms_walk"],
+        escalated_chain_bound_ms=esc_re["chain_bound_ms_walk"],
+        long_read_ms=long_walk_ms,
+        long_read_bound_ms=long_read["walk_bound_ms"],
+        long_read_chain_bound_ms=long_read["walk_chain_bound_ms"],
+        long_read_us_per_row=long_read["walk_us_per_row"]), dict(
         name="scores", route="cuda",
         source="pwasm_tpu_torch/csrc/banded_dp.cu",
         replaces="pwasm_tpu/ops/banded_dp.py:310",

@@ -205,3 +205,88 @@ def make_m2m_corpus(seed: int = 20261016, n_q: int = 500,
                         + BASES[codes].tobytes() + b"\n")
         paths.append(path)
     return paths[0], paths[1]
+
+
+WALK_CASES = ("random", "random", "no_zero_iy_bit", "no_zero_iy_bit",
+              "zero_bit_words_behind", "zero_bit_words_behind",
+              "ix_from_last_band_index", "ix_from_last_band_index",
+              "end_cell_outside_band", "end_cell_outside_band",
+              "end_cell_outside_band", "end_cell_outside_band",
+              "leading_gap")
+
+
+def make_walk_planes(band: int, seed: int, m_max: int = 70) -> dict:
+    """Hand-made pointer planes for the re-aligner's walk, one lane per
+    entry of ``WALK_CASES`` at one band: random bytes; Iy rows with no
+    zero Iy-extend bit at or before b (every bit 3 set); Iy rows whose
+    last zero bit lies one to three 32-cell words behind b (the plane is
+    steered along the walk's own path: each Iy row's zero bit is placed
+    33-127 cells behind b, and the cell it lands on leads to a DIAG row
+    whose byte leads back to Iy); an IX step out of band index band - 1;
+    end cells outside the band (b_end = band, band + 3, -1, -7; the
+    walk starts from the clamped index); an all-DIAG plane that closes on
+    a leading gap.  The lanes' q_lens run 0, 1, around one 32-row chunk
+    and two, to m_max and past it.
+
+    Returns ptrs (T, m_max, band) uint8, q_lens and t_lens (T,) int32,
+    the final wavefront wf (3, T, band) int32 whose cell at the clamped
+    end index holds the lane's argmax, and dlo."""
+    rng = np.random.default_rng(seed)
+    T = len(WALK_CASES)
+    dlo = -(band // 2)
+    q_lens = np.array([m_max, 1, 31, m_max, 33, m_max - 1, 32, 65,
+                       m_max + 3, 0, 64, 17, m_max], np.int32)[:T]
+    ptrs = (rng.integers(0, 3, (T, m_max, band))
+            | (rng.integers(0, 2, (T, m_max, band)) << 2)
+            | (rng.integers(0, 2, (T, m_max, band)) << 3)).astype(np.uint8)
+    b_end = rng.integers(0, band, T)
+    mat = rng.integers(0, 3, T)
+    outside = iter((band, band + 3, -1, -7))
+    for k, case in enumerate(WALK_CASES):
+        if case == "no_zero_iy_bit":
+            ptrs[k] |= 8
+            mat[k] = 2
+        elif case == "zero_bit_words_behind":
+            b_end[k], mat[k] = band - 1, 2
+            _steer_far_zeros(ptrs[k], band - 1, int(min(q_lens[k], m_max)),
+                             band, rng)
+        elif case == "ix_from_last_band_index":
+            b_end[k], mat[k] = band - 1, 1
+        elif case == "end_cell_outside_band":
+            b_end[k] = next(outside)
+        elif case == "leading_gap":
+            ptrs[k] = 0
+            b_end[k], mat[k] = min(band - 1, -dlo + 1), 0
+    wf = rng.integers(-50, 50, (3, T, band)).astype(np.int32)
+    b0 = np.clip(b_end, 0, band - 1)
+    for k in range(T):
+        wf[:, k, b0[k]] = 10
+        wf[mat[k], k, b0[k]] = 40
+    t_lens = (q_lens + dlo + b_end).astype(np.int32)
+    return dict(ptrs=ptrs, q_lens=q_lens, t_lens=t_lens, wf=wf, dlo=dlo)
+
+
+def _steer_far_zeros(plane: np.ndarray, b: int, rows: int, band: int,
+                     rng) -> None:
+    """Rewrite ``plane`` (m_max, band) along the walk from (row ``rows``,
+    b, Iy) so that each Iy row's last zero Iy-extend bit at or before b
+    lies 33-127 cells behind b (or nowhere), each Iy row lands on a cell
+    whose argmax is M, and each DIAG row's byte leads back to Iy."""
+    mat = 2
+    for i in range(rows, 0, -1):
+        row = plane[i - 1]
+        if not 0 <= b < band:
+            return
+        if mat == 2:
+            z = b - 32 * int(rng.integers(1, 4)) - int(rng.integers(1, 32))
+            row[max(z, 0):b + 1] |= 8
+            if z >= 0:
+                row[z] &= 0xF7
+            if z >= 1:
+                row[z - 1] &= 0xFC
+            b, mat = (z - 1 if z >= 0 else -2), 0
+        elif mat == 0:
+            row[b] = (row[b] & 0xFC) | 2
+            mat = 2
+        else:
+            b, mat = b + 1, (int(row[b]) >> 2) & 1

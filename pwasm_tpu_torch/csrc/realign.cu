@@ -4,7 +4,7 @@
 // Replaces the TPU kernels of pwasm_tpu/ops/realign.py:
 //   resident forward  <- _fwdptr_kernel       (:383; sequences resident)
 //   streamed forward  <- _fwdptr_kernel_long  (:432; sequences streamed)
-//   walk_kernel       <- _walk_kernel         (:515)
+//   walk (ring, wide) <- _walk_kernel         (:515)
 // and computes what the port's plain versions compute
 // (pwasm_tpu_torch/ops/realign.py::forward_plain / walk_plain), bit for
 // bit: all arithmetic is int32.
@@ -101,13 +101,46 @@
 // walk.  One warp per lane walks rows q_len..1 from (b0, mat0).  In a
 // row, mat == Iy consumes a run of Iy ops whose length is b - lastZero(b)
 // + 1, lastZero the last band index <= b whose Iy-extend bit is 0 (-1 if
-// none): the warp loads the 32 cells ending at b, takes the highest set
-// lane of a __ballot_sync (and steps back 32 cells at a time while none
-// is set).  The row then leaves with DIAG or IX from b_mid = b - run.
-// An index outside [0, band) reads as 0, as in the plain version: such a
-// walk is defined (and ends ok = False) but never faults.  Bound: one
-// dependent pointer load per row, m rows in sequence; the warp's one
-// window load serves both the run scan and the leaving cell.
+// none), and leaves at b_mid = b - run = lastZero - 1; the row then
+// leaves with DIAG or IX from b_mid.  An index outside [0, band) reads as
+// 0, as in the plain version: such a walk is defined (and ends ok =
+// False) but never faults.  What bounds it: the rows of a lane form one
+// chain (the cell read in row i - 1 depends on row i's result), and a
+// dispatch has few lanes (176 at the main shape, 4 at a long read), so
+// the chain's latency a row sets the time; the bytes and operations
+// (the cells the walk must examine) are microseconds.
+//
+// The ring body (bands up to 256, walk_ring_kernel): which ROW comes next
+// never depends on the walk, only the cell inside it.  So each warp
+// copies its lane's pointer rows ahead of the chain, in chunks of
+// kWalkChunk rows going down (the 16-byte cover of a chunk's contiguous
+// bytes, by cp.async; a 16-byte piece that leaves the tensor goes byte
+// by byte), kWalkAhead chunks beyond the one it walks, into a ring of
+// kWalkAhead + 1 slots in shared memory; the copy of chunk k + kWalkAhead
+// is issued before chunk k is walked, and one cp.async.wait_group and
+// one __syncwarp a chunk order it.  All 32 threads run the chain in step
+// (its values are uniform).  A DIAG or IX row leaves at b or b + 1, so
+// it reads the next row's byte there before it uses its own byte, read
+// one row earlier: the reads of two rows are in flight at once, and a
+// row costs half a shared-memory read and a few integer operations (the
+// two rows alternate registers, so no copy waits on a read).  While b
+// and b + 1 lie in the band a row takes a fast path with no band test;
+// elsewhere a read outside the band goes to 16 zero bytes at the
+// block's start.  An Iy row (rare: chip_smoke.py counts them, `iy_rows`)
+// finds lastZero by a __ballot_sync of the zero bits of the 32 cells
+// ending at b (stepping back 32 cells while none is set), then reads its
+// leaving byte; zero-bit mask words built ahead for every row would cost
+// a ballot per 32 cells on every row, for the few rows that read them.
+// Thread j keeps row j of the chunk's Iy run, a bit mask the chunk's IX
+// rows, and the warp writes both at the chunk's end, one store each.
+// Shared memory depends on the band alone (pw_walk_plan; 10 KB at band
+// 64, 41 KB at 256).
+//
+// The wide body (bands above 256, walk_wide_kernel): a warp loads the 32
+// cells ending at b from device memory, takes the highest set lane of a
+// __ballot_sync of their zero bits (stepping back 32 cells at a time
+// while none is set) and shuffles out the byte at b_mid: one dependent
+// load from memory a row.
 
 #include <algorithm>
 #include <climits>
@@ -159,6 +192,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// a byte of shared memory at a 32-bit shared address; volatile, so the
+// compiler keeps each read where the source puts it
+__device__ __forceinline__ unsigned lds_u8(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
 // One DP row.  tw[j - 1 - tw_off] is the target code of column j for
@@ -920,12 +960,201 @@ int launch_sub(const SubPlan& p, const int8_t* qs, int q_stride,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------
+// the walk
+// ---------------------------------------------------------------------
+// the ring body (bands up to 256): rows a chunk (one output row a
+// thread), chunks in flight beyond the one walked (Little's law: a row
+// of the chain takes ~0.05 us and a copy from device memory about a
+// microsecond, so the copy of a chunk is issued kWalkAhead - 1 chunks,
+// 96 rows or ~5 us, before the walk needs it), and warps a block (one
+// lane each)
+constexpr int kWalkChunk = 32;
+constexpr int kWalkAhead = 4;
+constexpr int kWalkSlots = kWalkAhead + 1;
+constexpr int kWalkRingWarps = 1;
+constexpr int kWalkRingBand = 256;   // the widest band of the ring body
+// one slot: the 16-byte cover of a chunk's kWalkChunk * band bytes (up
+// to 15 bytes before them)
+__host__ __device__ constexpr int walk_slot_bytes(int band) {
+  return (kWalkChunk * band + 15 + 15) & ~15;
+}
+// a block: 16 zero bytes (what a row reads outside the band), then each
+// warp's ring
+constexpr int walk_ring_smem(int band) {
+  return 16 + kWalkRingWarps * kWalkSlots * walk_slot_bytes(band);
+}
+static_assert(walk_ring_smem(kWalkRingBand) <= 48 * 1024,
+              "the ring body's blocks need no shared-memory opt-in");
+
+// The ring body: warp w of the grid walks lane w.  Chunk c holds the
+// lane's rows hi_c = rows - c * kWalkChunk down to max(1, hi_c -
+// kWalkChunk + 1), whose bytes are contiguous in the lane's pointer
+// plane; row r of it sits at slot + (the chunk's first byte & 15) + (r -
+// lo_c) * band.  `lim` is one past the tensor's last byte: a 16-byte
+// piece of the cover outside [ptrs, lim) is copied byte by byte (only
+// the chunk's own bytes).
+__global__ void __launch_bounds__(kWalkRingWarps * 32)
+walk_ring_kernel(const uint8_t* __restrict__ ptrs,
+                 const int32_t* __restrict__ b0,
+                 const int32_t* __restrict__ mat0,
+                 const int32_t* __restrict__ q_lens, int T, int m_max,
+                 int band, int32_t* __restrict__ iy_runs,
+                 int8_t* __restrict__ ops, int32_t* __restrict__ b_f) {
+  extern __shared__ int4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * kWalkRingWarps + warp;
+  // the zero block (kWalkRingWarps is 1: the warp that writes it reads it
+  // after its first __syncwarp)
+  if (threadIdx.x < 4) reinterpret_cast<unsigned*>(smem4)[threadIdx.x] = 0;
+  if (w >= T) return;            // no barrier follows: the warps run alone
+  const int SB = walk_slot_bytes(band);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem4) + 16 +
+                  static_cast<size_t>(warp) * kWalkSlots * SB;
+  const uint8_t* P = ptrs + static_cast<size_t>(w) * m_max * band;
+  const uint8_t* lim = ptrs + static_cast<size_t>(T) * m_max * band;
+  int32_t* iy_out = iy_runs + static_cast<size_t>(w) * m_max;
+  int8_t* op_out = ops + static_cast<size_t>(w) * m_max;
+  const int rows = max(0, min(q_lens[w], m_max));
+  for (int r = rows + lane; r < m_max; r += 32) {   // rows past q_len
+    iy_out[r] = 0;
+    op_out[r] = 0;
+  }
+  const int chunks = (rows + kWalkChunk - 1) / kWalkChunk;
+  // chunk c's top row, row count, and its first byte in global memory
+  const auto top = [&](int c) { return rows - c * kWalkChunk; };
+  const auto count = [&](int c) { return min(kWalkChunk, top(c)); };
+  const auto first = [&](int c) {
+    return P + static_cast<size_t>(top(c) - count(c)) * band;
+  };
+  const auto slot = [&](int c) { return ring + (c % kWalkSlots) * SB; };
+  const auto stage = [&](int c) {
+    const uint8_t* f = first(c);
+    const uint8_t* end = f + static_cast<size_t>(count(c)) * band;
+    const uint8_t* g0 = reinterpret_cast<const uint8_t*>(
+        reinterpret_cast<uintptr_t>(f) & ~uintptr_t{15});
+    const int pieces = static_cast<int>((end - g0 + 15) >> 4);
+    uint8_t* dst = slot(c);
+    for (int k = lane; k < pieces; k += 32) {
+      const uint8_t* src = g0 + 16 * k;
+      if (src >= ptrs && src + 16 <= lim) {
+        cp_async16(dst + 16 * k, src);
+      } else {
+        for (int t = 0; t < 16; ++t)
+          if (src + t >= f && src + t < end) dst[16 * k + t] = src[t];
+      }
+    }
+  };
+  // the shared address of chunk c's top row
+  const auto top_row = [&](int c) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(slot(c))) +
+           static_cast<unsigned>(reinterpret_cast<uintptr_t>(first(c)) & 15) +
+           (count(c) - 1) * band;
+  };
+  // the byte a row reads at b: 0 outside the band (the zero block)
+  const unsigned ub = band;
+  const unsigned zero_s =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem4));
+  const auto at = [&](unsigned row_s, int bb) {
+    return static_cast<unsigned>(bb) < ub ? row_s + bb : zero_s;
+  };
+
+#pragma unroll
+  for (int c = 0; c < kWalkAhead; ++c) {
+    if (c < chunks) stage(c);
+    cp_async_commit();
+  }
+  cp_async_wait<kWalkAhead - 1>();   // chunk 0 has landed
+  __syncwarp();
+  // the chain: entering a row, (b, mat) and pm_a, the row's byte at b
+  int b = b0[w], mat = mat0[w];
+  unsigned pm_a = chunks > 0 ? lds_u8(at(top_row(0), b)) : 0u, pm_b;
+  for (int k = 0; k < chunks; ++k) {
+    if (k + kWalkAhead < chunks) stage(k + kWalkAhead);
+    cp_async_commit();
+    cp_async_wait<kWalkAhead - 1>();   // chunk k + 1 has landed
+    __syncwarp();
+    const int cnt = count(k), hi = top(k);
+    // the row after the chunk's last is the next chunk's top row (after
+    // the lane's last row, any row: what it reads goes unused)
+    unsigned row_s = top_row(k);
+    const unsigned next_top = k + 1 < chunks ? top_row(k + 1) : row_s;
+    unsigned ix_rows = 0;   // bit j: row hi - j left by IX
+    int my_iy = 0;          // thread j: row hi - j's Iy run
+    // row hi - j (its byte at b in pm_row, the row after it at nrow_s):
+    // reads the next row's byte into pm_next.  A DIAG or IX row leaves at
+    // b or b + 1 and reads the next row's byte there before it uses its
+    // own (read one row earlier), so two rows' reads are in flight at
+    // once.  The fast path takes those rows while b and b + 1 lie in the
+    // band; the slow one takes the rest: an Iy row (mat 2, b in the band;
+    // rare) finds last_zero, the last cell <= b whose bit 3 is 0, leaves
+    // at last_zero - 1 and reads that byte again, and a row at the band's
+    // last cell or outside it reads 0 outside the band.
+    const auto step = [&](int j, unsigned nrow_s, unsigned pm_row,
+                          unsigned& pm_next) {
+      const bool is_ix = mat == 1;
+      int b_next = b + is_ix;
+      int mat_next = is_ix ? static_cast<int>((pm_row >> 2) & 1u)
+                           : static_cast<int>(pm_row & 3u);
+      if (mat != 2 && static_cast<unsigned>(b) < ub - 1) {
+        pm_next = lds_u8(nrow_s + b_next);
+      } else if (mat != 2 || static_cast<unsigned>(b) >= ub) {
+        pm_next = lds_u8(at(nrow_s, b_next));
+      } else {
+        // a ballot over the 32 cells ending at b, then 32 cells further
+        // back while none is
+        int hi_c = b;
+        unsigned z;
+        for (;;) {
+          const int c = hi_c - 31 + lane;
+          z = __ballot_sync(kFull, c >= 0 && !(lds_u8(at(row_s, c)) & 8u));
+          if (z || hi_c - 31 <= 0) break;
+          hi_c -= 32;
+        }
+        const int last_zero = z ? hi_c - __clz(z) : -1;
+        if (lane == j) my_iy = b - last_zero + 1;
+        b_next = last_zero - 1;               // in [-2, b)
+        mat_next = static_cast<int>(lds_u8(at(row_s, b_next)) & 3u);
+        pm_next = lds_u8(at(nrow_s, b_next));
+      }
+      if (is_ix) ix_rows |= 1u << j;
+      b = b_next;
+      mat = mat_next;
+      row_s = nrow_s;
+    };
+    // two rows a pass, each reading into the other's register; the
+    // chunk's last row reads the next chunk's top row
+    int j = 0;
+    for (; j + 2 < cnt; j += 2) {
+      step(j, row_s - ub, pm_a, pm_b);
+      step(j + 1, row_s - ub, pm_b, pm_a);
+    }
+    if (j + 1 < cnt) {
+      step(j, row_s - ub, pm_a, pm_b);
+      step(j + 1, next_top, pm_b, pm_a);
+    } else {
+      step(j, next_top, pm_a, pm_b);
+      pm_a = pm_b;
+    }
+    if (lane < cnt) {
+      iy_out[hi - 1 - lane] = my_iy;
+      op_out[hi - 1 - lane] =
+          static_cast<int8_t>(1 + ((ix_rows >> lane) & 1));
+    }
+    __syncwarp();   // chunk k's slot is read before it is refilled
+  }
+  cp_async_wait<0>();
+  if (lane == 0) b_f[w] = b;
+}
+
+// The wide body (bands above 256), one warp per lane.
 __global__ void __launch_bounds__(kWalkWarps * 32)
-walk_kernel(const uint8_t* __restrict__ ptrs, const int32_t* __restrict__ b0,
-            const int32_t* __restrict__ mat0,
-            const int32_t* __restrict__ q_lens, int T, int m_max, int band,
-            int32_t* __restrict__ iy_runs, int8_t* __restrict__ ops,
-            int32_t* __restrict__ b_f) {
+walk_wide_kernel(const uint8_t* __restrict__ ptrs,
+                 const int32_t* __restrict__ b0,
+                 const int32_t* __restrict__ mat0,
+                 const int32_t* __restrict__ q_lens, int T, int m_max,
+                 int band, int32_t* __restrict__ iy_runs,
+                 int8_t* __restrict__ ops, int32_t* __restrict__ b_f) {
   const int lane = threadIdx.x & 31;
   const int w = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
   if (w >= T) return;
@@ -1094,20 +1323,50 @@ extern "C" int pw_fwd_plan(int streamed, int m_max, int n, int band,
 
 // Launches walk on `stream`; returns a CUDA error code (0 on success).
 // The caller allocates iy_runs (T, m_max) int32, ops (T, m_max) int8 and
-// b_f (T,) int32.
+// b_f (T,) int32.  Bands up to 256 run the ring body, wider ones the
+// wide body.
 extern "C" int pw_walk(const void* ptrs, const void* b0, const void* mat0,
                        const void* q_lens, int T, int m_max, int band,
                        void* iy_runs, void* ops, void* b_f, void* stream) {
   if (T <= 0) return 0;
   if (band < 1 || m_max < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const uint8_t*>(ptrs);
+  const auto* bb = static_cast<const int32_t*>(b0);
+  const auto* mt = static_cast<const int32_t*>(mat0);
+  const auto* ql = static_cast<const int32_t*>(q_lens);
+  auto* iy = static_cast<int32_t*>(iy_runs);
+  auto* op = static_cast<int8_t*>(ops);
+  auto* bf = static_cast<int32_t*>(b_f);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (band > kWalkRingBand) {
+    const unsigned grid =
+        static_cast<unsigned>((T + kWalkWarps - 1) / kWalkWarps);
+    walk_wide_kernel<<<grid, kWalkWarps * 32, 0, st>>>(
+        p, bb, mt, ql, T, m_max, band, iy, op, bf);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int smem = walk_ring_smem(band);
   const unsigned grid =
-      static_cast<unsigned>((T + kWalkWarps - 1) / kWalkWarps);
-  walk_kernel<<<grid, kWalkWarps * 32, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(ptrs), static_cast<const int32_t*>(b0),
-      static_cast<const int32_t*>(mat0),
-      static_cast<const int32_t*>(q_lens), T, m_max, band,
-      static_cast<int32_t*>(iy_runs), static_cast<int8_t*>(ops),
-      static_cast<int32_t*>(b_f));
+      static_cast<unsigned>((T + kWalkRingWarps - 1) / kWalkRingWarps);
+  walk_ring_kernel<<<grid, kWalkRingWarps * 32, smem, st>>>(
+      p, bb, mt, ql, T, m_max, band, iy, op, bf);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The walk's plan for a shape, into out[5]: the body (1 the ring body, 0
+// the wide one), rows a chunk, chunks in flight beyond the one walked,
+// warps a block and the block's shared-memory bytes (0, 0, 4 warps and 0
+// for the wide body).  ops/realign.py::walk_plan mirrors it.  Returns 0,
+// or cudaErrorInvalidValue for a band below 1 or a negative m_max.
+extern "C" int pw_walk_plan(int m_max, int band, int* out) {
+  if (band < 1 || m_max < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (band > kWalkRingBand) {
+    const int v[5] = {0, 0, 0, kWalkWarps, 0};
+    std::copy(v, v + 5, out);
+  } else {
+    const int v[5] = {1, kWalkChunk, kWalkAhead, kWalkRingWarps,
+                      walk_ring_smem(band)};
+    std::copy(v, v + 5, out);
+  }
+  return 0;
 }

@@ -12,7 +12,8 @@ form of the reference's bestChar stable-sort + '-'/'N'-yield rule
 ``consensus_counts_votes`` launches the CUDA kernel
 (``csrc/consensus.cu``, replacing the TPU kernel ``_consensus_kernel``)
 for a CUDA tensor and runs the plain torch version for a CPU tensor.
-``LAUNCHES`` counts kernel launches.
+The kernel splits the depth across the blocks of a thread-block cluster
+(``consensus_plan``).  ``LAUNCHES`` counts kernel launches.
 
 Everything is integer: int8 base codes in, int32 counts, int8 votes out.
 """
@@ -24,10 +25,24 @@ import ctypes
 import numpy as np
 import torch
 
+from pwasm_tpu_torch.ops import _build
 from pwasm_tpu_torch.ops.consensus_host import CODE_ZERO_COV, N_CLASSES
 
 LAUNCHES = 0
-_KERNEL = None     # the bound C entry point, set on first use
+_FNS: dict = {}    # the bound C entry points, set on first use
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {
+    "pw_consensus": ([_P, _I, _I, _P, _P, _P], _I),
+    "pw_consensus_plan": ([_I, _I, _P], _I),
+}
+# the kernel's layout (csrc/consensus.cu): threads a block, 4 columns a
+# thread, at most 8 blocks a cluster, the grid's target of two blocks an
+# SM of the H100's 132, and at least 16 rows a block
+THREADS = 128
+TILE_COLS = 4 * THREADS
+MAX_CLUSTER = 8
+TARGET_BLOCKS = 264
+MIN_ROWS = 16
 
 
 def pileup_counts(pile: torch.Tensor) -> torch.Tensor:
@@ -96,23 +111,53 @@ def consensus_counts_votes(pile: torch.Tensor, assume_valid: bool = False):
     return votes, counts
 
 
+def consensus_plan(depth: int, cols: int) -> dict | None:
+    """The kernel's plan at a shape, the mirror of
+    ``csrc/consensus.cu::pw_consensus_plan`` (``kernel_plan`` reads that
+    one from the built library): ``cluster`` blocks S sharing a column
+    tile, each counting a slab of the rows (the least of MAX_CLUSTER, the
+    clusters that bring the grid to TARGET_BLOCKS and depth // MIN_ROWS,
+    at least 1), ``blocks`` in the grid, ``threads`` a block,
+    ``tile_cols`` a tile, ``rows`` a block at most and the block's
+    shared-memory bytes ``smem`` (its int32 counts of six classes for
+    the tile).  None for a negative depth or cols."""
+    if depth < 0 or cols < 0:
+        return None
+    tiles = -(-cols // TILE_COLS)
+    s = max(1, min(MAX_CLUSTER, -(-TARGET_BLOCKS // max(tiles, 1)),
+                   depth // MIN_ROWS))
+    return dict(cluster=s, blocks=tiles * s, threads=THREADS,
+                tile_cols=TILE_COLS, rows=-(-depth // s),
+                smem=4 * N_CLASSES * TILE_COLS)
+
+
+def _fn(name: str):
+    """The C entry point ``pw_consensus`` or ``pw_consensus_plan`` of
+    ``csrc/consensus.cu``, built and bound on first use."""
+    return _build.bind("consensus", _SIGS, _FNS)[name]
+
+
+def kernel_plan(depth: int, cols: int) -> dict | None:
+    """The kernel's plan at a shape from the built library
+    (``pw_consensus_plan``), with ``consensus_plan``'s keys."""
+    out = (ctypes.c_int * 6)()
+    if _fn("pw_consensus_plan")(depth, cols, ctypes.addressof(out)):
+        return None
+    return dict(zip(("cluster", "blocks", "threads", "tile_cols", "rows",
+                     "smem"), out))
+
+
 def launch(pile: torch.Tensor, counts: torch.Tensor,
            votes: torch.Tensor) -> None:
     """Launch the kernel on the current device's current stream into
     caller-allocated outputs; no checks.  ``consensus_counts_votes`` is
     the checked entry point; this is its launch alone, which a timing
     loop can call without the wrapper's allocations."""
-    global LAUNCHES, _KERNEL
-    if _KERNEL is None:
-        from pwasm_tpu_torch.ops import _build
-        fn = _build.load("consensus").pw_consensus
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _KERNEL = fn
+    global LAUNCHES
     depth, cols = pile.shape
-    rc = _KERNEL(pile.data_ptr(), depth, cols, counts.data_ptr(),
-                 votes.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    rc = _fn("pw_consensus")(pile.data_ptr(), depth, cols,
+                             counts.data_ptr(), votes.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"consensus kernel launch failed: CUDA error "
                            f"{rc}")

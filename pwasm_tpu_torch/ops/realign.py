@@ -25,7 +25,9 @@ Two passes per dispatch, each a CUDA kernel for CUDA tensors
   (gaps in the query, moving down the band) whose length is closed-form
   over the row's Iy-extend bits, then one DIAG or IX op leaving the
   row.  Per row it emits (iy_run, op): the compressed alignment is
-  (m, 2) per lane, not (m + n,).
+  (m, 2) per lane, not (m + n,).  Bands up to 256 run the kernel's ring
+  body (pointer rows copied ahead of the chain into shared memory;
+  ``walk_plan``), wider ones its wide body.
 
 Tie-breaks are defined (M >= Ix >= Iy on maxima; gap-open wins ties
 against gap-extend) and shared by the numpy oracle
@@ -289,6 +291,38 @@ def forward_window_start(step: int, dlo: int) -> int:
     return (step * FWD_WINDOW + dlo) & ~15
 
 
+# the walk's ring body (csrc/realign.cu kWalkChunk, kWalkAhead,
+# kWalkRingWarps, kWalkRingBand) and the wide body's warps a block
+WALK_CHUNK = 32
+WALK_AHEAD = 4
+WALK_RING_WARPS = 1
+WALK_RING_BAND = 256
+WALK_WIDE_WARPS = 4
+
+
+def walk_plan(m_max: int, band: int) -> dict | None:
+    """The walk's plan at a shape, the mirror of
+    ``csrc/realign.cu::pw_walk_plan`` (``walk_kernel_plan`` reads that one
+    from the built library): ``body`` "ring" for bands up to 256 — each
+    warp copies its lane's pointer rows into a ring of WALK_AHEAD + 1
+    slots of ``chunk_rows`` rows each, ``chunks_ahead`` chunks beyond the
+    one it walks, a slot holding the 16-byte cover of the chunk's bytes
+    (round16(chunk_rows * band + 15)) — or "wide" above (chunk_rows and
+    chunks_ahead 0, no shared memory); ``warps`` a block and the block's
+    shared-memory bytes ``smem`` (16 zero bytes, what a row reads outside
+    the band, then the rings).  None for a band below 1 or a negative
+    m_max."""
+    if band < 1 or m_max < 0:
+        return None
+    if band > WALK_RING_BAND:
+        return dict(body="wide", chunk_rows=0, chunks_ahead=0,
+                    warps=WALK_WIDE_WARPS, smem=0)
+    slot = _round16(WALK_CHUNK * band + 15)
+    return dict(body="ring", chunk_rows=WALK_CHUNK, chunks_ahead=WALK_AHEAD,
+                warps=WALK_RING_WARPS,
+                smem=16 + WALK_RING_WARPS * (WALK_AHEAD + 1) * slot)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
     "pw_fwdptr": ([_I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -296,13 +330,14 @@ _SIGS = {
     "pw_walk": ([_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "pw_fwd_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "pw_fwd_plan": ([_I, _I, _I, _I, _I, _P], _I),
+    "pw_walk_plan": ([_I, _I, _P], _I),
 }
 
 
 def _fn(name: str):
-    """The C entry point ``pw_fwdptr``, ``pw_walk``, ``pw_fwd_smem`` or
-    ``pw_fwd_plan`` of ``csrc/realign.cu``, built and bound on first
-    use."""
+    """The C entry point ``pw_fwdptr``, ``pw_walk``, ``pw_fwd_smem``,
+    ``pw_fwd_plan`` or ``pw_walk_plan`` of ``csrc/realign.cu``, built and
+    bound on first use."""
     return _build.bind("realign", _SIGS, _FNS)[name]
 
 
@@ -318,6 +353,16 @@ def kernel_plan(m_max: int, n: int, band: int, dlo: int,
     return dict(body="subwarp" if out[0] else "block", cells=out[1],
                 threads=out[2], lanes=out[3], warps=out[4],
                 interior=(out[5], out[6]), window=out[7], smem=out[8])
+
+
+def walk_kernel_plan(m_max: int, band: int) -> dict | None:
+    """The walk's plan at a shape from the built library
+    (``pw_walk_plan``), with ``walk_plan``'s keys."""
+    out = (ctypes.c_int * 5)()
+    if _fn("pw_walk_plan")(m_max, band, ctypes.addressof(out)):
+        return None
+    return dict(body="ring" if out[0] else "wide", chunk_rows=out[1],
+                chunks_ahead=out[2], warps=out[3], smem=out[4])
 
 
 def launch_forward(streamed: bool, qp: torch.Tensor, tp: torch.Tensor,

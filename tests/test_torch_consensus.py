@@ -85,3 +85,58 @@ def test_wrapper_refuses_devices_it_has_no_kernel_for():
     pile = torch.zeros((4, 8), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError):
         tc.consensus_counts_votes(pile)
+
+
+# the CUDA kernel's 4-lane byte counters flush every 255 rows, and a
+# cluster's blocks split the depth into slabs: depths on both sides of
+# the flush, at a column count no multiple of 4
+@pytest.mark.parametrize("depth", [1, 254, 255, 256, 511, 1100])
+def test_plain_matches_reference_across_the_flush_depths(depth):
+    pile = _pile(depth, 131, seed=depth)
+    votes, counts = tc.consensus_counts_votes(torch.from_numpy(pile))
+    rv, rc = consensus_pallas(jnp.asarray(pile), col_tile=128)
+    np.testing.assert_array_equal(votes.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+    np.testing.assert_array_equal(counts.numpy(), host_class_counts(pile))
+
+
+def test_plain_matches_reference_from_a_misaligned_start():
+    """A pileup whose first byte is not 4-byte aligned (the kernel reads
+    funnel-shifted aligned words there) and whose rows are no multiple
+    of 4 bytes."""
+    pile = _pile(37, 257, seed=5)
+    buf = torch.zeros(pile.size + 3, dtype=torch.int8)
+    view = buf[3:].view(pile.shape)
+    view.copy_(torch.from_numpy(pile))
+    assert view.data_ptr() % 4 != 0 and view.is_contiguous()
+    votes, counts = tc.consensus_counts_votes(view)
+    rv, rc = consensus_pallas(jnp.asarray(pile), col_tile=128)
+    np.testing.assert_array_equal(votes.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+
+
+@pytest.mark.parametrize("depth,cols,cluster", [
+    (0, 100, 1), (1, 1, 1), (3, 1_000_001, 1), (15, 9_894, 1),
+    (32, 9_894, 2), (201, 9_894, 8), (201, 300, 8), (4_096, 300, 8),
+    (2_001, 100_000, 2), (1_025, 4_097, 8)])
+def test_consensus_plan(depth, cols, cluster):
+    """The mirror of ``pw_consensus_plan``: a cluster of S blocks per
+    512-column tile, S the least of 8, the clusters that bring the grid
+    to 264 blocks (two an SM of 132) and depth // 16, at least 1; each
+    block counts at most ceil(depth / S) rows."""
+    plan = tc.consensus_plan(depth, cols)
+    tiles = -(-cols // 512)
+    assert plan == dict(cluster=cluster, blocks=tiles * cluster,
+                        threads=128, tile_cols=512,
+                        rows=-(-depth // cluster), smem=6 * 512 * 4)
+    if cluster > 1:
+        assert plan["rows"] >= 16
+
+
+def test_consensus_plan_fills_the_card_at_the_realistic_pileup():
+    # the 200-alignment corpus's pileup (PERF.md): 20 tiles alone would
+    # be 20 blocks on 132 SMs
+    plan = tc.consensus_plan(201, 9_894)
+    assert plan["blocks"] >= 132 and plan["cluster"] <= 8
+    assert tc.consensus_plan(-1, 5) is None
+    assert tc.consensus_plan(5, -1) is None
