@@ -6,7 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device   — a CUDA device is required; its name and power limit;
-2. build    — nvcc builds every kernel from ``pwasm_tpu_torch/csrc``;
+2. build    — nvcc builds every kernel from ``pwasm_tpu_torch/csrc``,
+              and g++ the C++ host engine from ``pwasm_tpu_torch/native``
+              (its seconds);
 3. kernels  — each kernel against its plain torch version on the card,
               bit for bit, at fixed shapes (also through the wrappers'
               copy of a misaligned input), with device times per call
@@ -26,13 +28,17 @@ Phases, one JSON line each; any failure exits non-zero:
               walk and consensus plan against its mirror;
 4. golden   — the CLI on ``tests/golden`` inputs with --device=cuda
               reproduces the six committed outputs byte for byte;
-5. realistic — the 200-alignment corpus through the CLI with
-              --device=cuda, then --device=cpu: equal outputs, the
-              consensus kernel launched, the ctx_scan flushes on cuda;
-              the kernel is then checked and timed at the pileup shape
-              that run gave it;
+5. realistic — the 200-alignment corpus through the CLI three times,
+              each with its stage seconds: --device=cuda on the C++
+              engine (the main path: one consensus launch over the
+              engine's rendered pileup, the ctx_scan flushes on cuda),
+              --device=cuda with PWASM_NATIVE_MSA=0 (the Python MSA
+              engine) and --device=cpu; equal outputs, and the two
+              engines' pileups equal; the kernel is then checked and
+              timed on the engine's own pileup;
 6. refine   — the clip-refinement phases on the card equal the CPU's;
-7. realign  — the same corpus with --realign, cuda then cpu: equal
+7. realign  — the same corpus with --realign (on the engine), cuda then
+              cpu: equal
               outputs, 200 alignments re-aligned, the expected six
               dispatches, the realign kernels launched on cuda only;
               then the kernels checked and timed on the inputs of that
@@ -49,7 +55,8 @@ Phases, one JSON line each; any failure exits non-zero:
               forward pass's bound, the walk's bound and chain bound;
 9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
               1,200-1,800 bases against 10,240 targets) through the CLI's
-              ``--many2many`` with --device=cuda: stage times, dispatches
+              ``--many2many`` with --device=cuda (the FASTA load on the
+              engine's index and fetch): stage times, dispatches
               and scores-kernel launches, every dispatch holding only
               in-band targets (its cells, the run's bound, must equal
               the in-band pairs' m x band; cells_all counts every
@@ -313,12 +320,13 @@ def make_pile(depth: int, cols: int, seed: int):
 
 
 def check_consensus(depth: int, cols: int, seed: int,
-                    cycles_per_s: float) -> dict:
+                    cycles_per_s: float, pile=None) -> dict:
     """Kernel vs plain version on the same CUDA tensor, and on a copy
     whose first byte is not 4-byte aligned: bit-equal outputs; the
     kernel's plan (``kernel_plan``) against its mirror
     (``consensus_plan``); the kernel's and the plain version's times;
-    the bound for this shape."""
+    the bound for this shape.  The pileup is ``pile`` (a (depth, cols)
+    int8 array) when given, else ``make_pile``'s."""
     import torch
 
     from pwasm_tpu_torch.ops import consensus as cons
@@ -329,7 +337,9 @@ def check_consensus(depth: int, cols: int, seed: int,
                              f"is not the mirror's "
                              f"{cons.consensus_plan(depth, cols)}")
 
-    pile = torch.from_numpy(make_pile(depth, cols, seed)).cuda()
+    if pile is None:
+        pile = make_pile(depth, cols, seed)
+    pile = torch.from_numpy(pile).cuda()
     shifted = misaligned(pile)
     pv, pc = cons.consensus_counts_votes_plain(pile)
     err = 0
@@ -765,6 +775,45 @@ def check_realign(lanes, dlo: int, band: int,
 
 
 @contextlib.contextmanager
+def env_var(name: str, value: str | None):
+    """``os.environ[name]`` set to ``value`` (unset for None) inside."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def logged_piles():
+    """Copies of the pileups that the MSA engines hand to the consensus
+    launch (``align/msa.py::device_counts_votes``)."""
+    import numpy as np
+
+    from pwasm_tpu_torch.align import msa
+
+    piles = []
+    real = msa.device_counts_votes
+
+    def recording(pile, device):
+        piles.append(np.array(pile, copy=True))
+        return real(pile, device)
+
+    msa.device_counts_votes = recording
+    try:
+        yield piles
+    finally:
+        msa.device_counts_votes = real
+
+
+@contextlib.contextmanager
 def logged_dispatches():
     """Wrap ``ops/realign.py::banded_realign_rows`` while the block runs;
     yields the list of its calls as (T, m_max, n, band, kernel), the
@@ -1159,10 +1208,39 @@ def run_many2many(work: str, cycles_per_s: float | None,
                 or got["sums"][nm] != want["sums"].get(nm):
             raise AssertionError(f"the section or -s line of {nm!r} "
                                  "differs between the cuda and cpu runs")
+    emit(dict(phase="m2m-load", targets=load_parts(tfa),
+              queries=load_parts(qfa)))
     largest = want["largest"]
     main_sc = check_scores(largest["inputs"], largest["band"], cycles_per_s)
     emit(dict(phase="kernel", name="scores", main_path=True, **main_sc))
     return cuda_launches, main_sc
+
+
+def load_parts(path: str) -> dict:
+    """Seconds of the parts of ``--many2many``'s FASTA load of ``path``
+    on the engine: the index with no ``.fai`` (the native scan and the
+    sidecar's write), the index from the ``.fai``, each record's fetch,
+    the sidecar's write alone, and one read of the whole file."""
+    from pwasm_tpu_torch.core.fasta import FastaFile
+
+    with contextlib.suppress(FileNotFoundError):
+        os.unlink(path + ".fai")
+    t0 = time.perf_counter()
+    fa = FastaFile(path)
+    t1 = time.perf_counter()
+    fa = FastaFile(path)
+    t2 = time.perf_counter()
+    n = sum(len(fa.fetch(name)) for name in fa.names)
+    t3 = time.perf_counter()
+    fa._write_fai()
+    t4 = time.perf_counter()
+    with open(path, "rb") as f:
+        size = len(f.read())
+    t5 = time.perf_counter()
+    return dict(records=len(fa), bases=n, file_bytes=size,
+                index_scan_s=t1 - t0, index_fai_s=t2 - t1,
+                fetch_all_s=t3 - t2, fai_write_s=t4 - t3,
+                read_file_s=t5 - t4)
 
 
 def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
@@ -1544,6 +1622,10 @@ def main(argv: list[str]) -> int:
         return fail("device", f"no pwasm_tpu_torch package beside "
                     f"{os.path.basename(__file__)}")
     sys.path.insert(0, ROOT)
+    # the default path: the C++ engine for extraction, FASTA and MSA
+    for name in ("PWASM_NATIVE", "PWASM_NATIVE_MSA"):
+        os.environ.pop(name, None)
+    from pwasm_tpu_torch import native
     from pwasm_tpu_torch.ops import _build
     from pwasm_tpu_torch.ops import consensus as cons
     from pwasm_tpu_torch.ops import ctx_scan
@@ -1556,11 +1638,18 @@ def main(argv: list[str]) -> int:
               nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0]))
 
-    # 2. build: every csrc/*.cu, one nvcc each, all at once
+    # 2. build: every csrc/*.cu, one nvcc each, all at once, and the C++
+    # host engine with g++ beside them
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    secs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(native.build)
+        secs = _build.build_all()
+        gxx_s = gxx.result()
+    native.get_lib()
     emit(dict(phase="build", wall_s=time.perf_counter() - t0,
-              per_source_s=secs,
+              per_source_s=secs, native_gxx_s=gxx_s,
+              native_lib=os.path.relpath(native.lib_path(), ROOT),
               ptxas=[ln for log in _build.BUILD_LOG.values()
                      for ln in log.splitlines() if "registers" in ln
                      or "spill" in ln or "entry function" in ln]))
@@ -1679,40 +1768,59 @@ def main(argv: list[str]) -> int:
         f.write(f">cds1\n{q}\n")
     with open(paf, "w") as f:
         f.write("".join(ln + "\n" for ln in lines))
+    # the C++ engine on the card (the main path), the Python MSA engine
+    # on the card, the C++ engine on the CPU
     runs = {}
-    for dev in ("cuda", "cpu"):
+    for tag, dev, msa_env in (("cuda", "cuda", None),
+                              ("cuda_pymsa", "cuda", "0"),
+                              ("cpu", "cpu", None)):
         cons.LAUNCHES = 0
         ctx_scan.FLUSHES.clear()
-        rc, st, err, wall = run_cli([paf, "-r", fa, *out_args(work, dev),
-                                     f"--device={dev}"])
+        with env_var("PWASM_NATIVE_MSA", msa_env), logged_piles() as piles:
+            rc, st, err, wall = run_cli([paf, "-r", fa,
+                                         *out_args(work, tag),
+                                         f"--device={dev}"])
         launches = cons.LAUNCHES
         flushes = dict(ctx_scan.FLUSHES)
         if rc != 0:
-            return fail("realistic", f"--device={dev} rc={rc}: {err}")
-        runs[dev] = dict(launches=launches, flushes=flushes, stats=st,
-                         outputs=read_outputs(work, dev))
-        emit(dict(phase="realistic", device=dev, wall_s=wall,
+            return fail("realistic", f"{tag} rc={rc}: {err}")
+        runs[tag] = dict(launches=launches, flushes=flushes, stats=st,
+                         piles=piles, outputs=read_outputs(work, tag))
+        emit(dict(phase="realistic", device=dev,
+                  msa_engine="python" if msa_env else "native", wall_s=wall,
                   stage_s=st["times"], run_s=st["wall_s"],
                   alignments=st["alignments"], pileup=st["pileup"],
                   consensus_launches=launches, ctx_scan_flushes=flushes))
-    differ = [n for n in OUTPUTS
-              if runs["cuda"]["outputs"][n] != runs["cpu"]["outputs"][n]]
-    if differ:
-        return fail("realistic", f"cuda and cpu outputs differ: {differ}")
+    for tag in ("cuda_pymsa", "cpu"):
+        differ = [n for n in OUTPUTS
+                  if runs[tag]["outputs"][n] != runs["cuda"]["outputs"][n]]
+        if differ:
+            return fail("realistic", f"{tag} and cuda outputs differ: "
+                        f"{differ}")
     main_launches = runs["cuda"]["launches"]
-    if main_launches < 1:
-        return fail("realistic", "the consensus kernel was not launched")
-    if runs["cuda"]["flushes"].get("cuda", 0) < 1 \
-            or runs["cuda"]["flushes"].get("cpu", 0):
-        return fail("realistic", "ctx_scan flushes did not run on cuda: "
-                    f"{runs['cuda']['flushes']}")
+    if main_launches != 1 or runs["cuda_pymsa"]["launches"] < 1:
+        return fail("realistic", f"consensus launches: {main_launches} on "
+                    f"the engine (want 1), "
+                    f"{runs['cuda_pymsa']['launches']} on the Python engine")
+    for tag in ("cuda", "cuda_pymsa"):
+        if runs[tag]["flushes"].get("cuda", 0) < 1 \
+                or runs[tag]["flushes"].get("cpu", 0):
+            return fail("realistic", f"{tag}: ctx_scan flushes did not run "
+                        f"on cuda: {runs[tag]['flushes']}")
     if runs["cpu"]["launches"] or runs["cpu"]["flushes"].get("cuda", 0):
         return fail("realistic", "the --device=cpu run touched the card")
-    depth, cols = runs["cuda"]["stats"]["pileup"]
+    import numpy as np
+    pile = runs["cuda"]["piles"][0]
+    if len(runs["cuda"]["piles"]) != 1 \
+            or list(pile.shape) != list(runs["cuda"]["stats"]["pileup"]) \
+            or not np.array_equal(pile, runs["cuda_pymsa"]["piles"][0]):
+        return fail("realistic", "the engine's rendered pileup is not the "
+                    "Python engine's")
+    depth, cols = pile.shape
     main_check = check_consensus(depth, cols, seed=len(shapes),
-                                 cycles_per_s=cycles_per_s)
+                                 cycles_per_s=cycles_per_s, pile=pile)
     emit(dict(phase="kernel", name="consensus", main_path=True,
-              **main_check))
+              engine_pileup=True, **main_check))
     checks.append(main_check)
     if compare_consensus:
         emit(dict(phase="compare-consensus", parent=compare_consensus,

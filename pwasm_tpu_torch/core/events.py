@@ -153,13 +153,22 @@ class PafAlignment:
     tseq: bytes = b""
 
 
-def extract_alignment(rec: PafRecord, refseq_aln: bytes) -> PafAlignment:
+def extract_alignment(rec: PafRecord, refseq_aln: bytes,
+                      use_native: bool | None = None) -> PafAlignment:
     """Build a PafAlignment from a parsed PAF record.
 
     ``refseq_aln`` is the query sequence in *alignment orientation*: the
     forward upper-cased query, or its reverse complement when the PAF strand
     is '-' (the caller keeps both copies, mirroring pafreport.cpp:338-362).
+
+    Runs in the native engine (``native.extract_native``, the same
+    results and messages) unless ``PWASM_NATIVE=0`` or
+    ``use_native=False`` asks for the Python walk below.
     """
+    from pwasm_tpu_torch import native
+
+    if native.enabled() if use_native is None else use_native:
+        return native.extract_native(rec, refseq_aln)
     validate_coords(rec.alninfo, rec.line)
     al = rec.alninfo
     line = rec.line

@@ -41,6 +41,9 @@ class FastaFile:
         self.path = os.fspath(path)
         self._index: dict[str, _FaiEntry] = {}
         self._order: list[str] = []
+        # per-record (linebases, linewidth, uniform) from the native
+        # scan, so _write_fai needs no second pass over the file
+        self._geom: dict[str, tuple[int, int, int]] = {}
         if not self._load_fai():
             self._full_scan()
             self._write_fai()
@@ -123,8 +126,9 @@ class FastaFile:
         readers like samtools/pysam derive in-record offsets from the
         line geometry, so a coincidental total-window match is not
         enough); best-effort — a read-only directory just skips
-        persistence.  The geometry is verified line by line, one extra
-        sequential pass."""
+        persistence.  Geometry comes from the native scan when it ran
+        (``self._geom``, no extra IO); after the Python scan it is
+        verified line by line, one extra sequential pass."""
         rows = []
         try:
             fsize = os.path.getsize(self.path)
@@ -133,34 +137,41 @@ class FastaFile:
                     ent = self._index[name]
                     if "\t" in name or "\n" in name:
                         return
-                    # verify EVERY line — each full line exactly lb
-                    # bases + the same terminator, no interior
-                    # whitespace; the final line may be short, and may
-                    # lack its terminator only at EOF
-                    f.seek(ent.offset)
-                    first = f.readline()
-                    lb = len(first.rstrip(b"\r\n"))
-                    lw = len(first)
-                    if lb < 1 or lw <= lb:
-                        return
-                    f.seek(ent.offset)
-                    left = ent.length
-                    pos = ent.offset
-                    while left > 0:
-                        line = f.readline()
-                        pos += len(line)
-                        body = line.rstrip(b"\r\n")
-                        if body.translate(
-                                None, b" \t\v\f\r\n") != body:
+                    geom = self._geom.get(name)
+                    if geom is not None:
+                        lb, lw, uniform = geom
+                        if not uniform or lb < 1 or lw <= lb:
                             return
-                        if len(body) != min(lb, left):
+                    else:
+                        # no native geometry: verify EVERY line — each
+                        # full line exactly lb bases + the same
+                        # terminator, no interior whitespace; the final
+                        # line may be short, and may lack its
+                        # terminator only at EOF
+                        f.seek(ent.offset)
+                        first = f.readline()
+                        lb = len(first.rstrip(b"\r\n"))
+                        lw = len(first)
+                        if lb < 1 or lw <= lb:
                             return
-                        if len(line) - len(body) != lw - lb and not (
-                                len(body) == left and pos == fsize):
+                        f.seek(ent.offset)
+                        left = ent.length
+                        pos = ent.offset
+                        while left > 0:
+                            line = f.readline()
+                            pos += len(line)
+                            body = line.rstrip(b"\r\n")
+                            if body.translate(
+                                    None, b" \t\v\f\r\n") != body:
+                                return
+                            if len(body) != min(lb, left):
+                                return
+                            if len(line) - len(body) != lw - lb and not (
+                                    len(body) == left and pos == fsize):
+                                return
+                            left -= len(body)
+                        if pos != ent.end:
                             return
-                        left -= len(body)
-                    if pos != ent.end:
-                        return
                     # belt: the derived window must reproduce the scan
                     nlines = (ent.length + lb - 1) // lb
                     span = ent.length + nlines * (lw - lb)
@@ -183,6 +194,23 @@ class FastaFile:
             return
 
     def _full_scan(self) -> None:
+        # the native one-pass scan (the same entries, and each record's
+        # line geometry) unless PWASM_NATIVE=0 asks for the Python scan
+        from pwasm_tpu_torch import native
+        entries = None
+        if native.enabled():
+            try:
+                entries = native.fasta_index(self.path)
+            except OSError:
+                pass  # the Python reader below raises its own error
+        if entries is not None:
+            for name, seqlen, start, end, lb, lw, uniform in entries:
+                if name not in self._index:
+                    self._geom[name] = (lb, lw, uniform)
+                self._add(name, seqlen, start, end)
+            if not self._index:
+                raise PwasmError(f"Error: invalid FASTA file {self.path} !")
+            return
         name = None
         seqlen = 0
         seq_start = 0
@@ -230,6 +258,12 @@ class FastaFile:
         ent = self._index.get(name)
         if ent is None:
             return None
+        from pwasm_tpu_torch import native
+        if native.enabled():
+            try:
+                return native.fasta_fetch(self.path, ent.offset, ent.end)
+            except OSError:
+                pass  # the Python read below raises its own error
         with open(self.path, "rb") as f:
             f.seek(ent.offset)
             raw = f.read(ent.end - ent.offset)

@@ -47,6 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pwasm_tpu_torch import native
 from pwasm_tpu_torch.core.events import GapData
 from pwasm_tpu_torch.ops import _build
 from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, check_launch,
@@ -811,8 +812,10 @@ def _pick_dlo(d_ends: np.ndarray, band: int) -> int:
 
 
 # a full-matrix Python traceback beyond this many cells would burn
-# minutes of interpreter time
+# minutes of interpreter time; the native oracle takes over far beyond
+# it (bounded by its one pointer byte per cell)
 _ORACLE_CELL_LIMIT = 4_000_000
+_NATIVE_ORACLE_CELL_LIMIT = 256_000_000   # ~256 MB of pointer bytes
 _MAX_BAND = 4096
 # ceiling on the pointer tensor (T_chunk x m_max x band uint8) per
 # dispatch; lanes are chunked to stay under it, and a single lane whose
@@ -833,7 +836,7 @@ def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
     dispatch, so one long target pads only its own group's tensors.
     Lanes whose end diagonal the band cannot cover retry with an
     escalated band (x4 per retry up to 4096); leftovers of at most
-    ``_ORACLE_CELL_LIMIT`` cells use the host oracle."""
+    ``_NATIVE_ORACLE_CELL_LIMIT`` cells use the native host oracle."""
     from pwasm_tpu_torch.core.dna import encode
     from pwasm_tpu_torch.parallel.bucketing import group_by_shape
 
@@ -897,7 +900,18 @@ def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
         todo = np.array(still, dtype=np.int64)
         cur_band = max(cur_band * 4, 4)
     for k in todo:
-        # beyond the band ceiling: the bounded host oracle, or give up
-        if int(q_lens[k]) * int(t_lens[k]) <= _ORACLE_CELL_LIMIT:
-            out[idxs[k]] = full_gotoh_traceback(
-                qs[k, :q_lens[k]], ts[k, :t_lens[k]], params)
+        # beyond the band ceiling: the native host oracle (the same
+        # tie-breaks) up to ~64x the Python oracle's cells, the Python
+        # one when the native pointer matrix cannot be allocated (or
+        # PWASM_NATIVE=0), or give up
+        cells = int(q_lens[k]) * int(t_lens[k])
+        res = None
+        if cells <= _NATIVE_ORACLE_CELL_LIMIT and native.enabled():
+            res = native.gotoh_traceback(
+                qs[k, :q_lens[k]], ts[k, :t_lens[k]], params.match,
+                params.mismatch, params.gap_open, params.gap_extend)
+        if res is None and cells <= _ORACLE_CELL_LIMIT:
+            res = full_gotoh_traceback(qs[k, :q_lens[k]],
+                                       ts[k, :t_lens[k]], params)
+        if res is not None:
+            out[idxs[k]] = res

@@ -1,8 +1,8 @@
 """Durable state writes: fsync-then-replace.
 
-A state file (the ``.fai`` FASTA sidecar) must survive a crash at any
-instant with either the old content or the new content on disk, never a
-torn prefix:
+A state file (the ``.fai`` FASTA sidecar, the compiled native engine)
+must survive a crash at any instant with either the old content or the
+new content on disk, never a torn prefix:
 
     write tmp -> flush -> fsync(tmp) -> os.replace(tmp, dest)
               -> fsync(parent dir)
@@ -28,6 +28,14 @@ def fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def replace_durable(tmp: str, dest: str) -> None:
+    """``os.replace`` + parent-directory fsync.  The caller owns the
+    tmp file's own fsync (``write_durable_text`` below does it; the
+    native build does it on the compiled library)."""
+    os.replace(tmp, dest)
+    fsync_dir(os.path.dirname(os.path.abspath(dest)))
+
+
 def write_durable_text(dest: str, text: str) -> None:
     """Atomically and durably publish ``text`` at ``dest``.  The tmp
     name is process-unique so concurrent writers never share it."""
@@ -37,8 +45,7 @@ def write_durable_text(dest: str, text: str) -> None:
             f.write(text.encode("utf-8"))
             f.flush()
             os.fsync(f.fileno())
-        os.replace(tmp, dest)
-        fsync_dir(os.path.dirname(os.path.abspath(dest)))
+        replace_durable(tmp, dest)
     except OSError:
         try:
             os.unlink(tmp)

@@ -15,6 +15,7 @@ from pwasm_tpu_torch.align.gapseq import GapSeq
 from pwasm_tpu_torch.align.msa import Msa
 from pwasm_tpu_torch.cli import run
 from pwasm_tpu_torch.core.errors import ZeroCoverageError
+from pwasm_tpu_torch.native import NativeMsa
 
 from test_realistic_scale import make_corpus
 
@@ -95,17 +96,22 @@ def test_zero_coverage_column_exits_5(tmp_path, monkeypatch):
         msa.refine_msa(torch.device("cpu"), remove_cons_gaps=False,
                        refine_clipping=False)
     assert ei.value.exit_code == 5
-    # ...and the CLI turns it into its exit code
+    # ...and the CLI turns it into its exit code, from the C++ engine's
+    # refinement and from the Python engine's
 
     def uncovered(self, *a, **kw):
         raise ZeroCoverageError("zero-coverage column 3\n")
 
+    monkeypatch.setattr(NativeMsa, "refine_external", uncovered)
     monkeypatch.setattr(Msa, "refine_msa", uncovered)
     paf, fa = _golden_inputs(tmp_path)
-    err = io.StringIO()
-    assert run([paf, "-r", fa, f"--cons={tmp_path / 'c.fa'}",
-                "--device=cpu"], stderr=err) == 5
-    assert "zero-coverage" in err.getvalue()
+    for python_msa in (False, True):
+        if python_msa:
+            monkeypatch.setenv("PWASM_NATIVE_MSA", "0")
+        err = io.StringIO()
+        assert run([paf, "-r", fa, f"--cons={tmp_path / 'c.fa'}",
+                    "--device=cpu"], stderr=err) == 5
+        assert "zero-coverage" in err.getvalue()
 
 
 def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):

@@ -28,6 +28,9 @@ FORBIDDEN = re.compile(r"\bimport\s+jax\b|\bfrom\s+jax\b"
                        r"|\bfrom\s+pwasm_tpu\s+import\b")
 
 
+CXX_FORBIDDEN = re.compile(r"pwasm_tpu/|\bpwasm_tpu\.|\bjax\b")
+
+
 def _port_sources():
     top = os.path.join(REPO, "pwasm_tpu_torch")
     for dirpath, dirnames, filenames in os.walk(top):
@@ -51,6 +54,22 @@ def test_port_sources_never_name_jax_or_the_reference():
     assert sum(1 for _ in _port_sources()) > 20
 
 
+def test_port_cxx_sources_never_name_the_reference():
+    top = os.path.join(REPO, "pwasm_tpu_torch", "native")
+    paths = sorted(os.path.join(top, fn) for fn in os.listdir(top)
+                   if fn.endswith((".cpp", ".h")))
+    assert [os.path.basename(p) for p in paths] == [
+        "fastparse.cpp", "pafreport_msa.h", "pafreport_util.h"]
+    hits = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if CXX_FORBIDDEN.search(line):
+                    hits.append(f"{os.path.relpath(path, REPO)}:{i}: "
+                                f"{line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
 def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
     for name in ("in.paf", "q.fa"):
         shutil.copy(os.path.join(REPO, "tests", "golden", name), tmp_path)
@@ -66,13 +85,20 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"
-        "print('BAD', bad)\n")
+        "print('BAD', bad)\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        f"ref = {os.path.join(REPO, 'pwasm_tpu') + os.sep!r}\n"
+        "print('LIBS', sorted({p for p in maps if p.startswith(ref)}))\n"
+        "print('ENGINE', any('libfastparse-' in p for p in maps))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
                          timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout, out.stdout
+    # the run loaded the port's engine, and no library of the reference
+    assert "LIBS []" in out.stdout and "ENGINE True" in out.stdout, \
+        out.stdout
     assert (tmp_path / "c.fa").read_bytes() == open(
         os.path.join(REPO, "tests", "golden", "cons.fa"), "rb").read()
 

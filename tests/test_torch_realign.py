@@ -266,10 +266,10 @@ def test_host_helpers_equal_reference(seed):
         for band in (1, 16, 64, 700):
             assert ref._pick_dlo(d_ends, band) == \
                 realign._pick_dlo(d_ends, band)
-    assert (realign._ORACLE_CELL_LIMIT, realign._MAX_BAND,
-            realign._PTR_BYTES_LIMIT) == (ref._ORACLE_CELL_LIMIT,
-                                          ref._MAX_BAND,
-                                          ref._PTR_BYTES_LIMIT)
+    assert (realign._ORACLE_CELL_LIMIT, realign._NATIVE_ORACLE_CELL_LIMIT,
+            realign._MAX_BAND, realign._PTR_BYTES_LIMIT) == (
+                ref._ORACLE_CELL_LIMIT, ref._NATIVE_ORACLE_CELL_LIMIT,
+                ref._MAX_BAND, ref._PTR_BYTES_LIMIT)
 
 
 def test_banded_dp_and_bucketing_copies():
