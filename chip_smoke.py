@@ -73,7 +73,29 @@ Phases, one JSON line each; any failure exits non-zero:
               them) through ``banded_scores_long`` on the card: one
               streamed launch, bit-equal to the plain version on the same
               CUDA tensors, timed with its bound and time a row;
-12. the ``kernels`` line, the card's name and power limit as nvidia-smi
+12. shard   — the multi-device layer (``pwasm_tpu_torch/parallel``) on
+              the card: the realistic corpus through ``--device=cuda
+              -v`` without and with ``--shard`` in turns (unsharded,
+              sharded, sharded, unsharded), and with ``--realign``, every
+              output equal to phase 5's and phase 7's, the ``-v`` line
+              naming the mesh, one consensus launch a shard, the ctx_scan
+              flushes and the realign kernels on cuda (the kernels
+              line's ``shard_launches`` are each path's first sharded
+              run's counts); ``--shard=K+1`` (K visible cards)
+              exits 1; with two or more cards ``--shard=2`` too.  Then the
+              library on meshes of 4 (2 x 2) and 8 (4 x 2) entries that
+              all name cuda:0, each entry a shard run in turn: the sharded
+              consensus on the engine's pileup and on ten copies of it,
+              the sharded re-aligner on phase 7's largest band-64
+              dispatch and phase 8's long read, the sharded refine
+              phases, ``make_many2many`` on config 2's inputs cut to 8
+              queries x 1,024 targets and on phase 10's long reads,
+              ``make_pipeline_step``, ``make_multislice_step`` and
+              ``wavefront_sp_scores`` (m = 2,000, T = 8, over 4 entries),
+              each equal to its unsharded call on the card and each
+              kernel launched once a non-empty shard; each check's wall
+              and device time beside its unsharded call's;
+13. the ``kernels`` line, the card's name and power limit as nvidia-smi
    prints them, and the final ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
@@ -397,13 +419,9 @@ def read_outputs(d: str, tag: str) -> dict:
     return out
 
 
-def check_refine(seed: int) -> dict:
-    """The clip-refinement phases on random padded layouts: the CUDA
-    run equals the CPU run."""
+def refine_layouts(seed: int) -> tuple:
+    """``refine_phases``' arguments for 300 random padded members."""
     import numpy as np
-    import torch
-
-    from pwasm_tpu_torch.ops.refine_clip import refine_phases
 
     rng = np.random.default_rng(seed)
     M, L, C = 300, 700, 800
@@ -418,14 +436,25 @@ def check_refine(seed: int) -> dict:
     clipR0 = np.where(rng.random(M) < 0.8, gclipR, 0)
     seqlens = gxpos[np.arange(M), glen - 1] + 1
     cpos = rng.integers(-5, 20, size=M)
-    args = (gseq, gxpos, cons, cpos, glen, totals, gclipL, gclipR,
+    return (gseq, gxpos, cons, cpos, glen, totals, gclipL, gclipR,
             clipL0, clipR0, seqlens, -16, 1, -3)
+
+
+def check_refine(seed: int) -> dict:
+    """The clip-refinement phases on random padded layouts: the CUDA
+    run equals the CPU run."""
+    import numpy as np
+    import torch
+
+    from pwasm_tpu_torch.ops.refine_clip import refine_phases
+
+    args = refine_layouts(seed)
     got = refine_phases(*args, device=torch.device("cuda"))
     want = refine_phases(*args, device=torch.device("cpu"))
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("refine phases differ between cuda and cpu")
-    return dict(members=M, clipped_changed=int(
-        (got[0] != clipL0).sum() + (got[1] != clipR0).sum()))
+    return dict(members=len(args[0]), clipped_changed=int(
+        (got[0] != args[8]).sum() + (got[1] != args[9]).sum()))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -1362,6 +1391,271 @@ def run_config5(cycles_per_s: float) -> dict:
     return rec
 
 
+def timed(fn, reps: int = 5) -> dict:
+    """A call's times in ms, after a warm-up call: ``wall_ms``, the
+    median over ``reps`` calls of the host's time through the fetch of
+    the last result; ``device_ms``, the card's busy time in one call,
+    the sum of the kernel and copy durations that ``torch.profiler``
+    records on the card, the largest of three profiled calls (a profile
+    may drop a call's last events; None when all three record none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    busy = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA))
+    return dict(wall_ms=walls[len(walls) // 2],
+                device_ms=max(busy) / 1e3 if max(busy) else None)
+
+
+def launched(counters: dict, before: dict) -> dict:
+    """The launches made since ``before`` was taken, by kernel."""
+    return {k: counters[k] - before[k] for k in counters
+            if counters[k] != before[k]}
+
+
+def equal_outputs(got, want, what: str) -> None:
+    """Raise unless every (got, want) tensor pair is equal, compared on
+    the host."""
+    import torch
+
+    pairs = [(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+    if len(pairs) != len(want) or not all(
+            g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{what}: the sharded result differs from "
+                             f"the unsharded one (max abs err "
+                             f"{max_err(pairs)})")
+
+
+def run_shard_cli(work: str, paf: str, fa: str, outputs: dict,
+                  re_outputs: dict) -> tuple[list, dict]:
+    """Phase 12's CLI runs: the realistic corpus through ``--device=cuda``
+    without and with ``--shard -v`` in turns (unsharded, sharded,
+    sharded, unsharded), without and with ``--realign`` (and
+    ``--shard=2`` when two or more cards are visible), each run's
+    outputs equal to ``outputs`` (phase 5's main path) or ``re_outputs``
+    (phase 7's), the counters set to 0 just before each run and read
+    just after; then ``--shard=K+1``.  Returns (the runs' records, the
+    launches by kernel of each path's first run, keyed ``shard`` and
+    ``shard_realign``).  Raises on a failure."""
+    import numpy as np
+    import torch
+
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+    from pwasm_tpu_torch.parallel import mesh as pm
+
+    K = torch.cuda.device_count()
+    records, path = [], {}
+    for flag in ["--shard"] + (["--shard=2"] if K >= 2 else []):
+        mesh = dict(pm.make_mesh(None if flag == "--shard" else 2).shape)
+        shards = int(np.prod(list(mesh.values())))
+        turns = [None, flag, flag, None] if flag == "--shard" else [flag]
+        for realign in (False, True):
+            key = "shard" + flag[8:] + ("_realign" if realign else "")
+            for turn, run_flag in enumerate(turns):
+                for k in ra.LAUNCHES:
+                    ra.LAUNCHES[k] = 0
+                cons.LAUNCHES = 0
+                ctx_scan.FLUSHES.clear()
+                tag = f"{key}_{turn}"
+                rc, st, err, wall = run_cli(
+                    [paf, "-r", fa, *out_args(work, tag), "--device=cuda",
+                     "-v", *([run_flag] if run_flag else []),
+                     *(["--realign"] if realign else [])])
+                launches = dict(ra.LAUNCHES, consensus=cons.LAUNCHES)
+                flushes = dict(ctx_scan.FLUSHES)
+                if rc != 0:
+                    raise AssertionError(f"{tag} rc={rc}: {err}")
+                want = re_outputs if realign else outputs
+                got = read_outputs(work, tag)
+                differ = [n for n in OUTPUTS if got[n] != want[n]]
+                if differ:
+                    raise AssertionError(f"{tag} ({run_flag}) outputs "
+                                         f"differ from the main path's: "
+                                         f"{differ}")
+                n_sh = shards if run_flag else 1
+                if run_flag:
+                    line = f"sharding over mesh {mesh}"
+                    if err.splitlines()[0] != line:
+                        raise AssertionError(
+                            f"{tag}: stderr starts {err.splitlines()[:1]}, "
+                            f"want {line!r}")
+                    path.setdefault(key, launches)
+                if launches["consensus"] != n_sh or flushes.get("cpu", 0) \
+                        or flushes.get("cuda", 0) < n_sh:
+                    raise AssertionError(f"{tag}: consensus launches "
+                                         f"{launches['consensus']} (want "
+                                         f"{n_sh}), ctx_scan flushes "
+                                         f"{flushes}")
+                if realign and (launches["fwdptr"] < n_sh
+                                or launches["walk"] < n_sh):
+                    raise AssertionError(f"{tag}: realign launches "
+                                         f"{launches}")
+                records.append(dict(flag=run_flag, realign=realign,
+                                    turn=turn,
+                                    mesh=mesh if run_flag else None,
+                                    wall_s=wall, stage_s=st["times"],
+                                    run_s=st["wall_s"], launches=launches,
+                                    ctx_scan_flushes=flushes))
+    rc, _st, err, _wall = run_cli(
+        [paf, "-r", fa, "-o", os.path.join(work, "shard_bad.dfa"),
+         "--device=cuda", f"--shard={K + 1}"])
+    want_err = f"Error: --shard={K + 1} but only {K} devices are visible!\n"
+    if rc != 1 or not err.endswith(want_err):
+        raise AssertionError(f"--shard={K + 1}: rc={rc}, stderr {err!r}")
+    records.append(dict(flag=f"--shard={K + 1}", rc=rc,
+                        stderr=err.strip()))
+    return records, path
+
+
+def run_shard_library(pile, main_inputs, long_inputs) -> list:
+    """Phase 12's library checks on meshes of 4 and 8 entries that all
+    name cuda:0: each sharded call against its unsharded call on the
+    card, bit for bit, each kernel launched once a non-empty shard, with
+    both calls' times (``timed``).  ``pile`` is the engine's pileup,
+    ``main_inputs`` and ``long_inputs`` are ((qs, ts, q_lens, t_lens),
+    band, dlo) of phase 7's largest band-64 dispatch and phase 8's long
+    read.  Returns the checks' records.  Raises on a failure."""
+    import numpy as np
+    import torch
+
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import realign as ra
+    from pwasm_tpu_torch.ops.refine_clip import refine_phases
+    from pwasm_tpu_torch.parallel import mesh as pm
+    from pwasm_tpu_torch.parallel.many2many import (make_many2many,
+                                                    make_mesh2d)
+    from pwasm_tpu_torch.parallel.wavefront_sp import wavefront_sp_scores
+
+    dev = torch.device("cuda", 0)
+    records = []
+
+    def filled(rows: int, parts: int) -> int:
+        """The shards an axis of ``rows`` rows leaves non-empty."""
+        return sum(a < b for a, b in pm.shard_bounds(rows, parts))
+
+    def counters():
+        return dict(ra.LAUNCHES, **bd.LAUNCHES, consensus=cons.LAUNCHES)
+
+    def check(name, n, mesh, sharded, unsharded, want_launches, reps=5,
+              **extra):
+        """One sharded call against its unsharded call: equal results,
+        ``want_launches`` launches by kernel, and both calls' times."""
+        before = counters()
+        got = sharded()
+        made = launched(counters(), before)
+        want = unsharded()
+        equal_outputs(got, want, f"{name} over {n} shards")
+        if made != want_launches:
+            raise AssertionError(f"{name} over {n} shards launched {made}, "
+                                 f"want {want_launches}")
+        rec = dict(check=name, shards=n, mesh=dict(mesh.shape),
+                   launches=made, sharded=timed(sharded, reps),
+                   unsharded=timed(unsharded, reps), **extra)
+        emit(dict(phase="shard", **rec))
+        records.append(rec)
+
+    deep = np.tile(pile, (10, 1))
+    cfg2_q, cfg2_ts, cfg2_tl = workload_lanes(10_240, 1500, seed=0)
+    rng = np.random.default_rng(12)
+    qs8 = torch.stack([cfg2_q[0]] + [
+        torch.from_numpy(mutate(rng, cfg2_q[0].cpu().numpy(), 5, 0)).to(dev)
+        for _ in range(7)])
+    ts1k, tl1k = cfg2_ts[:1024], cfg2_tl[:1024]
+    lq, lt = m2m_long_inputs(seed=13)
+    long_qs = torch.from_numpy(np.stack(lq)).to(dev)
+    width = max(len(t) for t in lt)
+    long_ts = torch.full((len(lt), width), 127, dtype=torch.int8, device=dev)
+    for k, t in enumerate(lt):
+        long_ts[k, :len(t)] = torch.from_numpy(t)
+    long_tl = torch.tensor([len(t) for t in lt], dtype=torch.int32,
+                           device=dev)
+    layouts = refine_layouts(seed=7)
+    for n in (4, 8):
+        mesh = pm.make_mesh(devices=[dev] * n)
+        for name, p in (("counts_votes", pile), ("counts_votes_deep", deep)):
+            fn = pm.sharded_counts_votes(mesh)
+            check(name, n, mesh, lambda fn=fn, p=p: fn(p),
+                  lambda p=p: cons.consensus_counts_votes(
+                      torch.from_numpy(p).to(dev)),
+                  {"consensus": n}, shape=list(p.shape))
+        for name, (lanes, band, dlo) in (("realign_rows", main_inputs),
+                                         ("realign_long", long_inputs)):
+            T = lanes[0].shape[0]
+            kernel = "fwdptr" if ra.select_kernel(
+                lanes[0].shape[1], lanes[1].shape[1], band) == "resident" \
+                else "fwdptr_long"
+            check(name, n, mesh,
+                  lambda lanes=lanes, band=band, dlo=dlo:
+                  ra.sharded_realign_rows(mesh, *lanes, band=band, dlo=dlo),
+                  lambda lanes=lanes, band=band, dlo=dlo:
+                  ra.banded_realign_rows(*lanes, band=band, dlo=dlo),
+                  {kernel: filled(T, n), "walk": filled(T, n)},
+                  reps=3 if name == "realign_long" else 5,
+                  shape=[T, lanes[0].shape[1], lanes[1].shape[1], band])
+        check("refine_phases", n, mesh,
+              lambda: [torch.from_numpy(x) for x in refine_phases(
+                  *layouts, device=mesh)],
+              lambda: [torch.from_numpy(x) for x in refine_phases(
+                  *layouts, device=dev)], {}, members=len(layouts[0]))
+        mesh2 = make_mesh2d(devices=[dev] * n)
+        m2m = make_many2many(mesh2, band=64)
+        for name, (qs, ts, tl, kernel) in (
+                ("many2many_cfg2", (qs8, ts1k, tl1k, "scores")),
+                ("many2many_long", (long_qs, long_ts, long_tl,
+                                    "scores_long"))):
+            tiles = filled(len(qs), mesh2.shape["query"]) \
+                * filled(len(ts), mesh2.shape["target"])
+            check(name, n, mesh2,
+                  lambda qs=qs, ts=ts, tl=tl: [m2m(qs, ts, tl)],
+                  lambda qs=qs, ts=ts, tl=tl: [bd.banded_scores_matrix(
+                      qs, ts, tl, 64)],
+                  {kernel: tiles},
+                  reps=3 if name == "many2many_long" else 5,
+                  shape=[len(qs), len(ts), qs.shape[1], ts.shape[1], 64])
+        for name, step_mesh, maker in (
+                ("pipeline_step", mesh, pm.make_pipeline_step),
+                ("multislice_step",
+                 pm.make_multislice_mesh(2, devices=[dev] * n),
+                 pm.make_multislice_step)):
+            step = maker(step_mesh, band=64)
+            dp = filled(len(ts1k), int(np.prod(
+                [v for a, v in step_mesh.shape.items() if a != "depth"])))
+            check(name, n, step_mesh,
+                  lambda step=step: step(cfg2_q[0], ts1k, tl1k, pile),
+                  lambda: [bd.banded_scores(cfg2_q[0], ts1k, tl1k,
+                                            64).cpu(),
+                           cons.consensus_counts_votes(
+                               torch.from_numpy(pile).to(dev))[0].cpu()],
+                  {"scores": dp, "consensus": n},
+                  shape=[1024, 1500, 1532, 64])
+    wq, wts, wtl = workload_lanes(8, 2000, seed=2)
+    seq = pm.Mesh([dev] * 4, ("seq",))
+    check("wavefront_sp", 4, seq,
+          lambda: [wavefront_sp_scores(wq[0], wts, wtl, seq, band=64)],
+          lambda: [bd.banded_scores(wq[0], wts, wtl, 64)], {},
+          reps=1, shape=[8, 2000, wts.shape[1], 64])
+    return records
+
+
 def compare_builds(parent_src: str, shapes: dict,
                    cycles_per_s: float) -> dict:
     """``--compare PARENT_SRC``: the scores kernels of other builds timed
@@ -2000,7 +2294,8 @@ def main(argv: list[str]) -> int:
                          for b in (8, 16, 33)}}, cycles_per_s)))
         emit(dict(phase="compare-walk", parent=compare_realign,
                   **compare_walk_builds(parent, main_shapes, cycles_per_s)))
-    del first, escalated, lanes
+    shard_inputs = (first, long_inputs[0])
+    del first, escalated, lanes, long_inputs
 
     # 9. many2many at config 3's scale; 10. a long-read dispatch
     m2m_launches, main_sc = run_many2many(work, cycles_per_s)
@@ -2025,7 +2320,16 @@ def main(argv: list[str]) -> int:
         del shapes
     del lr_inputs, cfg5_inputs
 
-    # 12. the kernels line, the card, the verdict
+    # 12. the multi-device layer: --shard through the CLI, then the
+    # sharded library calls on meshes of cuda:0 entries
+    shard_cli, shard_launches = run_shard_cli(
+        work, paf, fa, runs["cuda"]["outputs"], re_runs["cuda"]["outputs"])
+    emit(dict(phase="shard", cli=shard_cli, nvidia_smi=smi))
+    shard_checks = run_shard_library(pile, *shard_inputs)
+    emit(dict(phase="shard", checks=len(shard_checks), nvidia_smi=smi))
+    del shard_inputs
+
+    # 13. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -2037,6 +2341,10 @@ def main(argv: list[str]) -> int:
                       bound_ms_fwd=c["bound_ms_fwd"],
                       bound_ms_walk=c["bound_ms_walk"])
                  for c in (main_re, esc_re)]
+    def shard_runs(kernel: str) -> dict:
+        """A kernel's launches in each ``--shard`` path's own run."""
+        return {path: n[kernel] for path, n in shard_launches.items()}
+
     no_library = "no torch call computes banded Gotoh with pointers"
     no_scores_library = "no torch call computes banded Gotoh scores"
     sc_err = max(c["max_abs_err"] for c in sc_checks)
@@ -2050,6 +2358,7 @@ def main(argv: list[str]) -> int:
         source="pwasm_tpu_torch/csrc/consensus.cu",
         replaces="pwasm_tpu/ops/consensus.py:92",
         launches=main_launches,
+        shard_launches=shard_runs("consensus"),
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -2061,7 +2370,9 @@ def main(argv: list[str]) -> int:
         name="fwdptr", route="cuda",
         source="pwasm_tpu_torch/csrc/realign.cu",
         replaces="pwasm_tpu/ops/realign.py:383",
-        launches=re_launches["fwdptr"], max_abs_err=re_err,
+        launches=re_launches["fwdptr"],
+        shard_launches=shard_runs("fwdptr"),
+        max_abs_err=re_err,
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
         library_ms=None, library=no_library, shape=main_re["shape"],
@@ -2085,7 +2396,9 @@ def main(argv: list[str]) -> int:
         name="walk", route="cuda",
         source="pwasm_tpu_torch/csrc/realign.cu",
         replaces="pwasm_tpu/ops/realign.py:515",
-        launches=re_launches["walk"], max_abs_err=re_err,
+        launches=re_launches["walk"],
+        shard_launches=shard_runs("walk"),
+        max_abs_err=re_err,
         ms=main_re["ms_walk"], plain_ms=main_re["plain_ms_walk"],
         bound_ms=main_re["bound_ms_walk"],
         bound_by=main_re["bound_by_walk"], library_ms=None,

@@ -281,7 +281,8 @@ def refine_clipping_batch(seqs: list[GapSeq], cons: bytes,
     initial-match seek, same X-drop extension, same clip-bump and abort
     semantics).  The host builds the padded (members, layout) tensors;
     the two phases run as one dense torch program on ``device`` (a
-    ``torch.device``; ops/refine_clip.py); the host writes the clips
+    ``torch.device``, or a mesh the members shard over;
+    ops/refine_clip.py); the host writes the clips
     back.  Members with no clips are skipped outright (the common case
     costs nothing).
     """

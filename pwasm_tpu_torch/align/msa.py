@@ -47,17 +47,17 @@ def _rank_by_column(cols: np.ndarray, codes: np.ndarray):
 
 def device_counts_votes(pile: np.ndarray, device):
     """Counts + votes for a (rows, cols) int8 code pileup (codes 0..6)
-    on ``device`` (a ``torch.device``): the CUDA consensus kernel for a
-    CUDA device, its plain torch version on the CPU
-    (``ops.consensus.consensus_counts_votes``).  Returns ``(chars (cols,)
-    int64 — vote character codes, 0 = zero coverage; counts (cols, 6)
-    int32)``."""
-    import torch
+    on ``device``, a ``torch.device`` or a mesh of them
+    (``parallel/mesh.py``; ``pafreport --shard``): the pileup shards
+    (depth, cols) over the mesh, each tile counted by the CUDA consensus
+    kernel on a CUDA device (its plain torch version on the CPU,
+    ``ops.consensus.consensus_counts_votes``), and the depth shards'
+    counts summed before the vote (``sharded_counts_votes``; a device is
+    its one-shard mesh).  Returns ``(chars (cols,) int64 — vote
+    character codes, 0 = zero coverage; counts (cols, 6) int32)``."""
+    from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_counts_votes
 
-    from pwasm_tpu_torch.ops.consensus import consensus_counts_votes
-
-    votes, counts = consensus_counts_votes(
-        torch.from_numpy(np.ascontiguousarray(pile)).to(device))
+    votes, counts = sharded_counts_votes(as_mesh(device))(pile)
     v = votes.cpu().numpy()
     counts = counts.cpu().numpy()
     table = np.frombuffer(NUC_ORDER, dtype=np.uint8)
@@ -343,8 +343,8 @@ class Msa:
     def build_msa(self, device) -> None:
         """(GSeqAlign::buildMSA, GapAssem.cpp:1088-1106).  The column
         counts and the consensus votes come from one consensus launch over
-        ``pileup_matrix()`` on ``device`` (a ``torch.device``;
-        ops.consensus.consensus_counts_votes — the device form of
+        ``pileup_matrix()`` on ``device`` (a ``torch.device``, or a
+        mesh to shard over; device_counts_votes — the device form of
         toMSA+bestChar, GapAssem.cpp:1088-1106 / 1048-1069); the host
         keeps only the geometry side effects (live window, clip
         witnesses, bad-trim flags)."""
@@ -387,7 +387,8 @@ class Msa:
         consensus launch over the pileup tensor (see build_msa), and the
         clip refinement runs there too.  The two flags are the
         reference's MSAColumns statics; pafreport runs with
-        remove_cons_gaps=False (SURVEY.md §2.5.8).  ``times``
+        remove_cons_gaps=False (SURVEY.md §2.5.8).  With a mesh for
+        ``device`` both shard over it (``pafreport --shard``).  ``times``
         accumulates the ``consensus`` and ``refine`` stage seconds."""
         t0 = time.perf_counter()
         self.build_msa(device)

@@ -14,7 +14,8 @@ gap structure is first replaced by a banded Gotoh re-alignment
 (``ops/realign.py``, the CUDA realign kernels on ``--device=cuda``).
 ``--many2many`` scores every query of a multi-FASTA against every target
 (``stream/multicds.py``, the CUDA scores kernels on ``--device=cuda``).
-Outputs are byte-identical to the reference's.
+``--shard[=N]`` spreads that device work over a mesh of N CUDA devices
+(``parallel/mesh.py``).  Outputs are byte-identical to the reference's.
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
@@ -22,6 +23,7 @@ Usage:
       [--ace=FILE] [--info=FILE] [--cons=FILE] [-G|-F] [-C|-N] [-D] [-v]
       [-c <clipmax>] [--motifs=FILE] [--batch=N] [--remove-cons-gaps]
       [--no-refine-clip] [--realign] [--band=N] [--device=cuda|cpu]
+      [--shard[=N]]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
 """
@@ -44,6 +46,7 @@ USAGE = """Usage:
  pafreport <paf_with_cg_cs> -r <refseq.fa> [-s <summary.txt>]
     [-o <diff_report.dfa>][-w <outfile.mfa>] [-G|-F] [-C|-N]
     [--device=cuda|cpu] [--band=N] [--batch=N] [--motifs=FILE]
+    [--shard[=N]]
 
    <paf_with_cg_cs> is the input PAF file with high quality query sequence(s)
       aligned to many target sequences using minimap2 --cs
@@ -71,6 +74,11 @@ USAGE = """Usage:
    --batch=N   alignments per device report batch (default 256)
    --device=cuda|cpu  where the device programs run (default cuda; the
                CPU runs only when asked for)
+   --shard[=N]    (with --device=cuda) shard the device work over a mesh
+               of N CUDA devices (default: all visible): the analysis
+               batch and the re-alignment lanes spread over the mesh,
+               and the consensus pileup's depth shards' counts are
+               summed before the vote
 
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [-v]
@@ -83,15 +91,12 @@ USAGE = """Usage:
 _BOOL_FLAGS = set("DGFCNvh")
 _VALUE_FLAGS = set("rowcs")
 _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
-               "remove-cons-gaps", "no-refine-clip", "device")
+               "remove-cons-gaps", "no-refine-clip", "device", "shard")
 
 # flags and subcommands of the reference that later slices of the port
-# bring (ROADMAP.md queues A and B)
-_LATER = {
-    "shard": "the multi-GPU slice (--shard)",
-}
-_LATER_DEFAULT = ("a later slice (resilience, checkpoints and --stats; "
-                  "then service, stream, fleet, surveil and obs)")
+# bring (ROADMAP.md queue A)
+_LATER = ("a later slice (resilience, checkpoints and --stats; "
+          "then service, stream, fleet, surveil and obs)")
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
                  "inspect", "top", "trace-merge", "route", "health",
                  "logs")
@@ -198,7 +203,7 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     if argv and argv[0] in _SERVICE_CMDS:
         raise CliError(f"Error: '{argv[0]}' is not ported to "
                        f"pwasm_tpu_torch yet; it comes with "
-                       f"{_LATER_DEFAULT}\n")
+                       f"{_LATER}\n")
     opts, positional = _parse_args(argv)
     if opts.get("h"):
         stderr.write(USAGE + "\n")
@@ -211,8 +216,7 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     for k in opts:
         if len(k) > 1 and k not in _LONG_FLAGS:
             raise CliError(f"Error: --{k} is not ported to pwasm_tpu_torch "
-                           f"yet; it comes with "
-                           f"{_LATER.get(k, _LATER_DEFAULT)}\n")
+                           f"yet; it comes with {_LATER}\n")
     cfg = Config()
     cfg.debug = bool(opts.get("D"))
     cfg.fullgenome = bool(opts.get("F"))
@@ -238,6 +242,20 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     for kind in ("motifs", "ace", "info", "cons"):
         if opts.get(kind) is True:
             raise CliError(f"{USAGE}\n--{kind} requires a file argument\n")
+    shard = 0                       # --shard: -1 every visible device
+    if "shard" in opts:
+        val = opts["shard"]
+        if val is True:
+            shard = -1
+        elif str(val).isascii() and str(val).isdigit() and int(val) >= 1:
+            shard = int(val)
+        else:
+            stderr.write(f"{USAGE}\nInvalid --shard value: {val}\n")
+            return EXIT_USAGE
+        if cfg.device != "cuda":
+            stderr.write(f"{USAGE} Error: --shard requires "
+                         "--device=cuda!\n")
+            return EXIT_USAGE
     device = resolve_device(cfg.device)
     cfg.realign = bool(opts.get("realign"))
     if cfg.realign and "w" not in opts \
@@ -302,17 +320,36 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         nmsa = native_msa(stream=stderr)
         if nmsa is not None:
             opened.append(nmsa)
-    return _main_loop(cfg, device, inf, freport, fmsa, fsummary, qfasta,
+    mesh = _run_mesh(shard, device, stderr, cfg.verbose)
+    return _main_loop(cfg, mesh, inf, freport, fmsa, fsummary, qfasta,
                       stderr, cons_outs, nmsa,
                       stats if stats is not None else {})
 
 
-def _native_msa_outputs(nmsa, cfg: Config, device, fmsa, cons_outs: dict,
+def _run_mesh(shard: int, device, stderr, verbose: bool):
+    """The run's one mesh: with ``--shard[=N]`` over the first N visible
+    CUDA devices (every one for -1), else the 1 x 1 mesh of ``device``."""
+    from pwasm_tpu_torch.parallel import mesh as pmesh
+    if not shard:
+        return pmesh.as_mesh(device)
+    pool = pmesh.visible_devices()
+    want = len(pool) if shard < 0 else shard
+    if want > len(pool):
+        raise PwasmError(f"Error: --shard={want} but only {len(pool)} "
+                         "devices are visible!\n")
+    mesh = pmesh.make_mesh(want, devices=pool)
+    if verbose:
+        print(f"sharding over mesh {dict(mesh.shape)}", file=stderr)
+    return mesh
+
+
+def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
                         stderr, stats: dict, times: dict) -> None:
     """End-of-run MSA outputs of the C++ engine: the ``-D`` layout, the
     unrefined ``-w``, then, for the consensus outputs, the engine's
     rendered pileup counted and voted by the consensus launch on
-    ``device`` (the CUDA kernel on a CUDA device), the votes applied back
+    the run's ``mesh`` (the CUDA kernel on a CUDA device), the votes
+    applied back
     in the engine (``refine_external``, which also runs the X-drop clip
     refinement), and the ace/info/cons writers."""
     import os
@@ -347,7 +384,7 @@ def _native_msa_outputs(nmsa, cfg: Config, device, fmsa, cons_outs: dict,
     stats["pileup"] = (depth, length)
     pile = np.empty((depth, length), dtype=np.int8)
     nmsa.render_pileup(pile)
-    chars, counts = device_counts_votes(pile, device)
+    chars, counts = device_counts_votes(pile, mesh)
     t2 = time.perf_counter()
     times["consensus"] += t2 - t1
     nmsa.refine_external(counts, chars, cfg.remove_cons_gaps,
@@ -364,13 +401,14 @@ def _native_msa_outputs(nmsa, cfg: Config, device, fmsa, cons_outs: dict,
     times["write"] += time.perf_counter() - t3
 
 
-def _python_msa_outputs(ref_msa, cfg: Config, device, fmsa,
+def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
                         cons_outs: dict, stderr, stats: dict,
                         times: dict) -> None:
     """End-of-run MSA outputs of the Python engine (``align/msa.py``):
     the ``-D`` layout, the unrefined ``-w``, then refine once (the
-    consensus launch over ``Msa.pileup_matrix`` on ``device``, the clip
-    refinement as torch ops there) and the ace/info/cons writers."""
+    consensus launch over ``Msa.pileup_matrix`` over the run's
+    ``mesh``, the clip refinement as torch ops there) and the
+    ace/info/cons writers."""
     t0 = time.perf_counter()
     if cfg.debug:
         print(f">MSA ({ref_msa.count()})", file=stderr)
@@ -383,7 +421,7 @@ def _python_msa_outputs(ref_msa, cfg: Config, device, fmsa,
         stats["pileup"] = (ref_msa.count(), ref_msa.length)
         ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
                            refine_clipping=cfg.refine_clipping,
-                           device=device, times=times)
+                           device=mesh, times=times)
         t0 = time.perf_counter()
         contig = ref_msa.seqs[0].name if ref_msa.seqs else "contig"
         if "ace" in cons_outs:
@@ -395,12 +433,14 @@ def _python_msa_outputs(ref_msa, cfg: Config, device, fmsa,
     times["write"] += time.perf_counter() - t0
 
 
-def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
+def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                qfasta: FastaFile, stderr, cons_outs: dict, nmsa,
                stats: dict) -> int:
     """The per-PAF-line loop (pafreport.cpp:296-460).  ``nmsa`` is the
     C++ MSA engine (``native.NativeMsa``), or None for the Python
-    engine (``align/msa.py``)."""
+    engine (``align/msa.py``).  ``mesh`` is the run's mesh, over which
+    the device work spreads (``parallel/mesh.py``): ``--shard``'s, or
+    the one device's."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
@@ -442,7 +482,7 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
         batch, pending[:] = pending[:], []
         if batch:
             inflight.append(submit_diff_info_batch(
-                batch, freport, device, skip_codan=cfg.skip_codan,
+                batch, freport, mesh, skip_codan=cfg.skip_codan,
                 motifs=cfg.motifs, summary=summary))
         while len(inflight) > (0 if drain else 2):
             inflight.pop(0)()
@@ -523,7 +563,7 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
         items, re_pending[:] = re_pending[:], []
         results = realign_pairs(
             [(q_seg, bytes(aln.tseq)) for aln, _t, _r, _o, q_seg in items],
-            band=cfg.band, device=device)
+            band=cfg.band, device=mesh)
         times["realign"] += time.perf_counter() - t0
         for (aln, tlabel, refseq_b, ordn, _q), res in zip(items, results):
             al = aln.alninfo
@@ -666,17 +706,17 @@ def _main_loop(cfg: Config, device, inf, freport, fmsa, fsummary,
     flush_realign()
     if nmsa is not None:
         flush_msa_pending()
-        _native_msa_outputs(nmsa, cfg, device, fmsa, cons_outs, stderr,
+        _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs, stderr,
                             stats, times)
     elif ref_msa is not None:
-        _python_msa_outputs(ref_msa, cfg, device, fmsa, cons_outs, stderr,
+        _python_msa_outputs(ref_msa, cfg, mesh, fmsa, cons_outs, stderr,
                             stats, times)
     t0 = time.perf_counter()
     if summary is not None:
         summary.write(fsummary)
     times["write"] += time.perf_counter() - t0
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
-                 alignments=numalns, device=str(device))
+                 alignments=numalns, device=str(mesh.devices.flat[0]))
     if cfg.realign:
         stats["realigned"] = realigned
     if cfg.verbose:

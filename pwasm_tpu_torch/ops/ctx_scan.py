@@ -13,7 +13,8 @@ shape is the reference's:
   single device-to-host fetch.
 
 ``FLUSHES`` counts the packed scans by device type ("cuda", "cpu"), so a
-run can show where its flushes ran.
+run can show where its flushes ran; a flush sharded over a mesh counts
+one scan per shard.
 """
 
 from __future__ import annotations
@@ -35,11 +36,18 @@ def pack_events(events, max_ev: int, device: torch.device) -> dict:
     """SoA-pack a list of DiffEvent into tensors on ``device``: two
     host-to-device transfers per flush (see ``pack_events_np`` for the
     power-of-two event-axis bucketing)."""
-    d = pack_events_np(events, max_ev)
-    ints = torch.from_numpy(np.stack([d["rloc"], d["evt"], d["evtlen"],
-                                      d["nbases"]])).to(device)
-    codes = torch.from_numpy(np.stack([d["evtbases"],
-                                       d["evtsub"]])).to(device)
+    return upload_events(pack_events_np(events, max_ev), device)
+
+
+def upload_events(d: dict, device: torch.device,
+                  rows: slice = slice(None)) -> dict:
+    """The rows ``rows`` of ``pack_events_np``'s arrays as tensors on
+    ``device``: the int32 vectors as one (4, E) transfer and the int8
+    code planes as one (2, E, max_ev) transfer."""
+    ints = torch.from_numpy(np.stack([d[k][rows] for k in (
+        "rloc", "evt", "evtlen", "nbases")])).to(device)
+    codes = torch.from_numpy(np.stack([d["evtbases"][rows],
+                                       d["evtsub"][rows]])).to(device)
     return dict(rloc=ints[0], evt=ints[1], evtlen=ints[2],
                 nbases=ints[3], evtbases=codes[0], evtsub=codes[1])
 

@@ -512,6 +512,33 @@ def banded_realign_rows(qs: torch.Tensor, ts: torch.Tensor,
     return scores, leads, iy_runs, ops_rows, ok
 
 
+def sharded_realign_rows(mesh, qs, ts, q_lens, t_lens, band: int = 64,
+                         params: ScoreParams = ScoreParams(),
+                         dlo: int | None = None):
+    """``banded_realign_rows`` with the lane axis sharded over every
+    mesh axis (``parallel/mesh.py``; the ``pafreport --shard`` realign
+    path): each shard of contiguous lanes runs on its own device, and no
+    collective is needed.  ``dlo`` is one placement for every shard (a
+    shard's own ``_pick_dlo`` would place the band otherwise and change
+    which lanes escalate).  Shards left empty when T is below the shard
+    count launch nothing.  Every shard is launched before any is
+    fetched.  Inputs are numpy arrays or tensors; returns the
+    unsharded call's five outputs as CPU tensors, equal to it bit for
+    bit."""
+    from pwasm_tpu_torch.parallel.mesh import flat_devices, shard_bounds
+
+    qs, ts, q_lens, t_lens = (torch.as_tensor(x)
+                              for x in (qs, ts, q_lens, t_lens))
+    devs = flat_devices(mesh)
+    spans = [(dev, a, b) for dev, (a, b)
+             in zip(devs, shard_bounds(qs.shape[0], len(devs)))
+             if a < b] or [(devs[0], 0, 0)]
+    parts = [banded_realign_rows(
+        *(x[a:b].to(dev) for x in (qs, ts, q_lens, t_lens)), band=band,
+        params=params, dlo=dlo) for dev, a, b in spans]
+    return tuple(torch.cat([p[k].cpu() for p in parts]) for k in range(5))
+
+
 def banded_traceback_batch(qs: torch.Tensor, ts: torch.Tensor,
                            q_lens: torch.Tensor, t_lens: torch.Tensor,
                            band: int = 64,
@@ -825,9 +852,11 @@ _PTR_BYTES_LIMIT = 1 << 30
 
 def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
                   params: ScoreParams = ScoreParams(), *,
-                  device: torch.device):
+                  device):
     """Re-align a batch of (query_segment, target) byte-string pairs on
-    ``device``.
+    ``device``, a ``torch.device`` or a mesh of them
+    (``parallel/mesh.py``): each dispatch's lanes shard over the mesh
+    (``sharded_realign_rows``; a device is its one-shard mesh).
 
     Returns a list of (score, ops_fwd) — or ``None`` for pairs that
     could not be re-aligned within resource bounds (callers keep their
@@ -839,6 +868,7 @@ def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
     ``_NATIVE_ORACLE_CELL_LIMIT`` cells use the native host oracle."""
     from pwasm_tpu_torch.core.dna import encode
     from pwasm_tpu_torch.parallel.bucketing import group_by_shape
+    from pwasm_tpu_torch.parallel.mesh import as_mesh
 
     if not pairs:
         return []
@@ -846,16 +876,17 @@ def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
     out: list = [None] * len(pairs)
     groups = group_by_shape((len(qc), len(tc)) for qc, tc in enc)
     for (mb, nb), idxs in sorted(groups.items()):
-        _realign_group(enc, idxs, mb, nb, band, params, out, device)
+        _realign_group(enc, idxs, mb, nb, band, params, out,
+                       as_mesh(device))
     return out
 
 
 def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
                    params: ScoreParams, out: list,
-                   device: torch.device) -> None:
+                   mesh) -> None:
     """Dispatch one shape bucket of ``realign_pairs`` lanes (padded to
-    (m_max, n)), writing results into ``out`` at their original
-    indices."""
+    (m_max, n)) over ``mesh``, writing results into ``out`` at their
+    original indices."""
     T = len(idxs)
     qs = np.full((T, m_max), 127, dtype=np.int8)
     ts = np.full((T, n), 127, dtype=np.int8)
@@ -883,12 +914,10 @@ def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
         for c0 in range(0, len(todo), chunk):
             sub = todo[c0:c0 + chunk]
             dlo = _pick_dlo(t_lens[sub] - q_lens[sub], cur_band)
-            res = banded_realign_rows(
-                *(torch.from_numpy(x[sub]).to(device)
-                  for x in (qs, ts, q_lens, t_lens)),
-                band=cur_band, params=params, dlo=dlo)
-            scores, leads, iy_runs, ops_rows, ok = \
-                (x.cpu().numpy() for x in res)
+            scores, leads, iy_runs, ops_rows, ok = (
+                x.numpy() for x in sharded_realign_rows(
+                    mesh, *(x[sub] for x in (qs, ts, q_lens, t_lens)),
+                    band=cur_band, params=params, dlo=dlo))
             for idx, k in enumerate(sub):
                 if ok[idx]:
                     out[idxs[k]] = (int(scores[idx]),

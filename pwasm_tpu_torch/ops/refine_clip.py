@@ -125,10 +125,15 @@ def _phases(gseq, gxpos, cons, cpos, glen, totals, gclipL, gclipR,
 def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
                   gclipR, clipL0, clipR0, seqlens, xdrop: int,
                   match_sc: int, mismatch_sc: int,
-                  device: torch.device):
-    """Run both refinement phases on ``device`` over the layout arrays
-    built by refine_clipping_batch (numpy in, numpy out).  Returns
-    (clipL, clipR, missR, missL) for the M real members."""
+                  device):
+    """Run both refinement phases over the layout arrays built by
+    refine_clipping_batch (numpy in, numpy out) on ``device``, a
+    ``torch.device`` or a mesh of them (``parallel/mesh.py``): the
+    member axis shards over every mesh axis (``sharded_refine_phases``;
+    a device is its one-shard mesh).  Returns (clipL, clipR, missR,
+    missL) for the M real members."""
+    from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_refine_phases
+
     M, L = gseq2.shape
     Mp = _pow2(M, 8)
     Lp = _pow2(L, 128)
@@ -142,18 +147,15 @@ def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
     cons = np.zeros(Cp, dtype=np.int64)
     cons[:C] = cons_arr
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
     def padv(v):
         out = np.zeros(Mp, dtype=np.int64)
         out[:M] = v
-        return dev(out)
+        return torch.from_numpy(out)
 
-    clipL, clipR, missR, missL = _phases(
-        dev(gseq), dev(gxpos), dev(cons), padv(cpos), padv(glen),
-        padv(totals), padv(gclipL), padv(gclipR), padv(clipL0),
-        padv(clipR0), padv(seqlens), C, int(xdrop), int(match_sc),
-        int(mismatch_sc))
-    return (clipL[:M].cpu().numpy(), clipR[:M].cpu().numpy(),
-            missR[:M].cpu().numpy(), missL[:M].cpu().numpy())
+    args = (torch.from_numpy(gseq), torch.from_numpy(gxpos),
+            torch.from_numpy(cons), padv(cpos), padv(glen), padv(totals),
+            padv(gclipL), padv(gclipR), padv(clipL0), padv(clipR0),
+            padv(seqlens))
+    out = sharded_refine_phases(as_mesh(device), int(xdrop), int(match_sc),
+                                int(mismatch_sc))(*args, C)
+    return tuple(x[:M].numpy() for x in out)

@@ -24,6 +24,15 @@ def round_up(x: int, step: int = 128) -> int:
     return max(step, (x + step - 1) // step * step)
 
 
+def mesh_multiple(mesh) -> int:
+    """Total device count of a mesh (product of its axis sizes) — the
+    multiple a dispatch whose axis splits over every mesh axis pads to,
+    so every shard receives equal rows; ``mesh`` is any mesh with a
+    ``.shape`` mapping."""
+    return max(1, int(np.prod([int(v)
+                               for v in dict(mesh.shape).values()])))
+
+
 def group_by_shape(shapes: Iterable[Sequence[int]],
                    step: int = 128) -> dict[tuple, list[int]]:
     """Indices grouped by their step-rounded shape tuple — the n-D

@@ -1,13 +1,14 @@
 """Many-to-many scoring: every query against every target.
 
-Counterpart of ``pwasm_tpu/parallel/many2many.py`` on one device:
+Counterpart of ``pwasm_tpu/parallel/many2many.py``:
 BASELINE.md config #3, many bacterial CDS queries against many assembly
 targets — the full (Q x T) matrix of banded affine-gap DP global scores
 (``ops/banded_dp.py::banded_scores_matrix``, the reference's
 ``many2many_scores``).  On a CUDA device one launch of the scores kernel
 covers a dispatch's whole Q x T cross product; on the CPU the plain
-version runs.  The 2-D mesh (``make_mesh2d``/``make_many2many``) comes
-with the multi-GPU slice.
+version runs.  ``make_many2many`` spreads the (Q x T) matrix over a 2-D
+(query x target) mesh (``make_mesh2d``): each tile is scored on its own
+device, and no collective is needed.
 """
 
 from __future__ import annotations
@@ -21,6 +22,49 @@ from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, band_dlo,
                                            banded_scores_matrix)
 from pwasm_tpu_torch.parallel.bucketing import (bucket_queries, encode_seqs,
                                                 pad_to_width)
+from pwasm_tpu_torch.parallel.mesh import (Mesh, _inner_factor, device_grid,
+                                           device_pool, grid_of, shard_bounds)
+
+
+def make_mesh2d(n_devices: int | None = None,
+                axis_names: tuple[str, str] = ("query", "target"),
+                devices=None) -> Mesh:
+    """A 2-D mesh over the first ``n_devices`` devices of the pool
+    (``devices``, else every visible CUDA device); the query axis gets
+    the largest factor <= sqrt(n) (targets usually outnumber queries, so
+    the target axis gets the bigger factor)."""
+    devs = device_pool(n_devices, devices)
+    nq = _inner_factor(len(devs))
+    return Mesh(grid_of(devs, (nq, len(devs) // nq)), axis_names)
+
+
+def make_many2many(mesh: Mesh, band: int = 64,
+                   params: ScoreParams = ScoreParams()):
+    """The sharded many-to-many scorer.
+
+    Returns ``fn(qs (Q, m), ts (T, n), t_lens (T,)) -> (Q, T)`` int32
+    scores (CPU tensor) with Q split over mesh axis 'query' and T over
+    'target': each (query shard, target shard) tile runs
+    ``banded_scores_matrix`` on its device (the scores kernel the budget
+    picks on a CUDA device), every tile launched before any is fetched,
+    and the tiles are stitched back into (Q, T)."""
+    grid = device_grid(mesh, ("query", "target"))
+    nq, nt = grid.shape
+
+    def fn(qs, ts, t_lens):
+        qs, ts, t_lens = (torch.as_tensor(x) for x in (qs, ts, t_lens))
+        tiles = [((qa, qb, ta, tb), banded_scores_matrix(
+            qs[qa:qb].to(grid[i, j]), ts[ta:tb].to(grid[i, j]),
+            t_lens[ta:tb].to(grid[i, j]), band, params))
+            for i, (qa, qb) in enumerate(shard_bounds(len(qs), nq))
+            for j, (ta, tb) in enumerate(shard_bounds(len(ts), nt))
+            if qa < qb and ta < tb]
+        out = torch.empty((len(qs), len(ts)), dtype=torch.int32)
+        for (qa, qb, ta, tb), s in tiles:
+            out[qa:qb, ta:tb] = s.cpu()
+        return out
+
+    return fn
 
 
 def many2many_scores_ragged(qs, ts, band: int = 64,

@@ -23,26 +23,33 @@ import torch
 
 from pwasm_tpu_torch.core.config import DEFAULT_MOTIFS
 from pwasm_tpu_torch.core.dna import encode
-from pwasm_tpu_torch.ops.ctx_scan import (ctx_scan_packed, pack_events,
-                                          pack_motifs)
-from pwasm_tpu_torch.ops.ctx_scan_impl import (PAD, ref_bucket_len,
+from pwasm_tpu_torch.ops.ctx_scan import (ctx_scan_packed, pack_motifs,
+                                          upload_events)
+from pwasm_tpu_torch.ops.ctx_scan_impl import (PAD, pack_events_np,
+                                               ref_bucket_len,
                                                unpack_ctx_scan)
+from pwasm_tpu_torch.parallel.mesh import as_mesh, flat_devices, shard_bounds
 from pwasm_tpu_torch.report.columnar import assemble_results, emit_batch_rows
 from pwasm_tpu_torch.report.diff_report import analyze_event_host
 
 MAX_EV = 16
 
 
-def submit_events_device(refseq: bytes, events, device: torch.device,
+def submit_events_device(refseq: bytes, events, device,
                          skip_codan: bool = False,
                          motifs=DEFAULT_MOTIFS, max_ev: int = MAX_EV):
-    """Launch the analysis of a batch of DiffEvents on ``device`` and
-    return a ``finish() -> list[tuple]`` closure that fetches and
-    assembles the results.
+    """Launch the analysis of a batch of DiffEvents on ``device`` (a
+    ``torch.device``, or a mesh of them) and return a ``finish() ->
+    list[tuple]`` closure that fetches and assembles the results.
 
     Device work is asynchronous on CUDA, so between ``submit`` and
     ``finish`` the card computes while the host formats earlier batches
-    (the CLI keeps a two-deep in-flight pipeline)."""
+    (the CLI keeps a two-deep in-flight pipeline).  The packed event
+    axis splits over every axis of the mesh (``parallel/mesh.py``,
+    ``pafreport --shard``; a device is its one-shard mesh): each shard's
+    rows, the reference and the motif tables go to its device, one
+    ``ctx_scan_packed`` runs there, and ``finish`` joins the shards in
+    event order (the analysis of an event reads no other event)."""
     if not events:
         return lambda: []
     ref_len = len(refseq)
@@ -55,22 +62,29 @@ def submit_events_device(refseq: bytes, events, device: torch.device,
             for ev in events]
     small = [ev for ev, ok in zip(events, fits) if ok]
     big = [ev for ev, ok in zip(events, fits) if not ok]
-    packed = None
+    packed = []
     if small:
-        mot_codes, mot_lens = pack_motifs(motifs, device)
         ref_codes = np.full(max_len, PAD, dtype=np.int8)
         ref_codes[:ref_len] = encode(refseq.upper())
-        packed = ctx_scan_packed(
-            torch.from_numpy(ref_codes).to(device), ref_len,
-            pack_events(small, max_ev, device), mot_codes, mot_lens,
-            max_codons=max_codons, max_len=max_len, skip_codan=skip_codan)
+        d = pack_events_np(small, max_ev)
+        devs = flat_devices(as_mesh(device))
+        spans = [(dev, a, b) for dev, (a, b)
+                 in zip(devs, shard_bounds(len(d["rloc"]), len(devs)))
+                 if a < b]
+        for dev, a, b in spans:
+            packed.append(ctx_scan_packed(
+                torch.from_numpy(ref_codes).to(dev), ref_len,
+                upload_events(d, dev, slice(a, b)),
+                *pack_motifs(motifs, dev), max_codons=max_codons,
+                max_len=max_len, skip_codan=skip_codan))
 
     def finish() -> list[tuple]:
         results: dict[int, tuple] = {}
         if small:
-            # ONE host fetch for the whole analysis, then numpy views
-            host = unpack_ctx_scan(packed.cpu().numpy(), max_codons,
-                                   skip_codan)
+            # one host fetch a shard, joined in event order, then numpy
+            # views
+            flat = np.concatenate([p.cpu().numpy() for p in packed])
+            host = unpack_ctx_scan(flat, max_codons, skip_codan)
             for ev, r in zip(small, assemble_results(
                     small, host, refseq, motifs, skip_codan)):
                 results[id(ev)] = r
@@ -82,7 +96,7 @@ def submit_events_device(refseq: bytes, events, device: torch.device,
     return finish
 
 
-def submit_diff_info_batch(batch, f, device: torch.device,
+def submit_diff_info_batch(batch, f, device,
                            skip_codan: bool = False,
                            motifs=DEFAULT_MOTIFS, summary=None,
                            max_ev: int = MAX_EV):
@@ -94,7 +108,9 @@ def submit_diff_info_batch(batch, f, device: torch.device,
     refseq: bytes) in input order.  Events are grouped per distinct
     refseq (the program is specialized on the reference tensor),
     analyzed in one ``ctx_scan_packed`` call per group, then rows are
-    emitted in exactly the order the scalar path would produce."""
+    emitted in exactly the order the scalar path would produce.
+    ``device`` is a ``torch.device`` or a mesh each group's events shard
+    over (``submit_events_device``)."""
     groups: dict[bytes, list] = {}
     for aln, _rl, _tl, refseq in batch:
         groups.setdefault(refseq, []).extend(aln.tdiffs)

@@ -52,6 +52,10 @@ def test_port_sources_never_name_jax_or_the_reference():
                                 f"{line.strip()}")
     assert not hits, "\n".join(hits)
     assert sum(1 for _ in _port_sources()) > 20
+    # the multi-device layer is among the sources checked
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {f"pwasm_tpu_torch/parallel/{m}.py" for m in (
+        "mesh", "many2many", "wavefront_sp", "bucketing")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -82,6 +86,9 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import sys\n"
         "from pwasm_tpu_torch.cli import run\n"
         f"assert run({argv!r}) == 0\n"
+        "import pwasm_tpu_torch.parallel.mesh\n"
+        "import pwasm_tpu_torch.parallel.many2many\n"
+        "import pwasm_tpu_torch.parallel.wavefront_sp\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"
