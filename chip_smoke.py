@@ -62,7 +62,10 @@ Phases, one JSON line each; any failure exits non-zero:
               the in-band pairs' m x band; cells_all counts every
               pair's); then --device=cpu with only the shortest and the
               longest CDS, whose sections and -s lines must equal the
-              cuda run's byte for byte; the scores kernel checked and
+              cuda run's byte for byte; both runs with ``--stats``, whose
+              ``device.by_site`` must count one ``many2many`` dispatch a
+              launch the run logged, and ``device.flushes`` the one
+              fetch of the scores; the scores kernel checked and
               timed on the inputs of the cuda run's largest dispatch;
 10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
               4 targets of ~116 kb: the streamed scores kernel runs (its
@@ -95,7 +98,27 @@ Phases, one JSON line each; any failure exits non-zero:
               each equal to its unsharded call on the card and each
               kernel launched once a non-empty shard; each check's wall
               and device time beside its unsharded call's;
-13. the ``kernels`` line, the card's name and power limit as nvidia-smi
+13. obs     — the realistic corpus on the engine, without and with
+              ``--realign``, with ``--stats``, ``--trace-json``,
+              ``--log-json``, ``--metrics-textfile`` and ``--profile``,
+              in turns with the flagless run (flagless, the obs flags
+              without ``--profile``, every flag, the obs flags again,
+              flagless; each turn's stages and garbage-collection
+              pauses, each flagged turn's span totals kept): outputs
+              equal
+              to phase 5's and phase 7's; ``--stats`` with the
+              reference's keys, 200 alignments, and ``device.by_site``
+              equal to the dispatches the run logged (one consensus
+              launch, a ctx_scan flush each, with ``--realign`` the six
+              realign dispatches, each one forward and one walk launch),
+              the metrics, the ``device_batch`` spans and the events
+              agreeing; the ``--profile`` trace naming
+              ``consensus_kernel``, the forward kernel each dispatch's
+              plan chose and its walk; a line each with the card's busy
+              ms and busy share of the run (the union of the kernel,
+              copy and set intervals inside the trace's ``run``
+              annotation), and a line with the walls of the turns;
+14. the ``kernels`` line, the card's name and power limit as nvidia-smi
    prints them, and the final ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
@@ -1169,10 +1192,25 @@ def run_many2many(work: str, cycles_per_s: float | None,
         with logged_scores() as (dispatches, largest):
             rc, st, err, wall = run_cli(
                 ["--many2many", tfa, "-r", rfa, "-o", f"{out}.tsv",
-                 "-s", f"{out}.sum", f"--device={dev}"])
+                 "-s", f"{out}.sum", f"--device={dev}",
+                 f"--stats={out}.json"])
         launches = dict(bd.LAUNCHES)
         if rc != 0:
             raise AssertionError(f"--many2many --device={dev} rc={rc}: {err}")
+        # --stats counts one many2many dispatch a launch the run logged,
+        # and one flush: the scores' one copy to the host
+        with open(f"{out}.json") as f:
+            m2m_stats = json.load(f)
+        if m2m_stats["device"]["by_site"] != {"many2many": len(dispatches)} \
+                or m2m_stats["device"]["flushes"] != 1 \
+                or st["dispatches"] != len(dispatches) \
+                or m2m_stats["alignments"] != st["pairs"]:
+            raise AssertionError(
+                f"--many2many --device={dev} --stats: by_site "
+                f"{m2m_stats['device']['by_site']}, flushes "
+                f"{m2m_stats['device']['flushes']}, {len(dispatches)} "
+                f"dispatches logged, {m2m_stats['alignments']} alignments "
+                f"of {st['pairs']} pairs")
         with open(f"{out}.tsv", "rb") as f:
             body = f.read()
         with open(f"{out}.sum", "rb") as f:
@@ -1215,6 +1253,7 @@ def run_many2many(work: str, cycles_per_s: float | None,
                   bound_all_s=SCORE_OPS_PER_CELL * cells_all
                   / INT_OPS_PER_S,
                   launches=launches, report_bytes=len(body),
+                  stats_device=m2m_stats["device"],
                   in_band=sum(1 for ln in body.splitlines()
                               if not ln.startswith(b">")
                               and not ln.endswith(b"\t.")),
@@ -1523,6 +1562,226 @@ def run_shard_cli(work: str, paf: str, fa: str, outputs: dict,
     records.append(dict(flag=f"--shard={K + 1}", rc=rc,
                         stderr=err.strip()))
     return records, path
+
+
+def busy_in_run(profile_path: str) -> dict:
+    """The card's busy time in a ``--profile`` trace: the union of its
+    kernel, copy and set intervals that fall inside the trace's ``run``
+    annotation (``utils/profiling.py``), in ms, beside the run's span,
+    the summed durations by category (kernel, gpu_memcpy, gpu_memset;
+    overlaps counted in each) and the kernels the card ran there, by
+    name."""
+    with open(profile_path) as f:
+        events = json.load(f)["traceEvents"]
+    runs = [e for e in events if e.get("name") == "run"
+            and e.get("cat") == "user_annotation"]
+    if len(runs) != 1:
+        raise AssertionError(f"{profile_path}: {len(runs)} run "
+                             "annotations, want 1")
+    r0, r1 = runs[0]["ts"], runs[0]["ts"] + runs[0]["dur"]
+    spans, kernels, by_cat = [], {}, {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        a, b = max(e["ts"], r0), min(e["ts"] + e["dur"], r1)
+        if b > a:
+            spans.append((a, b))
+            by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + (b - a) / 1e3
+        if e["cat"] == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    busy, end = 0.0, r0
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(busy_ms=busy / 1e3, run_ms=(r1 - r0) / 1e3,
+                busy_share=busy / (r1 - r0), ms_by_category=by_cat,
+                kernels=kernels)
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """The interpreter's garbage collections while the block runs, as
+    ``{"count": n, "ms": total, "max_ms": longest, "full": n}`` (``full``:
+    the collections of the oldest generation)."""
+    import gc
+
+    log, started = dict(count=0, ms=0.0, max_ms=0.0, full=0), []
+
+    def note(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            ms = (time.perf_counter() - started.pop()) * 1e3
+            log["count"] += 1
+            log["ms"] += ms
+            log["max_ms"] = max(log["max_ms"], ms)
+            log["full"] += info["generation"] == 2
+
+    gc.callbacks.append(note)
+    try:
+        yield log
+    finally:
+        gc.callbacks.remove(note)
+
+
+def run_obs(work: str, paf: str, fa: str, outputs: dict,
+            re_outputs: dict, smi: str) -> dict:
+    """Phase 13: the realistic corpus on the engine with ``--stats``,
+    ``--trace-json``, ``--log-json``, ``--metrics-textfile`` and
+    ``--profile``, without and with ``--realign``, in turns with the
+    flagless run (flagless, the obs flags without ``--profile``, every
+    flag, the obs flags again, flagless: the obs turns before and after
+    the profiled one tell the flags' cost from the profiler's), each
+    turn's garbage-collection pauses recorded.  Each run's outputs equal
+    ``outputs`` (phase 5's) or ``re_outputs`` (phase 7's); in each
+    flagged run
+    ``--stats`` has the reference's keys, 200 alignments, and a
+    ``device.by_site`` equal to the dispatches the run logged (one
+    consensus launch; with ``--realign`` the six realign dispatches, a
+    forward and a walk launch each; a ctx_scan flush each), the metrics
+    and the trace agree with it, and the profile names the kernels the
+    run launched; the busy lines carry ``smi``, the card's name and power
+    limit.  Returns the phase's record.  Raises on a failure."""
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+    from pwasm_tpu_torch.utils.runstats import RunStats
+
+    def keys(d, pre=""):
+        out = set()
+        for k, v in d.items():
+            out.add(pre + k)
+            if isinstance(v, dict) and k != "by_site":
+                out |= keys(v, pre + k + ".")
+        return out
+
+    want_keys = keys(RunStats().as_dict())
+    record = {}
+    for realign in (False, True):
+        path = "realign" if realign else "main"
+        walls = []
+        for turn, flags in enumerate(("", "obs", "all", "obs", "")):
+            tag = f"obs_{path}_{turn}"
+            p = os.path.join(work, tag)
+            args = [paf, "-r", fa, *out_args(work, tag), "--device=cuda",
+                    *(["--realign"] if realign else [])]
+            if flags:
+                if os.path.exists(f"{p}.ndjson"):   # --log-json appends
+                    os.remove(f"{p}.ndjson")
+                args += [f"--stats={p}.json", f"--trace-json={p}.trace",
+                         f"--log-json={p}.ndjson",
+                         f"--metrics-textfile={p}.prom"]
+            if flags == "all":
+                args.append(f"--profile={p}.prof")
+            for k in ra.LAUNCHES:
+                ra.LAUNCHES[k] = 0
+            cons.LAUNCHES = 0
+            ctx_scan.FLUSHES.clear()
+            with logged_dispatches() as (dispatches, _inputs), \
+                    gc_pauses() as gcs:
+                rc, st, err, wall = run_cli(args)
+            launches = dict(ra.LAUNCHES, consensus=cons.LAUNCHES)
+            flushes = dict(ctx_scan.FLUSHES)
+            if rc != 0:
+                raise AssertionError(f"{tag} rc={rc}: {err}")
+            walls.append(dict(flags=flags or None, wall_s=wall,
+                              run_s=st["wall_s"], stage_s=st["times"],
+                              gc=gcs))
+            want = re_outputs if realign else outputs
+            got = read_outputs(work, tag)
+            differ = [n for n in OUTPUTS if got[n] != want[n]]
+            if differ:
+                raise AssertionError(f"{tag}: outputs differ from the "
+                                     f"flagless run's: {differ}")
+            if not flags:
+                continue
+            with open(f"{p}.json") as f:
+                stats = json.load(f)
+            if keys(stats) != want_keys or stats["stats_version"] != 1 \
+                    or stats["alignments"] != 200:
+                raise AssertionError(
+                    f"{tag}: --stats keys differ by "
+                    f"{sorted(keys(stats) ^ want_keys)}, or "
+                    f"{stats['alignments']} alignments (want 200)")
+            logged = {"ctx_scan": flushes.get("cuda", 0),
+                      "consensus": launches["consensus"]}
+            if realign:
+                logged["realign"] = len(dispatches)
+                fwd = launches["fwdptr"] + launches["fwdptr_long"]
+                if len(dispatches) != len(REALIGN_DISPATCHES) \
+                        or fwd != len(dispatches) \
+                        or launches["walk"] != len(dispatches):
+                    raise AssertionError(
+                        f"{tag}: {len(dispatches)} realign dispatches "
+                        f"(want {len(REALIGN_DISPATCHES)}), launches "
+                        f"{launches}")
+            by_site = stats["device"]["by_site"]
+            if by_site != logged or logged["consensus"] != 1 \
+                    or flushes.get("cpu", 0) \
+                    or stats["device"]["dispatches"] \
+                    != sum(logged.values()) \
+                    or stats["device_batches"] != logged["ctx_scan"]:
+                raise AssertionError(f"{tag}: --stats by_site {by_site}, "
+                                     f"logged {logged}, ctx_scan flushes "
+                                     f"{flushes}")
+            with open(f"{p}.prom") as f:
+                prom = f.read().splitlines()
+            if f"pwasm_device_dispatches_total {sum(logged.values())}" \
+                    not in prom or "pwasm_run_alignments_total 200" \
+                    not in prom:
+                raise AssertionError(f"{tag}: the metrics textfile does "
+                                     "not match --stats")
+            with open(f"{p}.trace") as f:
+                trace_events = json.load(f)["traceEvents"]
+            traced, span_ms = {}, {}
+            for e in trace_events:
+                if e["ph"] == "X":
+                    span_ms[e["name"]] = span_ms.get(e["name"], 0.0) \
+                        + e["dur"] / 1e3
+                if e["name"] == "device_batch":
+                    site = e["args"]["site"]
+                    traced[site] = traced.get(site, 0) + 1
+            walls[-1].update(span_ms=span_ms, host=stats["host"])
+            if traced != logged:
+                raise AssertionError(f"{tag}: device_batch spans {traced}, "
+                                     f"logged {logged}")
+            with open(f"{p}.ndjson") as f:
+                events = [json.loads(ln)["event"] for ln in f]
+            if events != ["run_start", "run_finish"]:
+                raise AssertionError(f"{tag}: events {events}")
+            if flags != "all":
+                continue
+            if f"device trace written to {p}.prof" not in err:
+                raise AssertionError(f"{tag}: no --profile line: {err}")
+            busy = busy_in_run(os.path.join(f"{p}.prof", "trace.json"))
+            names = list(busy["kernels"])
+            # the forward kernel each dispatch's plan chose, and its walk
+            need = {"consensus_kernel"}
+            for _T, m_max, _n, band, kernel in dispatches:
+                if ra.forward_layout(band) is None:
+                    need.add("fwdptr_kernel")
+                else:
+                    need.add({"resident": "fwd_subwarp_kernel",
+                              "streamed": "fwd_stream_kernel"}[kernel])
+                need.add(f"walk_{ra.walk_plan(m_max, band)['body']}_kernel")
+            missing = sorted(k for k in need
+                             if not any(k in n for n in names))
+            if missing:
+                raise AssertionError(f"{tag}: the --profile trace lacks "
+                                     f"{missing}; it holds {names}")
+            record[path] = dict(by_site=by_site, launches=launches,
+                                ctx_scan_flushes=flushes,
+                                device=stats["device"], host=stats["host"],
+                                stage_s=st["times"], **busy)
+            print(f"obs {path}: card busy {busy['busy_ms']:.3f} ms of the "
+                  f"{busy['run_ms']:.3f} ms run ({busy['busy_share']:.4%})"
+                  f"; {smi}", flush=True)
+        record[path]["turns"] = walls
+        print(f"obs {path}: walls in turn, s (gc ms): " + ", ".join(
+            f"{w['flags'] or 'flagless'} {w['wall_s']:.3f} "
+            f"({w['gc']['ms']:.1f})" for w in walls), flush=True)
+    return record
 
 
 def run_shard_library(pile, main_inputs, long_inputs) -> list:
@@ -2329,7 +2588,14 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="shard", checks=len(shard_checks), nvidia_smi=smi))
     del shard_inputs
 
-    # 13. the kernels line, the card, the verdict
+    # 13. observability: the main path and --realign with --stats,
+    # --trace-json, --log-json, --metrics-textfile and --profile, in
+    # turns with the flagless runs
+    emit(dict(phase="obs", nvidia_smi=smi,
+              **run_obs(work, paf, fa, runs["cuda"]["outputs"],
+                        re_runs["cuda"]["outputs"], smi)))
+
+    # 14. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],

@@ -24,6 +24,7 @@ import numpy as np
 
 from pwasm_tpu_torch.align.gapseq import FLAG_BAD_ALN, FLAG_PREPPED, GapSeq
 from pwasm_tpu_torch.core.errors import PwasmError, ZeroCoverageError
+from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 
 # column buckets, exactly this order (GapAssem.h:257-264)
 NUC_ORDER = b"ACGTN-"
@@ -54,7 +55,9 @@ def device_counts_votes(pile: np.ndarray, device):
     ``ops.consensus.consensus_counts_votes``), and the depth shards'
     counts summed before the vote (``sharded_counts_votes``; a device is
     its one-shard mesh).  Returns ``(chars (cols,) int64 — vote
-    character codes, 0 = zero coverage; counts (cols, 6) int32)``."""
+    character codes, 0 = zero coverage; counts (cols, 6) int32)``, both
+    on the host: a caller's ``consensus`` dispatch (``obs/dispatch.py``)
+    is this whole call."""
     from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_counts_votes
 
     votes, counts = sharded_counts_votes(as_mesh(device))(pile)
@@ -340,7 +343,7 @@ class Msa:
             mat = np.concatenate([mat, rows], axis=0)
         return mat
 
-    def build_msa(self, device) -> None:
+    def build_msa(self, device, hook=NULL_HOOK) -> None:
         """(GSeqAlign::buildMSA, GapAssem.cpp:1088-1106).  The column
         counts and the consensus votes come from one consensus launch over
         ``pileup_matrix()`` on ``device`` (a ``torch.device``, or a
@@ -364,7 +367,8 @@ class Msa:
                 s.set_flag(FLAG_BAD_ALN)
                 self.badseqs += 1
             self._seq_geometry(s, self.msacolumns)
-        chars, counts = device_counts_votes(pile, device)
+        chars, counts = hook.run(
+            "consensus", lambda: device_counts_votes(pile, device))
         self.msacolumns.counts[:] = counts
         self.msacolumns.layers[:] = counts.sum(axis=1, dtype=np.int32)
         self._vote_chars = chars
@@ -380,7 +384,8 @@ class Msa:
 
     def refine_msa(self, device, remove_cons_gaps: bool = True,
                    refine_clipping: bool = True,
-                   times: dict | None = None) -> None:
+                   times: dict | None = None,
+                   hook=NULL_HOOK) -> None:
         """Consensus construction + clipping refinement
         (GSeqAlign::refineMSA, GapAssem.cpp:1133-1183) on ``device`` (a
         ``torch.device``): the column counts and the votes come from one
@@ -389,9 +394,11 @@ class Msa:
         reference's MSAColumns statics; pafreport runs with
         remove_cons_gaps=False (SURVEY.md §2.5.8).  With a mesh for
         ``device`` both shard over it (``pafreport --shard``).  ``times``
-        accumulates the ``consensus`` and ``refine`` stage seconds."""
+        accumulates the ``consensus`` and ``refine`` stage seconds;
+        ``hook`` counts and traces the device dispatches
+        (``obs/dispatch.py``)."""
         t0 = time.perf_counter()
-        self.build_msa(device)
+        self.build_msa(device, hook)
         cols = self.msacolumns
         votes = self._vote_chars[cols.mincol:cols.maxcol + 1]
         cols_removed = 0
@@ -420,7 +427,7 @@ class Msa:
         if refine_clipping:
             refine_clipping_batch(
                 self.seqs, bytes(self.consensus),
-                [_cpos(s) for s in self.seqs], device)
+                [_cpos(s) for s in self.seqs], device, hook=hook)
         second: list = []
         for s in self.seqs:
             grem = s.remove_clip_gaps() if remove_cons_gaps else 0
@@ -429,7 +436,8 @@ class Msa:
         if second:
             refine_clipping_batch(
                 second, bytes(self.consensus),
-                [_cpos(s) for s in second], device, skip_dels=True)
+                [_cpos(s) for s in second], device, skip_dels=True,
+                hook=hook)
         self.refined = True
         if times is not None:
             times["consensus"] = times.get("consensus", 0.0) + t1 - t0

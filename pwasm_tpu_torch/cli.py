@@ -15,7 +15,13 @@ gap structure is first replaced by a banded Gotoh re-alignment
 ``--many2many`` scores every query of a multi-FASTA against every target
 (``stream/multicds.py``, the CUDA scores kernels on ``--device=cuda``).
 ``--shard[=N]`` spreads that device work over a mesh of N CUDA devices
-(``parallel/mesh.py``).  Outputs are byte-identical to the reference's.
+(``parallel/mesh.py``).  ``--stats`` writes the run's counters
+(``utils/runstats.py``), ``--profile`` a ``torch.profiler`` trace
+(``utils/profiling.py``), and ``--trace-json``, ``--log-json`` and
+``--metrics-textfile`` the run's spans, events and metrics (``obs/``);
+each device dispatch is counted and traced by ``obs/dispatch.py``.
+Outputs are byte-identical to the reference's, with these flags on or
+off.
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
@@ -23,9 +29,14 @@ Usage:
       [--ace=FILE] [--info=FILE] [--cons=FILE] [-G|-F] [-C|-N] [-D] [-v]
       [-c <clipmax>] [--motifs=FILE] [--batch=N] [--remove-cons-gaps]
       [--no-refine-clip] [--realign] [--band=N] [--device=cuda|cpu]
-      [--shard[=N]]
+      [--shard[=N]] [--skip-bad-lines] [--stats=FILE] [--profile=DIR]
+      [--trace-json=FILE] [--trace-max-events=N] [--log-json=FILE|-]
+      [--log-json-max-bytes=N] [--metrics-textfile=PATH]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
+      [--stats=FILE]
+  python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
+      [-o OUT.json]
 """
 
 from __future__ import annotations
@@ -79,11 +90,36 @@ USAGE = """Usage:
                batch and the re-alignment lanes spread over the mesh,
                and the consensus pileup's depth shards' counts are
                summed before the vote
+   --skip-bad-lines    warn and continue on malformed PAF lines
+   --profile=DIR  write a torch.profiler Chrome trace of the run
+               (DIR/trace.json: host ops, and the card's kernels and
+               copies on --device=cuda)
+   --stats=FILE   write run statistics as one JSON object
+   --trace-json=FILE  write host-side phase/batch spans (monotonic
+               clock) as Chrome trace-event JSON, viewable in
+               chrome://tracing / Perfetto beside the --profile trace
+   --log-json=FILE|-  append structured NDJSON run-lifecycle events
+               with wall+monotonic timestamps and a run id; "-"
+               streams to stdout (requires -o so events never share
+               the report stream)
+   --log-json-max-bytes=N  rotate the --log-json file once it passes
+               N bytes (the current file moves to FILE.1, one
+               generation kept; a log_rotate event opens the fresh file)
+   --trace-max-events=N  cap the --trace-json recorder at N events
+               (default 200000); drops are counted in
+               pwasm_trace_events_dropped_total and in the trace's
+               otherData
+   --metrics-textfile=PATH  write the run's metrics as Prometheus
+               text exposition at end of run (atomic publish) for a
+               node-exporter textfile collector
 
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
-    [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [-v]
+    [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [--stats=FILE] [-v]
    score every query of the -r FASTA against every target of
    <targets.fa> (banded affine-gap DP); one report section per query
+
+ pafreport trace-merge FILE.json [FILE.json ...] [-o OUT.json]
+   merge --trace-json documents onto one wall-anchored timeline
 """
 
 # reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
@@ -91,15 +127,17 @@ USAGE = """Usage:
 _BOOL_FLAGS = set("DGFCNvh")
 _VALUE_FLAGS = set("rowcs")
 _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
-               "remove-cons-gaps", "no-refine-clip", "device", "shard")
+               "remove-cons-gaps", "no-refine-clip", "device", "shard",
+               "skip-bad-lines", "profile", "stats", "trace-json",
+               "trace-max-events", "log-json", "log-json-max-bytes",
+               "metrics-textfile")
 
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queue A)
-_LATER = ("a later slice (resilience, checkpoints and --stats; "
-          "then service, stream, fleet, surveil and obs)")
+_LATER = ("a later slice (resilience and checkpoints; then service, "
+          "stream, fleet and surveil)")
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
-                 "inspect", "top", "trace-merge", "route", "health",
-                 "logs")
+                 "inspect", "top", "route", "health", "logs")
 
 
 class CliError(PwasmError):
@@ -200,6 +238,9 @@ def _open_out(path: str, opened: list):
 def _run(argv, stdout, stderr, stats, opened) -> int:
     from pwasm_tpu_torch.device import resolve_device
 
+    if argv and argv[0] == "trace-merge":
+        from pwasm_tpu_torch.obs.merge import trace_merge_main
+        return trace_merge_main(argv[1:], stdout, stderr)
     if argv and argv[0] in _SERVICE_CMDS:
         raise CliError(f"Error: '{argv[0]}' is not ported to "
                        f"pwasm_tpu_torch yet; it comes with "
@@ -279,6 +320,7 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
             raise PwasmError(f"Cannot open motif file {opts['motifs']}!\n")
     if "c" in opts:
         cfg.clipmax = _parse_clipmax(str(opts["c"]), cfg.verbose, stderr)
+    _parse_obs_opts(cfg, opts)
     freport = _open_out(str(opts["o"]), opened) if "o" in opts else stdout
     rpath = opts.get("r")
     if not rpath:
@@ -321,9 +363,65 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         if nmsa is not None:
             opened.append(nmsa)
     mesh = _run_mesh(shard, device, stderr, cfg.verbose)
-    return _main_loop(cfg, mesh, inf, freport, fmsa, fsummary, qfasta,
-                      stderr, cons_outs, nmsa,
-                      stats if stats is not None else {})
+    from pwasm_tpu_torch.obs import make_observability
+    from pwasm_tpu_torch.utils.profiling import device_trace
+
+    # --trace-json / --log-json / --metrics-textfile: the observability
+    # bundle (obs/).  It writes only to its own sinks, never the report
+    # stream, so the outputs are the same bytes with the flags on or off
+    try:
+        obs = make_observability(
+            cfg.trace_json or None, cfg.log_json or None,
+            cfg.metrics_textfile or None, stdout=stdout,
+            trace_max_events=cfg.trace_max_events or None,
+            log_json_max_bytes=cfg.log_json_max_bytes or None)
+    except OSError:
+        raise PwasmError(f"Cannot open file {cfg.log_json} for writing!\n")
+    if obs.enabled:
+        obs.event("run_start", device=cfg.device, argv=list(argv))
+    try:
+        with device_trace(cfg.profile_dir, stderr, device=device.type), \
+                obs.span("run", device=cfg.device):
+            return _main_loop(cfg, mesh, inf, freport, fmsa, fsummary,
+                              qfasta, stderr, cons_outs, nmsa,
+                              stats if stats is not None else {}, obs)
+    except PwasmError as e:
+        stderr.write(str(e))
+        if obs.enabled:
+            # a failed run ends its timeline too
+            obs.event("run_finish", rc=e.exit_code,
+                      error=str(e).strip()[:200])
+        return e.exit_code
+    finally:
+        obs.close(stderr)
+
+
+def _parse_obs_opts(cfg: Config, opts: dict) -> None:
+    """``--skip-bad-lines``, ``--profile``, ``--stats`` and the obs
+    options (reference cli.py:729, :808-836)."""
+    cfg.skip_bad_lines = bool(opts.get("skip-bad-lines"))
+    for kind in ("profile", "stats", "trace-json", "log-json",
+                 "metrics-textfile"):
+        if opts.get(kind) is True:
+            raise CliError(f"{USAGE}\n--{kind} requires a file argument\n")
+    cfg.profile_dir = str(opts.get("profile", ""))
+    cfg.stats_path = str(opts.get("stats", ""))
+    cfg.trace_json = str(opts.get("trace-json", ""))
+    cfg.log_json = str(opts.get("log-json", ""))
+    cfg.metrics_textfile = str(opts.get("metrics-textfile", ""))
+    for knob, attr in (("trace-max-events", "trace_max_events"),
+                       ("log-json-max-bytes", "log_json_max_bytes")):
+        if knob in opts:
+            val = opts[knob]
+            if val is True or not str(val).isascii() \
+                    or not str(val).isdigit() or int(val) < 1:
+                raise CliError(f"{USAGE}\nInvalid --{knob} value: {val}\n")
+            setattr(cfg, attr, int(val))
+    if cfg.log_json == "-" and "o" not in opts:
+        # without -o the report itself streams to stdout: event lines
+        # interleaved with report rows would corrupt both
+        raise CliError(f"{USAGE}\n--log-json=- requires -o <report> "
+                       "(stdout already carries the report)\n")
 
 
 def _run_mesh(shard: int, device, stderr, verbose: bool):
@@ -344,14 +442,15 @@ def _run_mesh(shard: int, device, stderr, verbose: bool):
 
 
 def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
-                        stderr, stats: dict, times: dict) -> None:
+                        stderr, stats: dict, times: dict, hook) -> None:
     """End-of-run MSA outputs of the C++ engine: the ``-D`` layout, the
     unrefined ``-w``, then, for the consensus outputs, the engine's
     rendered pileup counted and voted by the consensus launch on
     the run's ``mesh`` (the CUDA kernel on a CUDA device), the votes
     applied back
     in the engine (``refine_external``, which also runs the X-drop clip
-    refinement), and the ace/info/cons writers."""
+    refinement), and the ace/info/cons writers.  ``hook`` counts and
+    traces the consensus dispatch (``obs/dispatch.py``)."""
     import os
     import tempfile
 
@@ -384,7 +483,8 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
     stats["pileup"] = (depth, length)
     pile = np.empty((depth, length), dtype=np.int8)
     nmsa.render_pileup(pile)
-    chars, counts = device_counts_votes(pile, mesh)
+    chars, counts = hook.run("consensus",
+                             lambda: device_counts_votes(pile, mesh))
     t2 = time.perf_counter()
     times["consensus"] += t2 - t1
     nmsa.refine_external(counts, chars, cfg.remove_cons_gaps,
@@ -403,12 +503,12 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
 
 def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
                         cons_outs: dict, stderr, stats: dict,
-                        times: dict) -> None:
+                        times: dict, hook) -> None:
     """End-of-run MSA outputs of the Python engine (``align/msa.py``):
     the ``-D`` layout, the unrefined ``-w``, then refine once (the
     consensus launch over ``Msa.pileup_matrix`` over the run's
-    ``mesh``, the clip refinement as torch ops there) and the
-    ace/info/cons writers."""
+    ``mesh``, the clip refinement as torch ops there; both dispatches
+    through ``hook``) and the ace/info/cons writers."""
     t0 = time.perf_counter()
     if cfg.debug:
         print(f">MSA ({ref_msa.count()})", file=stderr)
@@ -421,7 +521,7 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
         stats["pileup"] = (ref_msa.count(), ref_msa.length)
         ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
                            refine_clipping=cfg.refine_clipping,
-                           device=mesh, times=times)
+                           device=mesh, times=times, hook=hook)
         t0 = time.perf_counter()
         contig = ref_msa.seqs[0].name if ref_msa.seqs else "contig"
         if "ace" in cons_outs:
@@ -435,24 +535,27 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
 
 def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                qfasta: FastaFile, stderr, cons_outs: dict, nmsa,
-               stats: dict) -> int:
+               stats: dict, obs) -> int:
     """The per-PAF-line loop (pafreport.cpp:296-460).  ``nmsa`` is the
     C++ MSA engine (``native.NativeMsa``), or None for the Python
     engine (``align/msa.py``).  ``mesh`` is the run's mesh, over which
     the device work spreads (``parallel/mesh.py``): ``--shard``'s, or
-    the one device's."""
+    the one device's.  ``obs`` is the run's observability bundle
+    (``obs/``): each device dispatch goes through one ``DispatchHook``
+    that counts it into the run's ``RunStats`` and traces it."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
+    from pwasm_tpu_torch.obs.dispatch import DispatchHook
     from pwasm_tpu_torch.report.device_report import submit_diff_info_batch
     from pwasm_tpu_torch.utils.runstats import RunStats
 
     t_run = time.perf_counter()
     run_stats = RunStats()
+    hook = DispatchHook(run_stats, obs)
     times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
                            "consensus", "refine", "write")
                           + (("realign",) if cfg.realign else ()), 0.0)
-    realigned = 0
     summary = Summary() if fsummary is not None else None
     alnpairs: dict[str, int] = {}   # gene-mode (query~target) dedup counts
     ref_cache: dict[str, bytes] = {}
@@ -464,14 +567,31 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     numalns = 0
     build_msa_out = fmsa is not None or bool(cons_outs)
     pending: list[tuple] = []   # report rows awaiting the next flush
-    inflight: list = []         # submitted-but-unformatted batches (<= 2)
+    # submitted-but-unformatted batches (<= 2), with their record counts
+    inflight: list[tuple] = []
     # the engine's inserts awaiting the next batched merge, all of the
     # current query, and their (query~target) keys
     msa_pending: list[tuple] = []
     msa_pending_keys: set[str] = set()
-    # parsed records awaiting the next batched native extraction
+    # parsed records awaiting the next batched native extraction;
+    # --skip-bad-lines keeps the one-record path, whose recovery (the
+    # dedup slot freed, the warning at the line's place) is per line
     ex_pending: list[tuple] = []
-    use_ex_batch = native.enabled()
+    use_ex_batch = native.enabled() and not cfg.skip_bad_lines
+
+    # per-flush host-stage fold: each completed batch adds the stage
+    # deltas to the live counter; the end-of-run fold adds only the
+    # residual, so the totals equal the --stats JSON exactly
+    host_folded = dict.fromkeys(("parse", "extract", "analyze", "format"),
+                                0.0)
+
+    def fold_host_stages() -> None:
+        for k in host_folded:
+            v = getattr(run_stats, f"host_{k}_s")
+            d = v - host_folded[k]
+            if d > 0:
+                obs.count("host_stage_seconds", d, stage=k)
+            host_folded[k] = v
 
     def flush_pending(drain: bool = False) -> None:
         """Submit the pending report batch, then format the OLDEST
@@ -481,18 +601,42 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         t0 = time.perf_counter()
         batch, pending[:] = pending[:], []
         if batch:
-            inflight.append(submit_diff_info_batch(
-                batch, freport, mesh, skip_codan=cfg.skip_codan,
-                motifs=cfg.motifs, summary=summary))
+            with obs.span("flush_submit", n=len(batch)):
+                inflight.append((submit_diff_info_batch(
+                    batch, freport, mesh, skip_codan=cfg.skip_codan,
+                    motifs=cfg.motifs, summary=summary, hook=hook),
+                    len(batch)))
+            run_stats.device_batches += 1
+        t1 = time.perf_counter()
+        run_stats.host_analyze_s += t1 - t0
         while len(inflight) > (0 if drain else 2):
-            inflight.pop(0)()
-        times["ctx_scan"] += time.perf_counter() - t0
+            fin, nrec = inflight.pop(0)
+            with obs.span("flush_format", n=nrec):
+                fin()
+            fold_host_stages()
+        t2 = time.perf_counter()
+        run_stats.host_format_s += t2 - t1
+        times["ctx_scan"] += t2 - t0
+
+    def drop_msa(key: str, tlabel: str, realigned: bool) -> None:
+        """--skip-bad-lines: exclude an alignment the layout cannot hold
+        from the MSA.  Its report rows were already emitted, so it counts
+        under msa_dropped, not as a skipped line; its freed dedup slot
+        lets a later valid alignment of the pair take its place."""
+        run_stats.msa_dropped += 1
+        src = ("re-aligned gap structure — possible re-aligner "
+               "defect" if realigned else "out-of-layout gap "
+               "structure in the input")
+        print(f"Warning: excluding alignment {tlabel} from the MSA "
+              f"({src})", file=stderr)
+        alnpairs.pop(key, None)
 
     def flush_msa_pending() -> None:
         """Merge the buffered alignments into the engine's MSA through
         one ``pw_msa_add_batch`` crossing.  The engine inserts them in
         order; one whose gap structure the layout cannot hold is fatal
-        (GapAssem.cpp:105-107), and the error surfaces at this flush."""
+        (GapAssem.cpp:105-107), and the error surfaces at this flush,
+        or under --skip-bad-lines is dropped from the MSA."""
         if not msa_pending:
             return
         t0 = time.perf_counter()
@@ -500,23 +644,27 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         msa_pending_keys.clear()
         rid, r_len, refseq_b = items[0][:3]
 
-        def on_drop(_idx: int, msg: str) -> None:
-            raise PwasmError(msg)
+        def on_drop(idx: int, msg: str) -> None:
+            if not cfg.skip_bad_lines:
+                raise PwasmError(msg)
+            drop_msa(*items[idx][4:])
 
         nmsa.add_batch(rid, refseq_b, r_len, [it[3] for it in items],
                        on_drop)
         times["msa_merge"] += time.perf_counter() - t0
 
-    def msa_add(aln, tlabel: str, refseq_b: bytes, ord_num: int) -> None:
+    def msa_add(aln, tlabel: str, refseq_b: bytes, ord_num: int,
+                realigned: bool = False) -> None:
         """Insert one alignment into the progressive MSA (the per-line
         body of pafreport.cpp:394-421)."""
         nonlocal ref_gseq, ref_msa
         al = aln.alninfo
+        key = f"{al.r_id}~{al.t_id}"
         if nmsa is not None:
             msa_pending.append((al.r_id, al.r_len, refseq_b, (
                 tlabel, bytes(aln.tseq), al.r_alnstart, aln.reverse,
-                aln.rgaps, aln.tgaps, ord_num)))
-            msa_pending_keys.add(f"{al.r_id}~{al.t_id}")
+                aln.rgaps, aln.tgaps, ord_num), key, tlabel, realigned))
+            msa_pending_keys.add(key)
             if len(msa_pending) >= cfg.batch:
                 flush_msa_pending()
             return
@@ -530,12 +678,20 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         else:
             # bare instance of refseq for this alignment
             rseq = GapSeq(al.r_id, "", b"", seqlen=al.r_len)
-        # once a gap, always a gap: propagate this alignment's gaps (a
-        # gap the layout cannot hold is fatal, GapAssem.cpp:105-107)
-        for g in aln.rgaps:
-            rseq.set_gap(g.pos, g.len)
-        for g in aln.tgaps:
-            taseq.set_gap(g.pos, g.len)
+        # once a gap, always a gap: propagate this alignment's gaps.
+        # rseq/taseq are fresh, so a gap the layout cannot hold (fatal,
+        # GapAssem.cpp:105-107) fails before any MSA mutation and is
+        # skippable under --skip-bad-lines
+        try:
+            for g in aln.rgaps:
+                rseq.set_gap(g.pos, g.len)
+            for g in aln.tgaps:
+                taseq.set_gap(g.pos, g.len)
+        except PwasmError:
+            if not cfg.skip_bad_lines:
+                raise
+            drop_msa(key, tlabel, realigned)
+            return
         newmsa = Msa(rseq, taseq)
         if first_ref_aln:
             newmsa.ordnum = ord_num
@@ -555,7 +711,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     re_pending: list[tuple] = []
 
     def flush_realign() -> None:
-        nonlocal realigned
         if not re_pending:
             return
         from pwasm_tpu_torch.ops.realign import ops_to_gaps, realign_pairs
@@ -563,7 +718,7 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         items, re_pending[:] = re_pending[:], []
         results = realign_pairs(
             [(q_seg, bytes(aln.tseq)) for aln, _t, _r, _o, q_seg in items],
-            band=cfg.band, device=mesh)
+            band=cfg.band, device=mesh, hook=hook)
         times["realign"] += time.perf_counter() - t0
         for (aln, tlabel, refseq_b, ordn, _q), res in zip(items, results):
             al = aln.alninfo
@@ -577,8 +732,8 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 aln.rgaps, aln.tgaps = ops_to_gaps(
                     res[1], aln.offset, al.r_len,
                     al.t_alnend - al.t_alnstart, aln.reverse)
-                realigned += 1
-            msa_add(aln, tlabel, refseq_b, ordn)
+                run_stats.realigned += 1
+            msa_add(aln, tlabel, refseq_b, ordn, realigned=res is not None)
 
     def consume_aln(rec, aln, refseq_b: bytes, refseq_aln: bytes,
                     ordnum: int) -> None:
@@ -621,38 +776,59 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         else:
             alns, err = native.extract_batch_native(
                 [it[0] for it in items], [it[1] for it in items])
-        times["parse_extract"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        run_stats.host_extract_s += dt
+        times["parse_extract"] += dt
         for aln, (rec, refseq_aln, refseq_b, ordnum) in zip(alns, items):
             consume_aln(rec, aln, refseq_b, refseq_aln, ordnum)
         if err is not None:
             raise err
 
+    t_loop = obs.clock()   # the parse/extract/flush phase span
     try:
+        file_line = 0
         for line in inf:
+            file_line += 1
             line = line.rstrip("\n")
             if not line or line.startswith("#"):
                 continue
+            run_stats.lines += 1
             t0 = time.perf_counter()
-            rec = parse_paf_line(line)
+            try:
+                rec = parse_paf_line(line)
+            except PwasmError:
+                if not cfg.skip_bad_lines:
+                    raise
+                run_stats.skipped_bad += 1
+                print(f"Warning: skipping malformed PAF line {file_line}",
+                      file=stderr)
+                continue
+            finally:
+                run_stats.host_parse_s += time.perf_counter() - t0
             al = rec.alninfo
             if al.r_id == al.t_id:
+                run_stats.skipped_self += 1
                 if cfg.verbose:
                     print("Skipping alignment of qry seq to itself.",
                           file=stderr)
                 continue
+            new_pair = None
             if not cfg.fullgenome:  # gene CDS mode: first q~t alignment only
                 key = f"{al.r_id}~{al.t_id}"
                 if key in msa_pending_keys:
                     # the engine decides a buffered insert of this pair
-                    # before its duplicate is judged
+                    # (a dropped one frees its slot) before its
+                    # duplicate is judged
                     flush_msa_pending()
                 if key in alnpairs:
                     alnpairs[key] += 1
+                    run_stats.skipped_dedup += 1
                     if alnpairs[key] == 1:
                         print(f"Warning: alignment {al.r_id} to {al.t_id} "
                               f"already seen, ignoring ", file=stderr)
                     continue
                 alnpairs[key] = 0
+                new_pair = key
             numalns += 1
             if refseq_id is None or refseq_id != al.r_id:
                 # consume the buffered extractions, then merge the
@@ -691,8 +867,25 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                     flush_extract()
                 continue
             t0 = time.perf_counter()
-            aln = extract_alignment(rec, refseq_aln)
-            times["parse_extract"] += time.perf_counter() - t0
+            try:
+                aln = extract_alignment(rec, refseq_aln)
+            except PwasmError:
+                if not cfg.skip_bad_lines:
+                    raise
+                numalns -= 1
+                if new_pair is not None:
+                    # a skipped line must not make later valid
+                    # alignments of the same (q,t) pair look like
+                    # duplicates
+                    del alnpairs[new_pair]
+                run_stats.skipped_bad += 1
+                print(f"Warning: skipping malformed PAF line {file_line}",
+                      file=stderr)
+                continue
+            finally:
+                dt = time.perf_counter() - t0
+                run_stats.host_extract_s += dt
+                times["parse_extract"] += dt
             consume_aln(rec, aln, refseq, refseq_aln, numalns)
     finally:
         # consume the records buffered for extraction, then emit the
@@ -702,15 +895,18 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             flush_extract()
         finally:
             flush_pending(drain=True)
+        obs.span_complete("input_loop", t_loop, lines=run_stats.lines,
+                          alignments=run_stats.alignments)
 
-    flush_realign()
-    if nmsa is not None:
-        flush_msa_pending()
-        _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs, stderr,
-                            stats, times)
-    elif ref_msa is not None:
-        _python_msa_outputs(ref_msa, cfg, mesh, fmsa, cons_outs, stderr,
-                            stats, times)
+    with obs.span("msa_tail"):
+        flush_realign()
+        if nmsa is not None:
+            flush_msa_pending()
+            _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs, stderr,
+                                stats, times, hook)
+        elif ref_msa is not None:
+            _python_msa_outputs(ref_msa, cfg, mesh, fmsa, cons_outs,
+                                stderr, stats, times, hook)
     t0 = time.perf_counter()
     if summary is not None:
         summary.write(fsummary)
@@ -718,9 +914,33 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(mesh.devices.flat[0]))
     if cfg.realign:
-        stats["realigned"] = realigned
+        stats["realigned"] = run_stats.realigned
+    if obs.registry is not None:
+        # the metrics are a function of the same --stats schema
+        # (obs/catalog.py): fold the finished run in (only the host
+        # residual the per-flush folds left) and stamp the breaker
+        # gauge (closed: the port has no breaker yet); obs.close
+        # publishes the textfile
+        from pwasm_tpu_torch.obs.catalog import (breaker_state_value,
+                                                 fold_run_stats)
+        d = run_stats.as_dict()
+        d["host"] = {k + "_s": round(max(
+            0.0, d["host"][k + "_s"] - host_folded[k]), 6)
+            for k in host_folded}
+        fold_run_stats(obs.run_metrics, d)
+        obs.set_gauge("breaker_state", breaker_state_value(False))
+    if cfg.stats_path:
+        try:
+            with open(cfg.stats_path, "w") as f:
+                run_stats.write(f)
+        except OSError:
+            raise PwasmError(
+                f"Cannot open file {cfg.stats_path} for writing!\n")
     if cfg.verbose:
         print(run_stats.brief(), file=stderr)
+    obs.event("run_finish", rc=0, preempted=False,
+              alignments=run_stats.alignments, events=run_stats.events,
+              wall_s=round(run_stats.wall_s, 3))
     return 0
 
 

@@ -34,6 +34,19 @@ class Config:
     batch: int = 256                # report batch size per device flush
     band: int = 64                  # banded-DP band width
     realign: bool = False           # --realign: DP traceback gaps for MSA
+    skip_bad_lines: bool = False    # warn + continue on malformed lines
+    profile_dir: str = ""           # --profile: torch.profiler trace dir
+    stats_path: str = ""            # --stats: write run-stats JSON here
+    trace_json: str = ""            # --trace-json: Chrome trace-event
+    #                                 host spans (obs/tracing.py)
+    log_json: str = ""              # --log-json: NDJSON run-lifecycle
+    #                                 events (obs/events.py); "-" = stdout
+    metrics_textfile: str = ""      # --metrics-textfile: Prometheus
+    #                                 exposition at end of run
+    trace_max_events: int = 0       # --trace-max-events: span-recorder
+    #                                 cap (0 = the recorder's default)
+    log_json_max_bytes: int = 0     # --log-json-max-bytes: size-capped
+    #                                 event-log rotation (0 = never)
 
 
 def load_motifs(path: str) -> tuple[str, ...]:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops.ctx_scan_impl import first_true
 
 STAR = ord("*")
@@ -125,13 +126,14 @@ def _phases(gseq, gxpos, cons, cpos, glen, totals, gclipL, gclipR,
 def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
                   gclipR, clipL0, clipR0, seqlens, xdrop: int,
                   match_sc: int, mismatch_sc: int,
-                  device):
+                  device, hook=NULL_HOOK):
     """Run both refinement phases over the layout arrays built by
     refine_clipping_batch (numpy in, numpy out) on ``device``, a
     ``torch.device`` or a mesh of them (``parallel/mesh.py``): the
     member axis shards over every mesh axis (``sharded_refine_phases``;
-    a device is its one-shard mesh).  Returns (clipL, clipR, missR,
-    missL) for the M real members."""
+    a device is its one-shard mesh).  The launch and fetch is one
+    ``refine`` dispatch through ``hook`` (``obs/dispatch.py``).
+    Returns (clipL, clipR, missR, missL) for the M real members."""
     from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_refine_phases
 
     M, L = gseq2.shape
@@ -156,6 +158,7 @@ def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
             torch.from_numpy(cons), padv(cpos), padv(glen), padv(totals),
             padv(gclipL), padv(gclipR), padv(clipL0), padv(clipR0),
             padv(seqlens))
-    out = sharded_refine_phases(as_mesh(device), int(xdrop), int(match_sc),
-                                int(mismatch_sc))(*args, C)
-    return tuple(x[:M].numpy() for x in out)
+    phases = sharded_refine_phases(as_mesh(device), int(xdrop),
+                                   int(match_sc), int(mismatch_sc))
+    return hook.run("refine", lambda: tuple(
+        x[:M].numpy() for x in phases(*args, C)))

@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, band_dlo,
                                            banded_scores_matrix)
 from pwasm_tpu_torch.parallel.bucketing import (bucket_queries, encode_seqs,
@@ -70,7 +71,8 @@ def make_many2many(mesh: Mesh, band: int = 64,
 def many2many_scores_ragged(qs, ts, band: int = 64,
                             params: ScoreParams = ScoreParams(), *,
                             device: torch.device,
-                            stats: dict | None = None) -> np.ndarray:
+                            stats: dict | None = None,
+                            hook=NULL_HOOK) -> np.ndarray:
     """(Q, T) int32 scores for RAGGED query/target sequence lists
     (bytes/str or int8 code arrays), computed on ``device``.
 
@@ -99,7 +101,11 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
     back to input order.  ``stats``, when given, gains ``bucket_s``
     (host bucketing and upload), ``score_s`` (the dispatches, through
     the copy of the scores to the host) and ``dispatches`` (the
-    launches made)."""
+    launches made).  Each launch is one ``many2many`` dispatch through
+    ``hook`` (``obs/dispatch.py``) that leaves its scores on the device:
+    they come back in one copy after the last launch, the call's one
+    flush.  On a CUDA device a dispatch's wall is thus the launch and
+    the scatter."""
     t0 = time.perf_counter()
     qbs = bucket_queries(list(qs))
     ts_enc = encode_seqs(ts)
@@ -124,10 +130,15 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
             if not len(keep):
                 continue
             cols = torch.from_numpy(keep).to(device)
-            s = banded_scores_matrix(qd, t_all[cols, :n_eff],
-                                     lens_all[cols], band, params)
-            out[rows[:, None], cols[None, :]] = s
+
+            def launch():
+                out[rows[:, None], cols[None, :]] = banded_scores_matrix(
+                    qd, t_all[cols, :n_eff], lens_all[cols], band, params)
+
+            hook.launch("many2many", launch)
             dispatches += 1
+    if dispatches:
+        hook.note_flush()
     res = out.cpu().numpy()
     if stats is not None:
         stats["bucket_s"] = stats.get("bucket_s", 0.0) + t1 - t0

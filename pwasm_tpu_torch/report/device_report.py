@@ -23,6 +23,7 @@ import torch
 
 from pwasm_tpu_torch.core.config import DEFAULT_MOTIFS
 from pwasm_tpu_torch.core.dna import encode
+from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops.ctx_scan import (ctx_scan_packed, pack_motifs,
                                           upload_events)
 from pwasm_tpu_torch.ops.ctx_scan_impl import (PAD, pack_events_np,
@@ -37,7 +38,8 @@ MAX_EV = 16
 
 def submit_events_device(refseq: bytes, events, device,
                          skip_codan: bool = False,
-                         motifs=DEFAULT_MOTIFS, max_ev: int = MAX_EV):
+                         motifs=DEFAULT_MOTIFS, max_ev: int = MAX_EV,
+                         hook=NULL_HOOK):
     """Launch the analysis of a batch of DiffEvents on ``device`` (a
     ``torch.device``, or a mesh of them) and return a ``finish() ->
     list[tuple]`` closure that fetches and assembles the results.
@@ -49,7 +51,12 @@ def submit_events_device(refseq: bytes, events, device,
     ``pafreport --shard``; a device is its one-shard mesh): each shard's
     rows, the reference and the motif tables go to its device, one
     ``ctx_scan_packed`` runs there, and ``finish`` joins the shards in
-    event order (the analysis of an event reads no other event)."""
+    event order (the analysis of an event reads no other event).
+
+    ``hook`` (``obs/dispatch.py``) counts the padded event axis and,
+    once the fetch succeeded, the events the device analyzed and those
+    the host analyzed; the fetch is one ``ctx_scan`` dispatch through
+    it, the whole mesh's shards together."""
     if not events:
         return lambda: []
     ref_len = len(refseq)
@@ -67,6 +74,8 @@ def submit_events_device(refseq: bytes, events, device,
         ref_codes = np.full(max_len, PAD, dtype=np.int8)
         ref_codes[:ref_len] = encode(refseq.upper())
         d = pack_events_np(small, max_ev)
+        # the event axis is padded to its power-of-two bucket
+        hook.note_pad(len(small), len(d["rloc"]))
         devs = flat_devices(as_mesh(device))
         spans = [(dev, a, b) for dev, (a, b)
                  in zip(devs, shard_bounds(len(d["rloc"]), len(devs)))
@@ -83,11 +92,14 @@ def submit_events_device(refseq: bytes, events, device,
         if small:
             # one host fetch a shard, joined in event order, then numpy
             # views
-            flat = np.concatenate([p.cpu().numpy() for p in packed])
+            flat = hook.run("ctx_scan", lambda: np.concatenate(
+                [p.cpu().numpy() for p in packed]), items=len(small))
+            hook.note_events(device=len(small))
             host = unpack_ctx_scan(flat, max_codons, skip_codan)
             for ev, r in zip(small, assemble_results(
                     small, host, refseq, motifs, skip_codan)):
                 results[id(ev)] = r
+        hook.note_events(scalar=len(big))
         for ev in big:
             results[id(ev)] = analyze_event_host(ev, refseq, skip_codan,
                                                  motifs)
@@ -99,7 +111,7 @@ def submit_events_device(refseq: bytes, events, device,
 def submit_diff_info_batch(batch, f, device,
                            skip_codan: bool = False,
                            motifs=DEFAULT_MOTIFS, summary=None,
-                           max_ev: int = MAX_EV):
+                           max_ev: int = MAX_EV, hook=NULL_HOOK):
     """Launch the analysis for a report batch and return a
     ``finish() -> None`` closure that fetches the results and writes the
     rows.
@@ -110,12 +122,14 @@ def submit_diff_info_batch(batch, f, device,
     analyzed in one ``ctx_scan_packed`` call per group, then rows are
     emitted in exactly the order the scalar path would produce.
     ``device`` is a ``torch.device`` or a mesh each group's events shard
-    over (``submit_events_device``)."""
+    over (``submit_events_device``, which counts and dispatches through
+    ``hook``)."""
     groups: dict[bytes, list] = {}
     for aln, _rl, _tl, refseq in batch:
         groups.setdefault(refseq, []).extend(aln.tdiffs)
     finishes = [(events, submit_events_device(refseq, events, device,
-                                              skip_codan, motifs, max_ev))
+                                              skip_codan, motifs, max_ev,
+                                              hook))
                 for refseq, events in groups.items()]
 
     def finish() -> None:

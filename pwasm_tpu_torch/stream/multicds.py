@@ -4,9 +4,11 @@ Counterpart of ``pwasm_tpu/stream/multicds.py``, reduced to the one-shot
 job: load both FASTAs, score every query in the ``-r`` FASTA against
 every target in the positional FASTA through one
 ``many2many_scores_ragged`` call (queries bucketed by exact length,
-targets padded per query bucket), format, and write.  The result
-cache, the supervisor, deadlines, ``--stats`` and the served jobs come
-with later slices.
+targets padded per query bucket), format, and write.  ``--stats``
+writes the run's counters (``utils/runstats.py``): the pairs as lines
+and alignments, and one ``many2many`` dispatch a launch
+(``obs/dispatch.py``).  The result cache, the supervisor, deadlines and
+the served jobs come with later slices.
 
 Output contract: the report is a sequence of per-CDS sections, each
 depending only on (that query, the targets) —
@@ -35,7 +37,7 @@ from pwasm_tpu_torch.utils.runstats import RunStats
 
 M2M_USAGE = """Usage:
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
-    [-s <summary.txt>] [--device=cuda|cpu] [--band=N] [-v]
+    [-s <summary.txt>] [--device=cuda|cpu] [--band=N] [--stats=FILE] [-v]
 
    Score EVERY query in the -r FASTA against EVERY target in
    <targets.fa> (banded affine-gap DP, parallel/many2many.py).  The
@@ -47,19 +49,20 @@ M2M_USAGE = """Usage:
    --band=N    band width of the DP (default 64)
    --device=cuda|cpu  where the scoring runs (default cuda; the CPU runs
                only when asked for)
+   --stats=FILE   write run statistics as one JSON object
 """
 
 # options of the reference's --many2many that later slices of the port
 # bring (ROADMAP.md queue A)
+_RESILIENCE = "the resilience slice (deadlines, retries and fallbacks)"
+_SERVICE = "the service slice (the result cache and the warm pool)"
 _LATER = {
-    "stats": "A4 (resilience, checkpoints and --stats)",
-    "deadline-s": "A4 (resilience, checkpoints and --stats)",
-    "max-retries": "A4 (resilience, checkpoints and --stats)",
-    "fallback": "A4 (resilience, checkpoints and --stats)",
-    "result-cache": "A6 (service, stream, fleet, surveil and obs)",
-    "result-cache-max-bytes": "A6 (service, stream, fleet, surveil and "
-                              "obs)",
-    "compile-cache-dir": "A6 (service, stream, fleet, surveil and obs)",
+    "deadline-s": _RESILIENCE,
+    "max-retries": _RESILIENCE,
+    "fallback": _RESILIENCE,
+    "result-cache": _SERVICE,
+    "result-cache-max-bytes": _SERVICE,
+    "compile-cache-dir": _SERVICE,
 }
 
 
@@ -127,8 +130,11 @@ def parse_m2m_opts(opts: dict):
             raise PwasmError(f"Error: --{k} is not ported to "
                              f"pwasm_tpu_torch yet; it comes with "
                              f"{_LATER[k]}\n", EXIT_USAGE)
+    if opts.get("stats") is True:
+        raise _usage_err("Error: --stats requires a file argument")
     return SimpleNamespace(
         rpath=rpath, device=device, band=band,
+        stats_path=str(opts.get("stats", "")),
         verbose=bool(opts.get("v")) or bool(opts.get("D")))
 
 
@@ -177,6 +183,7 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     bucket, score, format, write), the wall time, the dispatch count,
     the pair count and the device."""
     from pwasm_tpu_torch.device import resolve_device
+    from pwasm_tpu_torch.obs.dispatch import DispatchHook
     from pwasm_tpu_torch.ops.banded_dp import NEG, BandPlacementError
     from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
 
@@ -202,7 +209,8 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     sc: dict = {}
     try:
         scores = many2many_scores_ragged(qs, ts, band=cfg.band,
-                                         device=device, stats=sc)
+                                         device=device, stats=sc,
+                                         hook=DispatchHook(run_stats))
     except BandPlacementError as e:   # a band too narrow for a group
         raise PwasmError(f"Error: {e}\n")
     times["bucket"], times["score"] = sc["bucket_s"], sc["score_s"]
@@ -224,10 +232,17 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
         stats.update(times=times, wall_s=time.perf_counter() - t_run,
                      dispatches=sc["dispatches"], pairs=pairs,
                      device=str(device))
+    # every pair is scored: the lines and alignments are the pairs,
+    # events none, aligned bases every target once per query
+    run_stats.lines = run_stats.alignments = pairs
+    run_stats.aligned_bases = sum(tlens) * len(qs)
+    if cfg.stats_path:
+        try:
+            with open(cfg.stats_path, "w") as f:
+                run_stats.write(f)
+        except OSError:
+            raise PwasmError(
+                f"Cannot open file {cfg.stats_path} for writing!\n")
     if cfg.verbose:
-        # every pair is scored: alignments are the pairs, events none,
-        # aligned bases every target once per query
-        run_stats.alignments = pairs
-        run_stats.aligned_bases = sum(tlens) * len(qs)
         print(run_stats.brief(), file=stderr)
     return 0

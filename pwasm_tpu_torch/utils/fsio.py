@@ -1,8 +1,9 @@
 """Durable state writes: fsync-then-replace.
 
-A state file (the ``.fai`` FASTA sidecar, the compiled native engine)
-must survive a crash at any instant with either the old content or the
-new content on disk, never a torn prefix:
+A state file (the ``.fai`` FASTA sidecar, the compiled native engine,
+the ``--trace-json`` and ``--metrics-textfile`` documents) must survive
+a crash at any instant with either the old content or the new content
+on disk, never a torn prefix:
 
     write tmp -> flush -> fsync(tmp) -> os.replace(tmp, dest)
               -> fsync(parent dir)

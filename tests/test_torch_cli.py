@@ -127,8 +127,8 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--trace-json=t.json", "obs"), ("--m2m-stream", "surveil"),
-    ("--skip-bad-lines", "resilience"), ("--stats=s.json", "--stats"),
+    ("--max-retries=2", "resilience"), ("--m2m-stream", "surveil"),
+    ("--follow", "stream"), ("--result-cache=rc", "service"),
     ("--resume", "resilience"), ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
     paf, fa = _golden_inputs(tmp_path)

@@ -150,10 +150,11 @@ def test_device_tpu_rejected(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    ("--stats=s.json", "A4"), ("--deadline-s=5", "A4"),
-    ("--max-retries=2", "A4"), ("--fallback=cpu", "A4"),
-    ("--result-cache=rc", "A6"), ("--result-cache-max-bytes=100", "A6"),
-    ("--compile-cache-dir=cc", "A6")])
+    ("--fallback=fail", "resilience"), ("--deadline-s=5", "resilience"),
+    ("--max-retries=2", "resilience"), ("--fallback=cpu", "resilience"),
+    ("--result-cache=rc", "service"),
+    ("--result-cache-max-bytes=100", "service"),
+    ("--compile-cache-dir=cc", "service")])
 def test_later_slice_flags_exit_1_naming_the_slice(tmp_path, flag, slice_):
     _qs, qfa, tfa = _fixture(tmp_path, n_q=1, n_t=1)
     err = io.StringIO()

@@ -7,10 +7,14 @@ identical to the port's unsharded ``--device=cpu`` run and to the JAX
 package's ``--device=tpu --shard`` run on its 8 virtual CPU devices, on
 the inputs of ``tests/test_cli.py`` and ``tests/test_cli_realign.py``'s
 shard tests, on the C++ engine and on the Python one
-(``PWASM_NATIVE_MSA=0``); and the usage errors and the ``-v`` line are
-the reference's, with ``cuda`` for ``tpu``."""
+(``PWASM_NATIVE_MSA=0``).  Their ``--stats`` device counters are the
+reference's: a call over the mesh is one dispatch, and the pad counts
+are the event axis's power-of-two bucket in both (ROADMAP C).  The
+usage errors and the ``-v`` line are the reference's, with ``cuda`` for
+``tpu``."""
 
 import io
+import json
 
 import numpy as np
 import pytest
@@ -28,6 +32,9 @@ from helpers import make_paf_line
 CPU = torch.device("cpu")
 OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
            "contig.info", "cons.fa")
+DEVICE_COUNTS = ("device_batches", "device_events", "scalar_events")
+DEVICE_BLOCK = ("dispatches", "flushes", "by_site", "pad_items",
+                "pad_slots")
 
 
 def _out_args(d, tag):
@@ -39,6 +46,13 @@ def _out_args(d, tag):
 
 def _read(d, tag):
     return {n: (d / f"{tag}.{n}").read_bytes() for n in OUTPUTS}
+
+
+def _device_stats(d, tag):
+    """The device counters of the run's ``--stats={tag}.json``."""
+    st = json.loads((d / f"{tag}.json").read_text())
+    return ({k: st[k] for k in DEVICE_COUNTS},
+            {k: st["device"][k] for k in DEVICE_BLOCK})
 
 
 def _inputs(d, q, lines):
@@ -69,17 +83,18 @@ def _corpus(d, realign: bool):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The JAX package's ``--device=tpu --shard`` outputs of both
-    corpora."""
+    """The JAX package's ``--device=tpu --shard`` outputs and device
+    counters of both corpora."""
     out = {}
     for realign in (False, True):
         d = tmp_path_factory.mktemp(f"ref{int(realign)}")
         extra = ["--realign"] if realign else []
         err = io.StringIO()
         rc = ref_run([*_corpus(d, realign), *_out_args(d, "ref"),
-                      "--device=tpu", "--shard", *extra], stderr=err)
+                      "--device=tpu", "--shard", f"--stats={d}/ref.json",
+                      *extra], stderr=err)
         assert rc == 0, err.getvalue()
-        out[realign] = _read(d, "ref")
+        out[realign] = _read(d, "ref"), _device_stats(d, "ref")
     return out
 
 
@@ -133,15 +148,24 @@ def test_shard_byte_identical(tmp_path, monkeypatch, cpu_pool, reference,
     monkeypatch.setattr(pm, "consensus_counts_votes", spy)
     ctx_scan.FLUSHES.clear()
     err = io.StringIO()
-    assert run([*argv, *_out_args(tmp_path, "shard"), flag],
+    assert run([*argv, *_out_args(tmp_path, "shard"), flag,
+                f"--stats={tmp_path}/shard.json"],
                stderr=err) == 0, err.getvalue()
     flat, flat_flushes = unsharded[realign, engine]
     # one count a (depth, column) shard, one scan a shard
     assert len(launches) == shards, launches
     assert ctx_scan.FLUSHES["cpu"] == shards * flat_flushes > 0
     got = _read(tmp_path, "shard")
+    ref_out, ref_stats = reference[realign]
     assert got == flat
-    assert got == reference[realign]
+    assert got == ref_out
+    # a call over the mesh is one dispatch: the shards' launches above
+    # count as one a site, as the reference's
+    counts, block = _device_stats(tmp_path, "shard")
+    assert (counts, block) == ref_stats
+    assert block["by_site"]["consensus"] == block["by_site"]["ctx_scan"] \
+        == 1
+    assert block["by_site"].get("realign", 0) == int(realign)
 
 
 @pytest.mark.parametrize("argv,msg,ref_argv,ref_msg", [

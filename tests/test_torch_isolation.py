@@ -56,6 +56,12 @@ def test_port_sources_never_name_jax_or_the_reference():
     rel = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {f"pwasm_tpu_torch/parallel/{m}.py" for m in (
         "mesh", "many2many", "wavefront_sp", "bucketing")} <= rel
+    # and so are the run statistics, the profiler hook and obs/
+    assert {f"pwasm_tpu_torch/obs/{m}.py" for m in (
+        "__init__", "catalog", "dispatch", "events", "merge", "metrics",
+        "tracing")} <= rel
+    assert {f"pwasm_tpu_torch/utils/{m}.py" for m in (
+        "fsio", "profiling", "runstats")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -80,15 +86,26 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
     outs = [f"-o{tmp_path / 'r.dfa'}", f"-s{tmp_path / 's.txt'}",
             f"-w{tmp_path / 'm.mfa'}", f"--ace={tmp_path / 'c.ace'}",
             f"--info={tmp_path / 'c.info'}", f"--cons={tmp_path / 'c.fa'}"]
+    obs = [f"--stats={tmp_path / 'st.json'}",
+           f"--trace-json={tmp_path / 't.json'}",
+           f"--log-json={tmp_path / 'e.ndjson'}",
+           f"--metrics-textfile={tmp_path / 'm.prom'}",
+           f"--profile={tmp_path / 'prof'}"]
     argv = [str(tmp_path / "in.paf"), "-r", str(tmp_path / "q.fa"),
-            *outs, "--device=cpu"]
+            *outs, *obs, "--device=cpu"]
+    merge = ["trace-merge", str(tmp_path / "t.json"), "-o",
+             str(tmp_path / "tm.json")]
     code = (
         "import sys\n"
         "from pwasm_tpu_torch.cli import run\n"
         f"assert run({argv!r}) == 0\n"
+        f"assert run({merge!r}) == 0\n"
         "import pwasm_tpu_torch.parallel.mesh\n"
         "import pwasm_tpu_torch.parallel.many2many\n"
         "import pwasm_tpu_torch.parallel.wavefront_sp\n"
+        "import pwasm_tpu_torch.obs.catalog\n"
+        "import pwasm_tpu_torch.obs.dispatch\n"
+        "import pwasm_tpu_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"
@@ -108,6 +125,9 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         out.stdout
     assert (tmp_path / "c.fa").read_bytes() == open(
         os.path.join(REPO, "tests", "golden", "cons.fa"), "rb").read()
+    for name in ("st.json", "t.json", "e.ndjson", "m.prom",
+                 "prof/trace.json", "tm.json"):
+        assert (tmp_path / name).stat().st_size > 0, name
 
 
 def _reference_state() -> dict:
