@@ -117,9 +117,27 @@ Phases, one JSON line each; any failure exits non-zero:
               plan chose and its walk; a line each with the card's busy
               ms and busy share of the run (the union of the kernel,
               copy and set intervals inside the trace's ``run``
-              annotation), and a line with the walls of the turns;
-14. the ``kernels`` line, the card's name and power limit as nvidia-smi
-   prints them, and the final ``{"ok": true, ...}`` line.
+              annotation), and a line with the walls of the turns; the
+              ``--log-json`` events ``run_start``, one ``ckpt_write``
+              and ``run_finish``;
+14. resilience — checkpoints and drains (``run_resilience``): the
+              realistic corpus with all six outputs, ``--realign``,
+              ``--device=cuda --batch=16`` and ``--stats``, each run its
+              own process reading the PAF from a pipe: uninterrupted
+              (its report equal to phase 7's, its outputs to the same
+              flags' ``--device=cpu`` run's); SIGTERM once 64 records
+              are checkpointed (exit 75, the checkpoint verifies); SIGKILL
+              there; ``--deadline-s=5`` (exit 75); each then
+              ``--resume``d to the uninterrupted run's outputs, with the
+              consensus, forward and walk kernels launched on cuda in the
+              resumed run and fewer ctx_scan flushes; ``--many2many
+              --deadline-s=0.000001`` on phase 9's inputs exits 75; the
+              walls, and the per-batch checkpoint's cost in turns at
+              ``--batch=16`` and 256 without and with ``-o``;
+15. the ``kernels`` line (with each main-path kernel's
+   ``resume_launches`` from phase 14's SIGTERM resume), the card's name
+   and power limit as nvidia-smi prints them, and the final
+   ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
 against the plain version at 3 queries x 37 targets for bands 1 to
@@ -417,13 +435,13 @@ def check_consensus(depth: int, cols: int, seed: int,
                 >= ops / INT_OPS_PER_S else "operations")
 
 
-def run_cli(args: list[str]) -> tuple[int, dict, str, float]:
+def run_cli(args: list[str], stdout=None) -> tuple[int, dict, str, float]:
     from pwasm_tpu_torch.cli import run
 
     err = io.StringIO()
     stats: dict = {}
     t0 = time.perf_counter()
-    rc = run(args, stderr=err, stats=stats)
+    rc = run(args, stdout=stdout, stderr=err, stats=stats)
     return rc, stats, err.getvalue(), time.perf_counter() - t0
 
 
@@ -1748,7 +1766,7 @@ def run_obs(work: str, paf: str, fa: str, outputs: dict,
                                      f"logged {logged}")
             with open(f"{p}.ndjson") as f:
                 events = [json.loads(ln)["event"] for ln in f]
-            if events != ["run_start", "run_finish"]:
+            if events != ["run_start", "ckpt_write", "run_finish"]:
                 raise AssertionError(f"{tag}: events {events}")
             if flags != "all":
                 continue
@@ -1781,6 +1799,354 @@ def run_obs(work: str, paf: str, fa: str, outputs: dict,
         print(f"obs {path}: walls in turn, s (gc ms): " + ", ".join(
             f"{w['flags'] or 'flagless'} {w['wall_s']:.3f} "
             f"({w['gc']['ms']:.1f})" for w in walls), flush=True)
+    return record
+
+
+def cli_child(counts_path: str, args: list[str]) -> int:
+    """``python3 chip_smoke.py --cli COUNTS ARGS...``: run the port's CLI
+    on ARGS in this process as ``python -m pwasm_tpu_torch.cli ARGS``
+    does, then write the kernels' launch counts and the ctx_scan flushes
+    by device to COUNTS (phase 14's processes).  Returns the CLI's exit
+    code."""
+    import runpy
+
+    sys.path.insert(0, ROOT)
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+
+    sys.argv = ["pwasm_tpu_torch.cli", *args]
+    rc = 0
+    try:
+        runpy.run_module("pwasm_tpu_torch.cli", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        with open(counts_path, "w") as f:
+            json.dump(dict(ra.LAUNCHES, consensus=cons.LAUNCHES,
+                           ctx_scan=dict(ctx_scan.FLUSHES)), f)
+    return rc
+
+
+class CliProcess:
+    """One phase-14 run of the CLI as its own process (``cli_child``),
+    its PAF read from a pipe when ``args`` names ``-`` as the input;
+    stderr to ``<prefix>.err``, launch counts to ``<prefix>.counts``."""
+
+    def __init__(self, prefix: str, args: list[str]):
+        self.prefix = prefix
+        self.t0 = time.perf_counter()
+        self._err = open(f"{prefix}.err", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli",
+             f"{prefix}.counts", *args], stdin=subprocess.PIPE,
+            stdout=subprocess.DEVNULL, stderr=self._err, text=True, cwd=ROOT)
+
+    def feed(self, lines: list[str]) -> None:
+        self.proc.stdin.write("".join(lines))
+        self.proc.stdin.flush()
+
+    def wait_checkpoint(self, report: str, records: int,
+                        limit_s: float = 120.0) -> tuple:
+        """Poll ``<report>.ckpt`` with the port's own verifying reader
+        until it holds at least ``records`` records."""
+        from pwasm_tpu_torch.cli import _load_checkpoint
+
+        t_end = time.monotonic() + limit_s
+        while True:
+            ck = _load_checkpoint(report)
+            if isinstance(ck, tuple) and ck[1] >= records:
+                return ck
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.prefix}: exited "
+                                     f"{self.proc.returncode} before a "
+                                     f"checkpoint of {records} records: "
+                                     f"{self.stderr()[-2000:]}")
+            if time.monotonic() > t_end:
+                raise AssertionError(f"{self.prefix}: no checkpoint of "
+                                     f"{records} records in {limit_s} s "
+                                     f"({ck})")
+            time.sleep(0.05)
+
+    def finish(self, limit_s: float = 120.0) -> int:
+        """Close the pipe, wait for the exit, and return its code."""
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(limit_s)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self._err.close()
+        self.wall_s = time.perf_counter() - self.t0
+        return self.proc.returncode
+
+    def stderr(self) -> str:
+        with open(f"{self.prefix}.err") as f:
+            return f.read()
+
+    def counts(self) -> dict:
+        with open(f"{self.prefix}.counts") as f:
+            return json.load(f)
+
+
+def verified_checkpoint(report: str, what: str) -> dict:
+    """The checkpoint beside ``report``, which must verify whole: version
+    2, its CRC, its offset a record boundary of the report, and 0 <
+    records < 200."""
+    from pwasm_tpu_torch.cli import _ckpt_crc, _load_checkpoint
+
+    got = _load_checkpoint(report)
+    with open(report + ".ckpt") as f:
+        ck = json.load(f)
+    if not isinstance(got, tuple) or ck.get("version") != 2 \
+            or ck.get("crc") != _ckpt_crc(ck) \
+            or not 0 < ck["records"] < 200:
+        raise AssertionError(f"{what}: the checkpoint does not verify "
+                             f"({got}; {ck})")
+    return ck
+
+
+def run_resilience(work: str, paf: str, fa: str, outputs: dict,
+                   re_outputs: dict, smi: str) -> dict:
+    """Phase 14: checkpoints and drains on the card.  The realistic
+    corpus with all six outputs, ``--realign``, ``--device=cuda
+    --batch=16`` (13 report batches) and ``--stats``, each run its own
+    process (``CliProcess``), the PAF through a pipe:
+
+    - the uninterrupted run, whose report must equal phase 7's and whose
+      MSA outputs the same flags' ``--device=cpu`` run's (the re-aligner
+      places one band a dispatch, and its flushes fall every ``--batch``
+      alignments, so these differ from phase 7's, run at 256);
+    - a: 100 lines, a checkpoint of 64+ records, SIGTERM, one more line:
+      exit 75, "draining" and "preempted", a checkpoint that verifies,
+      ``--stats`` preempted; then ``--resume``;
+    - b: the same feed and checkpoint, then SIGKILL; then ``--resume``;
+    - c: ``--deadline-s=5``: 100 lines, a checkpoint of 64+ records, 6 s,
+      one more line: exit 75 with "deadline_exceeded"; then ``--resume``;
+
+    each ``--resume`` exits 0, leaves no checkpoint, its report, -w,
+    --ace, --info and --cons equal to the uninterrupted run's; its
+    ``--stats`` reads ``resumed_past`` = the checkpoint's records,
+    ``by_site`` consensus 1 and realign equal to the uninterrupted run's
+    and to the forward and walk launches it logged, fewer ctx_scan
+    flushes than the uninterrupted run, all on cuda.  d:
+    ``--many2many --deadline-s=0.000001`` on phase 9's config-3 inputs
+    exits 75 with the preempted warning, no ``-o``, ``--stats``
+    preempted.  e: the per-batch checkpoint's cost, the main path at
+    ``--batch=16`` and at 256 without and with ``-o``, in turns, with
+    the seconds spent writing the checkpoints.  Returns the phase's record.  Raises on a failure."""
+    with open(paf) as f:
+        lines = f.readlines()
+    names = ("report.dfa", "msa.mfa", "contig.ace", "contig.info",
+             "cons.fa")
+
+    def args(tag: str, src: str, *extra: str) -> list[str]:
+        p = os.path.join(work, tag)
+        return [src, "-r", fa, *out_args(work, tag), "--realign",
+                "--device=cuda", "--batch=16", f"--stats={p}.json", *extra]
+
+    def stats(tag: str) -> dict:
+        with open(os.path.join(work, f"{tag}.json")) as f:
+            return json.load(f)
+
+    record: dict = {}
+    whole = CliProcess(os.path.join(work, "res_whole"),
+                       args("res_whole", paf))
+    if whole.finish() != 0:
+        raise AssertionError(f"res_whole: rc {whole.proc.returncode}: "
+                             f"{whole.stderr()[-2000:]}")
+    want = read_outputs(work, "res_whole")
+    rc, _st, err, cpu_wall = run_cli(
+        [paf, "-r", fa, *out_args(work, "res_cpu"), "--realign",
+         "--device=cpu", "--batch=16"])
+    if rc != 0:
+        raise AssertionError(f"res_cpu: rc {rc}: {err}")
+    cpu = read_outputs(work, "res_cpu")
+    differ = [n for n in OUTPUTS if want[n] != cpu[n]]
+    if differ or want["report.dfa"] != re_outputs["report.dfa"] \
+            or want["report.dfa"] != outputs["report.dfa"]:
+        raise AssertionError(f"res_whole: outputs differ from the cpu run "
+                             f"at --batch=16 ({differ}), or its report "
+                             "from phases 5 and 7")
+    whole_st, whole_counts = stats("res_whole"), whole.counts()
+    whole_sites = whole_st["device"]["by_site"]
+    record["whole"] = dict(wall_s=whole.wall_s, by_site=whole_sites,
+                           launches=whole_counts, cpu_wall_s=cpu_wall,
+                           msa_equal_phase7=want["msa.mfa"]
+                           == re_outputs["msa.mfa"])
+
+    def resume(tag: str, ck: dict) -> dict:
+        proc = CliProcess(os.path.join(work, f"{tag}_resume"),
+                          args(tag, paf, "--resume"))
+        p = os.path.join(work, tag)
+        if proc.finish() != 0:
+            raise AssertionError(f"{tag} --resume: rc "
+                                 f"{proc.proc.returncode}: "
+                                 f"{proc.stderr()[-2000:]}")
+        got = read_outputs(work, tag)
+        differ = [n for n in names if got[n] != want[n]]
+        if differ or os.path.exists(f"{p}.report.dfa.ckpt"):
+            raise AssertionError(f"{tag} --resume: outputs differ from the "
+                                 f"uninterrupted run's: {differ}, or a "
+                                 "checkpoint is left")
+        st, counts = stats(tag), proc.counts()
+        sites = st["device"]["by_site"]
+        fwd = counts["fwdptr"] + counts["fwdptr_long"]
+        if st["resumed_past"] != ck["records"] or st["preempted"] \
+                or sites.get("consensus") != 1 \
+                or counts["consensus"] != 1 \
+                or sites.get("realign") != whole_sites["realign"] \
+                or fwd != sites["realign"] or counts["walk"] != fwd \
+                or sites["ctx_scan"] >= whole_sites["ctx_scan"] \
+                or counts["ctx_scan"].get("cuda", 0) != sites["ctx_scan"] \
+                or counts["ctx_scan"].get("cpu", 0):
+            raise AssertionError(
+                f"{tag} --resume: resumed_past {st['resumed_past']} (the "
+                f"checkpoint's {ck['records']}), by_site {sites} (the "
+                f"uninterrupted run's {whole_sites}), launches {counts}")
+        return dict(wall_s=proc.wall_s, resumed_past=st["resumed_past"],
+                    by_site=sites, launches=counts)
+
+    # a: SIGTERM, and b: SIGKILL, after 64+ records are durable
+    import signal
+    for tag, sig in (("res_term", signal.SIGTERM),
+                     ("res_kill", signal.SIGKILL)):
+        p = os.path.join(work, tag)
+        proc = CliProcess(p, args(tag, "-"))
+        try:
+            proc.feed(lines[:100])
+            proc.wait_checkpoint(f"{p}.report.dfa", 64)
+            t_sig = time.perf_counter()
+            proc.proc.send_signal(sig)
+            if sig == signal.SIGTERM:
+                # the blocked read resumes after the handler: the loop
+                # sees the flag at the next line
+                proc.feed(lines[100:101])
+            rc = proc.finish(60)
+        finally:
+            if proc.proc.poll() is None:
+                proc.proc.kill()
+                proc.proc.wait()
+        err = proc.stderr()
+        if sig == signal.SIGTERM and (
+                rc != 75 or "draining" not in err or "preempted" not in err
+                or stats(tag)["preempted"] is not True):
+            raise AssertionError(f"{tag}: rc {rc} (want 75), --stats "
+                                 f"preempted or stderr wrong: {err[-2000:]}")
+        if sig == signal.SIGKILL and rc != -signal.SIGKILL:
+            raise AssertionError(f"{tag}: rc {rc} (want -9)")
+        ck = verified_checkpoint(f"{p}.report.dfa", tag)
+        record[tag] = dict(rc=rc, wall_s=proc.wall_s,
+                           signal_to_exit_s=time.perf_counter() - t_sig,
+                           checkpoint=dict(bytes=ck["bytes"],
+                                           records=ck["records"]),
+                           resume=resume(tag, ck))
+
+    # c: --deadline-s=5, its timer started before the first line is read
+    # (a first checkpoint shows the line loop running)
+    tag = "res_deadline"
+    p = os.path.join(work, tag)
+    proc = CliProcess(p, args(tag, "-", "--deadline-s=5"))
+    try:
+        proc.feed(lines[:100])
+        proc.wait_checkpoint(f"{p}.report.dfa", 16)
+        time.sleep(6)
+        if proc.proc.poll() is None:
+            proc.feed(lines[100:101])
+        rc = proc.finish(60)
+    finally:
+        if proc.proc.poll() is None:
+            proc.proc.kill()
+            proc.proc.wait()
+    err = proc.stderr()
+    if rc != 75 or "deadline_exceeded: --deadline-s=5 budget spent" \
+            not in err or stats(tag)["preempted"] is not True:
+        raise AssertionError(f"{tag}: rc {rc} (want 75): {err[-2000:]}")
+    ck = verified_checkpoint(f"{p}.report.dfa", tag)
+    record[tag] = dict(rc=rc, wall_s=proc.wall_s,
+                       checkpoint=dict(bytes=ck["bytes"],
+                                       records=ck["records"]),
+                       resume=resume(tag, ck))
+
+    # d: --many2many, its budget spent before the scoring dispatch
+    qfa = os.path.join(work, "m2m_cds.fa")
+    tfa = os.path.join(work, "m2m_targets.fa")
+    out = os.path.join(work, "res_m2m")
+    rc, _st, err, wall = run_cli(
+        ["--many2many", tfa, "-r", qfa, "-o", f"{out}.tsv",
+         "--deadline-s=0.000001", "--device=cuda", f"--stats={out}.json"])
+    with open(f"{out}.json") as f:
+        m2m_st = json.load(f)
+    if rc != 75 or not err.startswith(
+            "Warning: many2many preempted at a per-CDS dispatch boundary "
+            "(deadline_exceeded") or os.path.exists(f"{out}.tsv") \
+            or m2m_st["preempted"] is not True \
+            or m2m_st["device"]["dispatches"]:
+        raise AssertionError(f"res_m2m: rc {rc} (want 75), -o written or "
+                             f"--stats wrong: {err}")
+    record["res_m2m"] = dict(rc=rc, wall_s=wall, warning=err.strip())
+    print(f"resilience walls, s: uninterrupted {whole.wall_s:.3f}; "
+          + "; ".join(f"{t} {record[t]['wall_s']:.3f} + --resume "
+                      f"{record[t]['resume']['wall_s']:.3f}"
+                      for t in ("res_term", "res_kill", "res_deadline"))
+          + f"; many2many {wall:.3f}; {smi}", flush=True)
+
+    # e: the per-batch checkpoint (its fsyncs) on the main path, at
+    # --batch=16 (13 checkpoints) and 256 (one), without and with -o in
+    # turns, each turn after a full collection (a collection of this
+    # process's heap inside a turn costs more than the checkpoints); the
+    # time in _write_checkpoint itself is summed by a wrapper
+    import gc
+
+    from pwasm_tpu_torch import cli as port_cli
+    write_checkpoint, ckpt_s = port_cli._write_checkpoint, []
+
+    def timed_checkpoint(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return write_checkpoint(*a, **kw)
+        finally:
+            ckpt_s.append(time.perf_counter() - t0)
+
+    turns = []
+    port_cli._write_checkpoint = timed_checkpoint
+    try:
+        for batch in (16, 256):
+            for k, with_o in enumerate((False, True, True, False) * 2):
+                tag = f"res_cost_{batch}_{k}"
+                outs = out_args(work, tag)
+                if not with_o:
+                    outs = outs[2:]      # the report to stdout
+                gc.collect()
+                ckpt_s.clear()
+                with gc_pauses() as gcs:
+                    rc, st, err, wall = run_cli(
+                        [paf, "-r", fa, *outs, "--device=cuda",
+                         f"--batch={batch}"], stdout=io.StringIO())
+                if rc != 0:
+                    raise AssertionError(f"{tag}: rc {rc}: {err}")
+                if with_o and read_outputs(work, tag)["report.dfa"] \
+                        != outputs["report.dfa"]:
+                    raise AssertionError(f"{tag}: the report differs from "
+                                         "phase 5's")
+                if len(ckpt_s) != (-(-200 // batch) if with_o else 0):
+                    raise AssertionError(f"{tag}: {len(ckpt_s)} "
+                                         "checkpoints written")
+                turns.append(dict(batch=batch, report=with_o, wall_s=wall,
+                                  ctx_scan_s=st["times"]["ctx_scan"],
+                                  checkpoints=len(ckpt_s),
+                                  checkpoint_s=sum(ckpt_s), gc=gcs))
+    finally:
+        port_cli._write_checkpoint = write_checkpoint
+    record["checkpoint_cost"] = turns
+    print("resilience checkpoint cost, wall s (ctx_scan s; checkpoints "
+          "s): " + ", ".join(
+              f"b{t['batch']}{' -o' if t['report'] else ''} "
+              f"{t['wall_s']:.3f} ({t['ctx_scan_s']:.3f}; "
+              f"{t['checkpoint_s']:.4f})" for t in turns) + f"; {smi}",
+          flush=True)
     return record
 
 
@@ -2151,6 +2517,8 @@ def compare_forward_builds(parent, shapes: dict,
 
 
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--cli"] and len(argv) >= 2:
+        return cli_child(argv[1], argv[2:])
     opts = {"--compare": None, "--compare-realign": None,
             "--compare-consensus": None}
     args = list(argv)
@@ -2595,7 +2963,14 @@ def main(argv: list[str]) -> int:
               **run_obs(work, paf, fa, runs["cuda"]["outputs"],
                         re_runs["cuda"]["outputs"], smi)))
 
-    # 14. the kernels line, the card, the verdict
+    # 14. checkpoints and drains: SIGTERM, SIGKILL and --deadline-s on
+    # the realign path, each resumed, and --many2many --deadline-s
+    resilience = run_resilience(work, paf, fa, runs["cuda"]["outputs"],
+                                re_runs["cuda"]["outputs"], smi)
+    emit(dict(phase="resilience", nvidia_smi=smi, **resilience))
+    resume_launches = resilience["res_term"]["resume"]["launches"]
+
+    # 15. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -2625,6 +3000,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/consensus.py:92",
         launches=main_launches,
         shard_launches=shard_runs("consensus"),
+        resume_launches=resume_launches["consensus"],
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -2638,6 +3014,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/realign.py:383",
         launches=re_launches["fwdptr"],
         shard_launches=shard_runs("fwdptr"),
+        resume_launches=resume_launches["fwdptr"],
         max_abs_err=re_err,
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
@@ -2664,6 +3041,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/realign.py:515",
         launches=re_launches["walk"],
         shard_launches=shard_runs("walk"),
+        resume_launches=resume_launches["walk"],
         max_abs_err=re_err,
         ms=main_re["ms_walk"], plain_ms=main_re["plain_ms_walk"],
         bound_ms=main_re["bound_ms_walk"],

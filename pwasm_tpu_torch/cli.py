@@ -20,6 +20,11 @@ gap structure is first replaced by a banded Gotoh re-alignment
 (``utils/profiling.py``), and ``--trace-json``, ``--log-json`` and
 ``--metrics-textfile`` the run's spans, events and metrics (``obs/``);
 each device dispatch is counted and traced by ``obs/dispatch.py``.
+Every ``-o`` run leaves a checkpoint after each report batch
+(``<report>.ckpt``, version 2, CRC'd), from which ``--resume``
+continues a killed run; SIGTERM/SIGINT and ``--deadline-s`` drain the
+run at the next batch boundary and exit 75, resumable
+(``resilience/lifecycle.py``).
 Outputs are byte-identical to the reference's, with these flags on or
 off.
 
@@ -31,10 +36,11 @@ Usage:
       [--no-refine-clip] [--realign] [--band=N] [--device=cuda|cpu]
       [--shard[=N]] [--skip-bad-lines] [--stats=FILE] [--profile=DIR]
       [--trace-json=FILE] [--trace-max-events=N] [--log-json=FILE|-]
-      [--log-json-max-bytes=N] [--metrics-textfile=PATH]
+      [--log-json-max-bytes=N] [--metrics-textfile=PATH] [--resume]
+      [--deadline-s=S]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
-      [--stats=FILE]
+      [--stats=FILE] [--deadline-s=S]
   python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
       [-o OUT.json]
 """
@@ -42,16 +48,20 @@ Usage:
 from __future__ import annotations
 
 import sys
+import threading
 import time
 
 from pwasm_tpu_torch.core.config import (AUTO_FULLGENOME_FASTA_BYTES, Config,
-                                         load_motifs)
+                                         deadline_seconds, load_motifs)
 from pwasm_tpu_torch.core.dna import revcomp
-from pwasm_tpu_torch.core.errors import EXIT_USAGE, PwasmError
+from pwasm_tpu_torch.core.errors import (EXIT_PREEMPTED, EXIT_USAGE,
+                                         PwasmError)
 from pwasm_tpu_torch.core.events import extract_alignment
 from pwasm_tpu_torch.core.fasta import FastaFile
 from pwasm_tpu_torch.core.paf import _atoi, parse_paf_line
+from pwasm_tpu_torch.obs import NULL_OBS
 from pwasm_tpu_torch.report.diff_report import Summary
+from pwasm_tpu_torch.resilience.lifecycle import PreemptedError, SignalDrain
 
 USAGE = """Usage:
  pafreport <paf_with_cg_cs> -r <refseq.fa> [-s <summary.txt>]
@@ -91,6 +101,21 @@ USAGE = """Usage:
                and the consensus pileup's depth shards' counts are
                summed before the vote
    --skip-bad-lines    warn and continue on malformed PAF lines
+   --resume    append to an existing -o report, skipping alignments
+               already emitted (a -s summary then covers only the
+               resumed portion); every -o run leaves an atomic
+               batch-granular checkpoint (<report>.ckpt, versioned and
+               CRC-validated), so a killed run resumes at the last
+               completed batch exactly; a checkpoint that fails
+               verification is quarantined to <report>.ckpt.bad and
+               the run restarts cleanly.  SIGTERM/SIGINT drain
+               gracefully: the in-flight batches complete, a final
+               checkpoint lands, and the run exits 75 ("preempted,
+               resumable"; a second signal hard-aborts)
+   --deadline-s=S  end-to-end wall budget for the whole run: when it
+               expires the run stops at its next batch boundary with
+               a valid resumable checkpoint and exits 75 (reason
+               "deadline_exceeded")
    --profile=DIR  write a torch.profiler Chrome trace of the run
                (DIR/trace.json: host ops, and the card's kernels and
                copies on --device=cuda)
@@ -115,6 +140,7 @@ USAGE = """Usage:
 
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [--stats=FILE] [-v]
+    [--deadline-s=S]
    score every query of the -r FASTA against every target of
    <targets.fa> (banded affine-gap DP); one report section per query
 
@@ -130,12 +156,13 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "remove-cons-gaps", "no-refine-clip", "device", "shard",
                "skip-bad-lines", "profile", "stats", "trace-json",
                "trace-max-events", "log-json", "log-json-max-bytes",
-               "metrics-textfile")
+               "metrics-textfile", "resume", "deadline-s")
 
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queue A)
-_LATER = ("a later slice (resilience and checkpoints; then service, "
-          "stream, fleet and surveil)")
+_LATER = ("a later slice (the resilience supervisor: --max-retries, "
+          "--device-deadline, --inject-faults, --fallback, --recover and "
+          "--reprobe-*; then stream, service, fleet and surveil)")
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
                  "inspect", "top", "route", "health", "logs")
 
@@ -206,6 +233,168 @@ def _parse_clipmax(s: str, verbose: bool, stderr) -> float:
     return float(c)
 
 
+def _ckpt_path(report_path: str) -> str:
+    return report_path + ".ckpt"
+
+
+# Checkpoint format v2 (self-validating), the reference's byte for
+# byte: the payload ({bytes, records} and, from the reference's
+# supervisor, {resilience}) with a version tag and a CRC32 over the
+# payload's canonical JSON encoding.  _load_checkpoint verifies BOTH
+# plus a report-tail boundary check (the recorded byte offset must land
+# exactly on a record boundary of the actual report file).  Any failure
+# quarantines the ckpt to <report>.ckpt.bad and the run restarts
+# cleanly — never resumes onto garbage.  The port has no supervisor
+# yet, so it writes no "resilience" key; the CRC still covers every
+# non-meta key, so a checkpoint the reference wrote verifies here.
+CKPT_VERSION = 2
+_CKPT_META = ("version", "crc")   # non-payload keys, excluded from CRC
+
+
+def _ckpt_crc(ck: dict) -> int:
+    """CRC32 over the ckpt's payload fields in canonical JSON form
+    (``fsio.payload_crc`` — the shared self-validating-state
+    checksum)."""
+    from pwasm_tpu_torch.utils.fsio import payload_crc
+
+    return payload_crc({k: v for k, v in ck.items()
+                        if k not in _CKPT_META})
+
+
+def _on_record_boundary(report_path: str, nbytes: int) -> bool:
+    """True when byte offset ``nbytes`` of the report is a record
+    boundary: 0, or preceded by a newline with either EOF or the next
+    record's ``>`` header right after (a ckpt whose offset lands
+    mid-record describes a prefix that was never durable as claimed)."""
+    import os
+
+    try:
+        size = os.path.getsize(report_path)
+        if nbytes == 0:
+            return True
+        if nbytes > size:
+            return False
+        with open(report_path, "rb") as f:
+            if f.read(1) != b">":
+                return False     # not a report of this tool
+            f.seek(nbytes - 1)
+            if f.read(1) != b"\n":
+                return False
+            if nbytes < size and f.read(1) != b">":
+                return False
+        return True
+    except OSError:
+        return False
+
+
+def _load_checkpoint(report_path: str) \
+        -> tuple[int, int] | str | None:
+    """Read and VERIFY the batch-granular resume checkpoint for
+    ``report_path``.  Returns ``(bytes, records)`` when the ckpt is whole (version + CRC verified, offset on a record
+    boundary of the actual report); ``None`` when no ckpt file exists
+    (the header-scan heuristic applies); or a ``str`` diagnostic when a
+    ckpt EXISTS but is torn/corrupt/inconsistent — the caller must
+    quarantine it and restart cleanly rather than resume onto
+    garbage."""
+    import json
+    import os
+
+    try:
+        with open(_ckpt_path(report_path)) as f:
+            raw = f.read()
+    except OSError:
+        return None
+    try:
+        ck = json.loads(raw)
+        if not isinstance(ck, dict):
+            raise ValueError("not an object")
+    except ValueError as e:
+        return f"unparseable ckpt JSON ({e})"
+    if ck.get("version") != CKPT_VERSION:
+        return f"ckpt version {ck.get('version')!r} != {CKPT_VERSION}"
+    try:
+        crc = int(ck["crc"])
+        nbytes, nrec = ck["bytes"], ck["records"]
+        if not (isinstance(nbytes, int) and isinstance(nrec, int)):
+            raise TypeError("bytes/records not ints")
+    except (KeyError, TypeError, ValueError) as e:
+        return f"malformed ckpt fields ({e})"
+    if crc != _ckpt_crc(ck):
+        return "ckpt payload CRC mismatch"
+    if nbytes < 0 or nrec < 0 or (nbytes == 0) != (nrec == 0):
+        return f"inconsistent ckpt counts (bytes={nbytes}, " \
+               f"records={nrec})"
+    try:
+        if nbytes > os.path.getsize(report_path):
+            return f"ckpt bytes {nbytes} past the report's " \
+                   f"{os.path.getsize(report_path)}"
+    except OSError as e:
+        return f"report unreadable ({e})"
+    if not _on_record_boundary(report_path, nbytes):
+        return f"ckpt offset {nbytes} is not a record boundary of " \
+               "the report"
+    return nbytes, nrec
+
+
+def _quarantine_checkpoint(report_path: str, why: str, stderr) -> None:
+    """Move a failed-verification ckpt aside to ``<report>.ckpt.bad``
+    (preserved for post-mortem, out of every future resume's way) and
+    say so loudly."""
+    import os
+
+    from pwasm_tpu_torch.utils.fsio import replace_durable
+
+    try:
+        replace_durable(_ckpt_path(report_path),
+                        _ckpt_path(report_path) + ".bad")
+    except OSError:
+        try:
+            os.unlink(_ckpt_path(report_path))
+        except OSError:
+            pass
+    print(f"Warning: checkpoint failed verification ({why}); "
+          f"quarantined to {_ckpt_path(report_path)}.bad — "
+          "restarting the run from scratch instead of resuming onto "
+          "a corrupt prefix", file=stderr)
+
+
+def _write_checkpoint(freport, report_path: str, records: int) -> bool:
+    """Atomically AND durably persist the report's durable prefix after
+    one completed batch: fsync the report, then publish the v2
+    (versioned, CRC'd) ckpt JSON via the audited fsync-then-replace
+    (``utils.fsio``: tmp write + tmp fsync + rename + parent-dir
+    fsync — a crash at any instant leaves the old ckpt or the new one,
+    never a torn or empty file that merely *looks* atomic).
+    Best-effort — a failed write never stops the run (returns
+    False)."""
+    import json
+    import os
+
+    from pwasm_tpu_torch.utils.fsio import write_durable_text
+
+    try:
+        freport.flush()
+        os.fsync(freport.fileno())
+        size = os.fstat(freport.fileno()).st_size
+        ck = {"version": CKPT_VERSION, "bytes": size,
+              "records": records}
+        ck["crc"] = _ckpt_crc(ck)
+        write_durable_text(_ckpt_path(report_path), json.dumps(ck),
+                           tmp_suffix=".tmp")
+        return True
+    except OSError:
+        return False
+
+
+def _unlink_checkpoint(report_path: str) -> None:
+    import os
+
+    try:
+        os.unlink(_ckpt_path(report_path))
+    except OSError:
+        pass
+
+
 def run(argv: list[str], stdout=None, stderr=None,
         stats: dict | None = None) -> int:
     """One CLI invocation; returns the exit code (1 usage, 3 parse,
@@ -226,9 +415,9 @@ def run(argv: list[str], stdout=None, stderr=None,
             fo.close()     # no-op for a handle the run already closed
 
 
-def _open_out(path: str, opened: list):
+def _open_out(path: str, opened: list, mode: str = "w"):
     try:
-        f = open(path, "w")
+        f = open(path, mode)
     except OSError:
         raise PwasmError(f"Cannot open file {path} for writing!\n")
     opened.append(f)
@@ -320,8 +509,25 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
             raise PwasmError(f"Cannot open motif file {opts['motifs']}!\n")
     if "c" in opts:
         cfg.clipmax = _parse_clipmax(str(opts["c"]), cfg.verbose, stderr)
+    cfg.resume = bool(opts.get("resume"))
+    if "deadline-s" in opts:
+        cfg.deadline_s = deadline_seconds(opts["deadline-s"])
+        if cfg.deadline_s is None:
+            raise CliError(f"{USAGE}\nInvalid --deadline-s value: "
+                           f"{opts['deadline-s']}\n")
     _parse_obs_opts(cfg, opts)
-    freport = _open_out(str(opts["o"]), opened) if "o" in opts else stdout
+    resume_skip = 0
+    if cfg.resume:
+        if "o" not in opts:
+            raise CliError(f"{USAGE}\n--resume requires -o <report>\n")
+        resume_skip = _resume_point(str(opts["o"]), stderr)
+    elif "o" in opts:
+        # a fresh run invalidates any checkpoint left by a killed
+        # predecessor writing the same report path
+        _unlink_checkpoint(str(opts["o"]))
+    freport = _open_out(str(opts["o"]), opened,
+                        "a" if cfg.resume else "w") \
+        if "o" in opts else stdout
     rpath = opts.get("r")
     if not rpath:
         raise PwasmError("Error: query FASTA file (-r) is required!\n")
@@ -379,12 +585,29 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         raise PwasmError(f"Cannot open file {cfg.log_json} for writing!\n")
     if obs.enabled:
         obs.event("run_start", device=cfg.device, argv=list(argv))
+    # graceful drain: the first SIGTERM/SIGINT only raises a flag the
+    # line loop honors at the next batch boundary; the in-flight
+    # batches complete, a final checkpoint and a partial --stats land,
+    # and the run exits 75 ("preempted, resumable"); a second signal
+    # hard-aborts.  --deadline-s pulls the same flag from a timer
+    drain_cm = SignalDrain(stderr=stderr)
+    drain_cm.obs = obs   # the drain request is a lifecycle event
+    deadline_timer = None
+    if cfg.deadline_s:
+        deadline_timer = threading.Timer(
+            cfg.deadline_s, drain_cm.request,
+            args=(f"deadline_exceeded: --deadline-s={cfg.deadline_s:g} "
+                  "budget spent",))
+        deadline_timer.daemon = True
+        deadline_timer.start()
     try:
         with device_trace(cfg.profile_dir, stderr, device=device.type), \
-                obs.span("run", device=cfg.device):
+                drain_cm as drain, obs.span("run", device=cfg.device):
             return _main_loop(cfg, mesh, inf, freport, fmsa, fsummary,
                               qfasta, stderr, cons_outs, nmsa,
-                              stats if stats is not None else {}, obs)
+                              stats if stats is not None else {}, obs,
+                              str(opts["o"]) if "o" in opts else None,
+                              resume_skip, drain)
     except PwasmError as e:
         stderr.write(str(e))
         if obs.enabled:
@@ -393,7 +616,81 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
                       error=str(e).strip()[:200])
         return e.exit_code
     finally:
+        if deadline_timer is not None:
+            deadline_timer.cancel()
+        drain_cm.obs = NULL_OBS   # a late timer must not write to the
+        #                           event log obs.close is closing
         obs.close(stderr)
+
+
+def _resume_point(report_path: str, stderr) -> int:
+    """``--resume``'s preamble (reference cli.py:837-914): the number
+    of accepted alignments whose rows the report already holds, with
+    the report truncated to exactly their bytes.
+
+    Checkpoint first: a verified ``<report>.ckpt`` names the byte size
+    and record count of the last completed batch; any torn tail past it
+    is cut.  A checkpoint that exists but fails verification is
+    quarantined to ``<report>.ckpt.bad`` and the run restarts from an
+    empty report, never half-resumed by the header scan below, which
+    applies only when no checkpoint was written: it drops the LAST
+    record (its rows may be torn; a header alone does not prove they
+    landed), truncates there and skips the surviving headers."""
+    from pwasm_tpu_torch.utils.fsio import truncate_durable
+
+    resume_skip = 0
+    ck = _load_checkpoint(report_path)
+    if isinstance(ck, str):
+        _quarantine_checkpoint(report_path, ck, stderr)
+        try:
+            truncate_durable(report_path, 0)
+        except OSError:
+            pass
+        return 0
+    if ck is not None:
+        nbytes, resume_skip = ck
+        try:
+            truncate_durable(report_path, nbytes)
+        except OSError:
+            resume_skip = 0
+    if resume_skip:
+        return resume_skip
+    try:
+        # stream in chunks (reports can be GBs): count record headers
+        # and remember where the last one starts
+        n_headers = 0
+        last_header = -1
+        size = 0
+        prev_byte = b"\n"  # virtual newline before file start
+        with open(report_path, "rb") as f:
+            starts_ok = f.read(1) == b">"
+            f.seek(0)
+            while True:
+                chunk = f.read(1 << 20)
+                if not chunk:
+                    break
+                search = prev_byte + chunk
+                pos = search.find(b"\n>")
+                while pos != -1:
+                    n_headers += 1
+                    # search[pos] is the byte BEFORE the '>', so the
+                    # record starts at file offset size + pos
+                    last_header = size + pos
+                    pos = search.find(b"\n>", pos + 1)
+                prev_byte = chunk[-1:]
+                size += len(chunk)
+        if starts_ok and n_headers > 0:
+            # drop the LAST record: its rows may be torn
+            keep = last_header if n_headers > 1 else 0
+            resume_skip = n_headers - 1
+        else:
+            keep, resume_skip = 0, 0   # not a report of this tool
+        if keep != size:
+            # the dropped torn record must stay dropped across a crash
+            truncate_durable(report_path, keep)
+    except OSError:
+        resume_skip = 0   # nothing emitted yet: a fresh run
+    return resume_skip
 
 
 def _parse_obs_opts(cfg: Config, opts: dict) -> None:
@@ -535,14 +832,25 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
 
 def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                qfasta: FastaFile, stderr, cons_outs: dict, nmsa,
-               stats: dict, obs) -> int:
+               stats: dict, obs, report_path: str | None,
+               resume_skip: int, drain: SignalDrain) -> int:
     """The per-PAF-line loop (pafreport.cpp:296-460).  ``nmsa`` is the
     C++ MSA engine (``native.NativeMsa``), or None for the Python
     engine (``align/msa.py``).  ``mesh`` is the run's mesh, over which
     the device work spreads (``parallel/mesh.py``): ``--shard``'s, or
     the one device's.  ``obs`` is the run's observability bundle
     (``obs/``): each device dispatch goes through one ``DispatchHook``
-    that counts it into the run's ``RunStats`` and traces it."""
+    that counts it into the run's ``RunStats`` and traces it.
+
+    ``report_path`` (``-o``, else None) gets a checkpoint after each
+    completed report batch.  ``resume_skip`` is the number of accepted
+    alignments whose rows the report already holds (``--resume``): they
+    are parsed (and, for an MSA output, extracted, re-aligned and
+    merged) but not reported again.  ``drain`` is the run's
+    ``SignalDrain``: a drain requested before the end of input stops
+    the line loop at the next line, one requested in the MSA tail
+    aborts it, and either way the run returns 75 with its checkpoint
+    kept."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
@@ -584,6 +892,8 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     # residual, so the totals equal the --stats JSON exactly
     host_folded = dict.fromkeys(("parse", "extract", "analyze", "format"),
                                 0.0)
+    # records whose rows the report holds, the resumed ones included
+    emitted = resume_skip
 
     def fold_host_stages() -> None:
         for k in host_folded:
@@ -593,11 +903,25 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 obs.count("host_stage_seconds", d, stage=k)
             host_folded[k] = v
 
+    def note_batch_done(nrec: int) -> None:
+        """A report batch is written: fold the host stages, then make
+        the report's prefix durable and checkpoint it (every ``-o``
+        run, as the reference does)."""
+        nonlocal emitted
+        emitted += nrec
+        fold_host_stages()
+        if report_path is not None \
+                and _write_checkpoint(freport, report_path, emitted):
+            run_stats.res_checkpoints += 1
+            obs.event("ckpt_write", records=emitted, batch=nrec)
+
     def flush_pending(drain: bool = False) -> None:
         """Submit the pending report batch, then format the OLDEST
         in-flight batch: batch k's device program runs while batches
         k-1/k-2 are formatted and written.  ``drain`` formats every
         in-flight batch at end of input."""
+        if not pending and not inflight:
+            return   # nothing buffered
         t0 = time.perf_counter()
         batch, pending[:] = pending[:], []
         if batch:
@@ -611,9 +935,16 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         run_stats.host_analyze_s += t1 - t0
         while len(inflight) > (0 if drain else 2):
             fin, nrec = inflight.pop(0)
-            with obs.span("flush_format", n=nrec):
-                fin()
-            fold_host_stages()
+            try:
+                with obs.span("flush_format", n=nrec):
+                    fin()
+            except BaseException:
+                # a failure mid-batch must leave the report a clean
+                # prefix of input order (--resume depends on it): drop
+                # every batch submitted after it
+                inflight.clear()
+                raise
+            note_batch_done(nrec)
         t2 = time.perf_counter()
         run_stats.host_format_s += t2 - t1
         times["ctx_scan"] += t2 - t0
@@ -750,9 +1081,14 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             rlabel += f":{al.r_alnstart}-{al.r_alnend}"
         if len(qfasta) == 1 and not cfg.fullgenome:
             rlabel = ""
-        pending.append((aln, rlabel, tlabel, refseq_b))
-        if len(pending) >= cfg.batch:
-            flush_pending()
+        if run_stats.resumed_past < resume_skip:
+            # --resume cursor: this alignment's rows are already in the
+            # report from the interrupted run
+            run_stats.resumed_past += 1
+        else:
+            pending.append((aln, rlabel, tlabel, refseq_b))
+            if len(pending) >= cfg.batch:
+                flush_pending()
         if build_msa_out and cfg.realign:
             q_seg = refseq_aln[aln.offset:aln.offset
                                + (al.r_alnend - al.r_alnstart)]
@@ -788,6 +1124,12 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     try:
         file_line = 0
         for line in inf:
+            if drain.requested:
+                # graceful drain: stop consuming input here; the
+                # finally below completes the in-flight batches and
+                # checkpoints them, and the run exits 75 (the next
+                # --resume continues exactly here)
+                break
             file_line += 1
             line = line.rstrip("\n")
             if not line or line.startswith("#"):
@@ -830,6 +1172,17 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 alnpairs[key] = 0
                 new_pair = key
             numalns += 1
+            if not build_msa_out and not cfg.skip_bad_lines \
+                    and run_stats.resumed_past < resume_skip:
+                # --resume fast path: this alignment is already in the
+                # report; advance the cursor on parse-level information
+                # alone (no refseq fetch, no extraction).  Not under
+                # --skip-bad-lines, where a line that parses may have
+                # been skipped at extraction in the first run
+                run_stats.resumed_past += 1
+                run_stats.alignments += 1
+                run_stats.aligned_bases += al.t_alnend - al.t_alnstart
+                continue
             if refseq_id is None or refseq_id != al.r_id:
                 # consume the buffered extractions, then merge the
                 # buffered re-alignments and inserts into this query's
@@ -898,19 +1251,43 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         obs.span_complete("input_loop", t_loop, lines=run_stats.lines,
                           alignments=run_stats.alignments)
 
-    with obs.span("msa_tail"):
-        flush_realign()
-        if nmsa is not None:
-            flush_msa_pending()
-            _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs, stderr,
-                                stats, times, hook)
-        elif ref_msa is not None:
-            _python_msa_outputs(ref_msa, cfg, mesh, fmsa, cons_outs,
-                                stderr, stats, times, hook)
+    # a drain requested during the final flushes still counts: the
+    # batches completed (and were checkpointed) above, and the MSA tail
+    # is skipped; the --resume run replays the MSA from the whole input
+    preempted = drain.requested
+    if not preempted:
+        # the tail runs in the drain's interruptible phase: past the
+        # line loop there is no batch boundary to drain at, so a drain
+        # requested mid-tail aborts it (PreemptedError); --resume
+        # rebuilds the tail's outputs whole
+        try:
+            with drain.interrupting(), obs.span("msa_tail"):
+                flush_realign()
+                if nmsa is not None:
+                    flush_msa_pending()
+                    _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs,
+                                        stderr, stats, times, hook)
+                elif ref_msa is not None:
+                    _python_msa_outputs(ref_msa, cfg, mesh, fmsa,
+                                        cons_outs, stderr, stats, times,
+                                        hook)
+        except PreemptedError:
+            preempted = True
+    if preempted and nmsa is not None:
+        nmsa.close()
     t0 = time.perf_counter()
     if summary is not None:
+        # on a preempted run the summary of the batches that completed;
+        # a resumed -s covers the resumed portion
         summary.write(fsummary)
     times["write"] += time.perf_counter() - t0
+    if report_path is not None:
+        freport.close()
+        if not preempted:
+            # the report is whole: its checkpoint is obsolete.  A
+            # preempted run keeps it: it is what --resume continues from
+            _unlink_checkpoint(report_path)
+    run_stats.preempted = preempted
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(mesh.devices.flat[0]))
     if cfg.realign:
@@ -938,6 +1315,16 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 f"Cannot open file {cfg.stats_path} for writing!\n")
     if cfg.verbose:
         print(run_stats.brief(), file=stderr)
+    if preempted:
+        done = f"{emitted} record(s) durable" if report_path \
+            else "no -o report (nothing checkpointed)"
+        print(f"pwasm: preempted ({drain.reason}) — drained cleanly, "
+              f"{done}; rerun with --resume to complete "
+              f"(exit {EXIT_PREEMPTED})", file=stderr)
+        obs.event("run_finish", rc=EXIT_PREEMPTED, preempted=True,
+                  reason=drain.reason, records=emitted,
+                  alignments=run_stats.alignments)
+        return EXIT_PREEMPTED
     obs.event("run_finish", rc=0, preempted=False,
               alignments=run_stats.alignments, events=run_stats.events,
               wall_s=round(run_stats.wall_s, 3))

@@ -8,6 +8,7 @@ reference hardcodes it with a TODO to externalize, pafreport.cpp:39-41).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 DEFAULT_MOTIFS = ("CCTGG", "CCAGG", "GATC", "GTAC")
@@ -35,6 +36,7 @@ class Config:
     band: int = 64                  # banded-DP band width
     realign: bool = False           # --realign: DP traceback gaps for MSA
     skip_bad_lines: bool = False    # warn + continue on malformed lines
+    resume: bool = False            # append to -o, skipping emitted alns
     profile_dir: str = ""           # --profile: torch.profiler trace dir
     stats_path: str = ""            # --stats: write run-stats JSON here
     trace_json: str = ""            # --trace-json: Chrome trace-event
@@ -47,6 +49,20 @@ class Config:
     #                                 cap (0 = the recorder's default)
     log_json_max_bytes: int = 0     # --log-json-max-bytes: size-capped
     #                                 event-log rotation (0 = never)
+    deadline_s: float = 0.0         # --deadline-s: end-to-end wall
+    #                                 budget (0 = unbounded); expiry
+    #                                 drains at the next batch boundary:
+    #                                 resumable ckpt, rc 75
+
+
+def deadline_seconds(val) -> float | None:
+    """``--deadline-s``'s value as seconds when it is a positive, finite
+    number, else None; each caller raises its own usage error."""
+    try:
+        sec = float(str(val))
+    except (TypeError, ValueError):
+        return None
+    return sec if sec > 0 and math.isfinite(sec) else None
 
 
 def load_motifs(path: str) -> tuple[str, ...]:

@@ -7,8 +7,10 @@ every target in the positional FASTA through one
 targets padded per query bucket), format, and write.  ``--stats``
 writes the run's counters (``utils/runstats.py``): the pairs as lines
 and alignments, and one ``many2many`` dispatch a launch
-(``obs/dispatch.py``).  The result cache, the supervisor, deadlines and
-the served jobs come with later slices.
+(``obs/dispatch.py``).  ``--deadline-s`` is checked at the dispatch
+boundary: a job whose budget is spent before its scoring call exits 75
+(preempted) and writes no report.  The result cache, the supervisor
+and the served jobs come with later slices.
 
 Output contract: the report is a sequence of per-CDS sections, each
 depending only on (that query, the targets) —
@@ -32,12 +34,15 @@ import time
 
 import numpy as np
 
-from pwasm_tpu_torch.core.errors import EXIT_USAGE, PwasmError
+from pwasm_tpu_torch.core.config import deadline_seconds
+from pwasm_tpu_torch.core.errors import (EXIT_PREEMPTED, EXIT_USAGE,
+                                         PwasmError)
 from pwasm_tpu_torch.utils.runstats import RunStats
 
 M2M_USAGE = """Usage:
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--device=cuda|cpu] [--band=N] [--stats=FILE] [-v]
+    [--deadline-s=S]
 
    Score EVERY query in the -r FASTA against EVERY target in
    <targets.fa> (banded affine-gap DP, parallel/many2many.py).  The
@@ -50,14 +55,15 @@ M2M_USAGE = """Usage:
    --device=cuda|cpu  where the scoring runs (default cuda; the CPU runs
                only when asked for)
    --stats=FILE   write run statistics as one JSON object
+   --deadline-s=S  end-to-end wall budget: a job whose budget runs out
+               before its scoring dispatch exits 75 (preempted)
 """
 
 # options of the reference's --many2many that later slices of the port
 # bring (ROADMAP.md queue A)
-_RESILIENCE = "the resilience slice (deadlines, retries and fallbacks)"
+_RESILIENCE = "the resilience slice (retries and fallbacks)"
 _SERVICE = "the service slice (the result cache and the warm pool)"
 _LATER = {
-    "deadline-s": _RESILIENCE,
     "max-retries": _RESILIENCE,
     "fallback": _RESILIENCE,
     "result-cache": _SERVICE,
@@ -125,6 +131,12 @@ def parse_m2m_opts(opts: dict):
                 or not str(val).isdigit() or int(val) < 1:
             raise _usage_err(f"Error: invalid --band value: {val}")
         band = int(val)
+    deadline_s = None
+    if "deadline-s" in opts:
+        deadline_s = deadline_seconds(opts["deadline-s"])
+        if deadline_s is None:
+            raise _usage_err(
+                f"Error: invalid --deadline-s value: {opts['deadline-s']}")
     for k in opts:
         if k in _LATER:
             raise PwasmError(f"Error: --{k} is not ported to "
@@ -133,7 +145,7 @@ def parse_m2m_opts(opts: dict):
     if opts.get("stats") is True:
         raise _usage_err("Error: --stats requires a file argument")
     return SimpleNamespace(
-        rpath=rpath, device=device, band=band,
+        rpath=rpath, device=device, band=band, deadline_s=deadline_s,
         stats_path=str(opts.get("stats", "")),
         verbose=bool(opts.get("v")) or bool(opts.get("D")))
 
@@ -168,6 +180,27 @@ def format_summary(qnames, tnames, scores, neg) -> str:
     return "".join(out)
 
 
+def _preempted(cfg, n_queries: int, run_stats: RunStats, stderr) -> int:
+    """The job's budget ran out before its scoring dispatch (reference
+    stream/multicds.py:519-548): the warning, a ``--stats`` with
+    ``preempted`` and no pair counted, no ``-o`` or ``-s`` written, exit
+    75."""
+    reason = (f"deadline_exceeded: --deadline-s={cfg.deadline_s:g} "
+              "budget spent")
+    print(f"Warning: many2many preempted at a per-CDS dispatch boundary "
+          f"({reason}); 0 of {n_queries} section(s) finished",
+          file=stderr)
+    run_stats.preempted = True
+    if cfg.stats_path:
+        try:
+            with open(cfg.stats_path, "w") as f:
+                run_stats.write(f)
+        except OSError:
+            raise PwasmError(
+                f"Cannot open file {cfg.stats_path} for writing!\n")
+    return EXIT_PREEMPTED
+
+
 def _write(path, body: bytes) -> None:
     try:
         with open(str(path), "wb") as f:
@@ -193,6 +226,7 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
         raise _usage_err("Error: --many2many takes exactly one "
                          "<targets.fa> argument")
     device = resolve_device(cfg.device)
+    t0_mono = time.monotonic()
     times = dict.fromkeys(("load", "bucket", "score", "format", "write"),
                           0.0)
     t0 = time.perf_counter()
@@ -206,6 +240,11 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
         print(f"many2many: {pairs} of {pairs} pair(s), band {cfg.band}, "
               f"one {'device' if device.type == 'cuda' else 'cpu'} "
               "session", file=stderr)
+    if cfg.deadline_s is not None \
+            and time.monotonic() - t0_mono >= cfg.deadline_s:
+        # the end-to-end deadline, enforced at the dispatch boundary:
+        # never start a dispatch the budget cannot see
+        return _preempted(cfg, len(qs), run_stats, stderr)
     sc: dict = {}
     try:
         scores = many2many_scores_ragged(qs, ts, band=cfg.band,

@@ -1,9 +1,10 @@
 """Durable state writes: fsync-then-replace.
 
-A state file (the ``.fai`` FASTA sidecar, the compiled native engine,
-the ``--trace-json`` and ``--metrics-textfile`` documents) must survive
-a crash at any instant with either the old content or the new content
-on disk, never a torn prefix:
+A state file (the ``<report>.ckpt`` resume checkpoint, the ``.fai``
+FASTA sidecar, the compiled native engine, the ``--trace-json`` and
+``--metrics-textfile`` documents) must survive a crash at any instant
+with either the old content or the new content on disk, never a torn
+prefix:
 
     write tmp -> flush -> fsync(tmp) -> os.replace(tmp, dest)
               -> fsync(parent dir)
@@ -37,13 +38,16 @@ def replace_durable(tmp: str, dest: str) -> None:
     fsync_dir(os.path.dirname(os.path.abspath(dest)))
 
 
-def write_durable_text(dest: str, text: str) -> None:
-    """Atomically and durably publish ``text`` at ``dest``.  The tmp
-    name is process-unique so concurrent writers never share it."""
-    tmp = f"{dest}.{os.getpid()}.tmp"
+def write_durable_bytes(dest: str, data: bytes,
+                        tmp_suffix: str | None = None) -> None:
+    """Atomically and durably publish ``data`` at ``dest``.  ``tmp_suffix``
+    names the tmp file (default ``.<pid>.tmp``, process-unique so
+    concurrent writers of the same dest never share a tmp)."""
+    tmp = dest + (tmp_suffix if tmp_suffix is not None
+                  else f".{os.getpid()}.tmp")
     try:
         with open(tmp, "wb") as f:
-            f.write(text.encode("utf-8"))
+            f.write(data)
             f.flush()
             os.fsync(f.fileno())
         replace_durable(tmp, dest)
@@ -53,3 +57,30 @@ def write_durable_text(dest: str, text: str) -> None:
         except OSError:
             pass
         raise
+
+
+def write_durable_text(dest: str, text: str,
+                       tmp_suffix: str | None = None) -> None:
+    write_durable_bytes(dest, text.encode("utf-8"), tmp_suffix)
+
+
+def payload_crc(payload) -> int:
+    """CRC32 over a JSON payload in canonical form (sorted keys, no
+    whitespace): the checkpoint's self-validating checksum.  Stable
+    across write/parse round trips because every payload is ints,
+    strings, bools and containers only."""
+    import json
+    import zlib
+    return zlib.crc32(json.dumps(
+        payload, sort_keys=True, separators=(",", ":")).encode())
+
+
+def truncate_durable(path: str, nbytes: int) -> None:
+    """Truncate ``path`` to ``nbytes`` and fsync.  The resume path drops
+    a torn report tail past the checkpointed prefix with it; without the
+    fsync a crash could bring back the bytes the checkpoint said were
+    gone."""
+    with open(path, "ab") as f:
+        f.truncate(nbytes)
+        f.flush()
+        os.fsync(f.fileno())

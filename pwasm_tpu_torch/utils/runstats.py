@@ -14,7 +14,10 @@ Where the port counts:
   (one ``note_dispatch``/``note_flush`` and one attempt wall a
   dispatch), and ``device_batches`` once a ctx_scan flush;
 - ``device.pad_*`` where the ctx_scan event axis is padded to its
-  power-of-two bucket (``report/device_report.py``).
+  power-of-two bucket (``report/device_report.py``);
+- ``resumed_past`` at the ``--resume`` cursor, ``preempted`` at a
+  drain's exit (75), and ``resilience.checkpoints`` once a report batch
+  checkpoint is written (``cli.py::_main_loop``).
 
 The ``host`` block maps the port's own stage timers: ``parse_s`` is
 the time in ``parse_paf_line``, ``extract_s`` the event extraction
@@ -23,10 +26,9 @@ the ctx_scan submit (pack, upload, launch) and ``format_s`` its finish
 (fetch, assembly and row formatting).
 
 Counters of later slices stay 0 under the reference's keys:
-``backend.*`` (the bounded device probe), ``resilience.*`` (retries,
-checkpoints, the breaker), ``fallback_batches``, ``engine_fallbacks``,
-``resumed_past`` and ``preempted`` (the port has no fallback and no
-``--resume`` yet).
+``backend.*`` (the bounded device probe), the rest of ``resilience.*``
+(retries, the breaker), ``fallback_batches`` and ``engine_fallbacks``
+(the port has no supervisor and no fallback yet).
 """
 
 from __future__ import annotations

@@ -129,7 +129,8 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,later", [
     ("--max-retries=2", "resilience"), ("--m2m-stream", "surveil"),
     ("--follow", "stream"), ("--result-cache=rc", "service"),
-    ("--resume", "resilience"), ("--device=tpu", "cuda or cpu")])
+    ("--inject-faults=kill=1", "resilience"),
+    ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
     paf, fa = _golden_inputs(tmp_path)
     err = io.StringIO()

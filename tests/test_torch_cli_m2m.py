@@ -150,7 +150,7 @@ def test_device_tpu_rejected(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    ("--fallback=fail", "resilience"), ("--deadline-s=5", "resilience"),
+    ("--fallback=fail", "resilience"), ("--result-cache=off", "service"),
     ("--max-retries=2", "resilience"), ("--fallback=cpu", "resilience"),
     ("--result-cache=rc", "service"),
     ("--result-cache-max-bytes=100", "service"),

@@ -62,6 +62,9 @@ def test_port_sources_never_name_jax_or_the_reference():
         "tracing")} <= rel
     assert {f"pwasm_tpu_torch/utils/{m}.py" for m in (
         "fsio", "profiling", "runstats")} <= rel
+    # and the drain
+    assert {f"pwasm_tpu_torch/resilience/{m}.py" for m in (
+        "__init__", "lifecycle")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -106,6 +109,7 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.obs.catalog\n"
         "import pwasm_tpu_torch.obs.dispatch\n"
         "import pwasm_tpu_torch.utils.profiling\n"
+        "import pwasm_tpu_torch.resilience.lifecycle\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"

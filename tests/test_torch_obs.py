@@ -4,9 +4,8 @@ event log and ``trace-merge`` as units, then the CLI wiring
 (``--trace-json``, ``--log-json``, ``--metrics-textfile``) on a small
 corpus against the reference's ``--device=tpu`` run on its CPU backend.
 
-Exact comparisons, except for walls, clock values and run ids.  The
-reference writes a ``ckpt_write`` event a batch (its checkpoints); the
-port has none until its resilience slice.
+Exact comparisons, except for walls, clock values and run ids.  Both
+write a report-batch checkpoint and its ``ckpt_write`` event a batch.
 """
 
 import io
@@ -614,13 +613,16 @@ def test_cli_exposition_matches_the_reference(cli_runs):
     d = cli_runs[0]
     port, ref = ((d / f"{t}.prom").read_text() for t in ("on", "ref"))
     assert _sample_names(port) == _sample_names(ref)
-    skip = ("seconds", "wall", "fraction", "checkpoints")
+    skip = ("seconds", "wall", "fraction")
     vals = [{ln.rsplit(" ", 1)[0]: ln.rsplit(" ", 1)[1]
              for ln in t.splitlines()
              if not ln.startswith("#") and not any(s in ln for s in skip)}
             for t in (port, ref)]
     assert vals[0] == vals[1]
-    assert "pwasm_checkpoints_total 0" in port.splitlines()
+    assert "pwasm_checkpoints_total 0" not in port.splitlines()
+    assert vals[0]["pwasm_checkpoints_total"] \
+        == str(json.loads((d / "on.json").read_text())[
+            "resilience"]["checkpoints"])
 
 
 def _trace_shape(path):
@@ -646,12 +648,12 @@ def _trace_shape(path):
 def test_cli_trace_matches_the_reference(cli_runs):
     d = cli_runs[0]
     port = _trace_shape(d / "on.trace")
-    ref = [s for s in _trace_shape(d / "ref.trace")
-           if s[0] != "ckpt_write"]
+    ref = _trace_shape(d / "ref.trace")
     assert Counter(port) == Counter(ref)
     names = {s[0] for s in port}
     assert {"run", "input_loop", "flush_submit", "flush_format",
-            "device_batch", "msa_tail", "run_start", "run_finish"} <= names
+            "device_batch", "msa_tail", "run_start", "ckpt_write",
+            "run_finish"} <= names
     doc = json.loads((d / "on.trace").read_text())
     runs = [e for e in doc["traceEvents"] if e["name"] == "run"]
     assert len(runs) == 1
@@ -667,10 +669,15 @@ def test_cli_events_match_the_reference(cli_runs):
     d = cli_runs[0]
     evs = [[json.loads(ln) for ln in (d / f"{t}.ndjson").read_text()
             .splitlines()] for t in ("on", "ref")]
-    shape = [[(e["event"], tuple(sorted(e))) for e in es
-              if e["event"] != "ckpt_write"] for es in evs]
+    shape = [[(e["event"], tuple(sorted(e))) for e in es] for es in evs]
     assert shape[0] == shape[1]
-    assert [e["event"] for e in evs[0]] == ["run_start", "run_finish"]
+    ckpts = [e for e in evs[0] if e["event"] == "ckpt_write"]
+    assert [e["event"] for e in evs[0]] \
+        == ["run_start"] + ["ckpt_write"] * len(ckpts) + ["run_finish"]
+    assert ckpts and ckpts[-1]["records"] == 12
+    assert [(e["records"], e["batch"]) for e in ckpts] \
+        == [(e["records"], e["batch"]) for e in evs[1]
+            if e["event"] == "ckpt_write"]
     assert evs[0][-1]["rc"] == 0 and evs[0][-1]["alignments"] == 12
     assert evs[0][0]["device"] == "cpu"
     assert len({e["run_id"] for e in evs[0]}) == 1
