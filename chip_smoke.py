@@ -64,8 +64,8 @@ Phases, one JSON line each; any failure exits non-zero:
               longest CDS, whose sections and -s lines must equal the
               cuda run's byte for byte; both runs with ``--stats``, whose
               ``device.by_site`` must count one ``many2many`` dispatch a
-              launch the run logged, and ``device.flushes`` the one
-              fetch of the scores; the scores kernel checked and
+              launch the run logged, and ``device.flushes`` as many
+              fetches (each dispatch's block); the scores kernel checked and
               timed on the inputs of the cuda run's largest dispatch;
 10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
               4 targets of ~116 kb: the streamed scores kernel runs (its
@@ -134,10 +134,26 @@ Phases, one JSON line each; any failure exits non-zero:
               --deadline-s=0.000001`` on phase 9's inputs exits 75; the
               walls, and the per-batch checkpoint's cost in turns at
               ``--batch=16`` and 256 without and with ``-o``;
-15. the ``kernels`` line (with each main-path kernel's
-   ``resume_launches`` from phase 14's SIGTERM resume), the card's name
-   and power limit as nvidia-smi prints them, and the final
-   ``{"ok": true, ...}`` line.
+15. supervisor — the batch supervisor (``run_supervisor``), every CLI
+              output held by bytes to phase 5's or 7's: seeded raise /
+              nan / corrupt faults on ``--realign`` (injected faults,
+              retries, guardrail rejects, no fallback); injected 2 s
+              hangs against ``--device-deadline=0.5``; ``oom=64`` with
+              its bisection and the ceiling carried through a
+              ``kill=K`` and ``--resume``; a real
+              ``torch.cuda.OutOfMemoryError`` (128 GiB asked, two 64 GiB
+              halves) bisected by ``BatchSupervisor.run``; the abort of
+              ``--fallback=fail`` with a checkpoint that resumes; the
+              bounded CUDA probe paid once and then answered by its TTL
+              marker, as CLI processes; config 3 through
+              ``--many2many --max-retries=2`` with dispatches = flushes
+              = 360;
+16. the ``kernels`` line (with each main-path kernel's
+   ``resume_launches`` from phase 14's SIGTERM resume and, for the
+   consensus, forward and walk kernels, ``faulted_launches`` from
+   phase 15's faulted ``--realign`` run), the card's name and power
+   limit as nvidia-smi prints them, and the final ``{"ok": true, ...}``
+   line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
 against the plain version at 3 queries x 37 targets for bands 1 to
@@ -1216,11 +1232,12 @@ def run_many2many(work: str, cycles_per_s: float | None,
         if rc != 0:
             raise AssertionError(f"--many2many --device={dev} rc={rc}: {err}")
         # --stats counts one many2many dispatch a launch the run logged,
-        # and one flush: the scores' one copy to the host
+        # and as many flushes: each dispatch's copy of its block to the
+        # host (a supervised attempt)
         with open(f"{out}.json") as f:
             m2m_stats = json.load(f)
         if m2m_stats["device"]["by_site"] != {"many2many": len(dispatches)} \
-                or m2m_stats["device"]["flushes"] != 1 \
+                or m2m_stats["device"]["flushes"] != len(dispatches) \
                 or st["dispatches"] != len(dispatches) \
                 or m2m_stats["alignments"] != st["pairs"]:
             raise AssertionError(
@@ -2150,6 +2167,313 @@ def run_resilience(work: str, paf: str, fa: str, outputs: dict,
     return record
 
 
+def abandoned_threads_done(limit_s: float = 30.0) -> int:
+    """Wait for the supervisor's abandoned attempt threads (``pwasm-*``,
+    left running at their deadline) to end; returns how many there
+    were."""
+    import threading
+
+    left = [t for t in threading.enumerate() if t.name.startswith("pwasm-")]
+    for t in left:
+        t.join(limit_s)
+    if any(t.is_alive() for t in left):
+        raise AssertionError("an abandoned attempt thread still runs after "
+                             f"{limit_s} s")
+    return len(left)
+
+
+def run_supervisor(work: str, paf: str, fa: str, outputs: dict,
+                   re_outputs: dict, m2m_tsv: bytes, smi: str) -> dict:
+    """Phase 15: the batch supervisor (``resilience/supervisor.py``) on
+    the card.  Every CLI output is held by bytes to phase 5's
+    (``outputs``) or phase 7's (``re_outputs``):
+
+    - a: the realistic corpus with ``--realign`` and seeded raise / nan /
+      corrupt faults at rate 0.3, ``--max-retries=8``: ``--stats`` shows
+      injected faults, retries and guardrail rejects, no fallback; the
+      consensus, forward and walk launches of this run are the kernels
+      line's ``faulted_launches``;
+    - b: the main path at ``--batch=16`` with injected 2 s hangs (seed 7,
+      rate 0.3) against ``--device-deadline=0.5``: deadline timeouts, the
+      wall, and launches at least the clean run's (an abandoned attempt
+      runs on and launches late);
+    - c: ``--batch=100 --inject-faults=oom=64``: OOM events, splits and
+      demotions, the checkpoint's ceiling 64; the same run killed
+      (``kill=K``) at its last ctx_scan attempt, its checkpoint holding
+      the first batch and ceiling 64; the ``--resume`` with ``oom=64``
+      armed re-runs the second batch in chunks of 64 with no OOM;
+    - d: a real ``torch.cuda.OutOfMemoryError``: ``BatchSupervisor.run``
+      with a ``BisectableBatch`` of 128 items whose attempt allocates a
+      GiB an item on cuda:0, classified as an OOM (no retry, no breaker),
+      one split, one demotion, both 64 GiB halves combined; and
+      ``check_launch``'s text for ``cudaErrorMemoryAllocation``;
+    - e: ``--inject-faults=rate=1,sites=consensus --max-retries=1`` exits
+      1 with the reference's ``ResilienceError`` line and leaves a
+      checkpoint that verifies; a clean ``--resume`` completes it;
+    - f: the bounded CUDA probe: the CLI as processes with
+      ``PWASM_DEVICE_PROBE_TTL=0`` (one probe paid) and then twice with
+      the default TTL (warm hits), and one ``probe_backend`` timed;
+    - g: config 3 through ``--many2many --max-retries=2 --stats``: the
+      report equal to phase 9's, dispatches = flushes = 360.
+
+    Returns the phase's record with the faulted launches.  Raises on a
+    failure."""
+    import torch
+
+    from pwasm_tpu_torch.cli import _load_checkpoint
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+    from pwasm_tpu_torch.ops.banded_dp import cuda_error_text
+    from pwasm_tpu_torch.resilience import (BatchSupervisor,
+                                            BisectableBatch, InjectedKill,
+                                            ResiliencePolicy, is_oom_error)
+    from pwasm_tpu_torch.utils import backend
+    from pwasm_tpu_torch.utils.runstats import RunStats
+
+    def reset() -> None:
+        for key in ra.LAUNCHES:
+            ra.LAUNCHES[key] = 0
+        cons.LAUNCHES = 0
+        ctx_scan.FLUSHES.clear()
+
+    def launched() -> dict:
+        return dict(ra.LAUNCHES, consensus=cons.LAUNCHES,
+                    ctx_scan=ctx_scan.FLUSHES.get("cuda", 0))
+
+    def stats_of(tag: str) -> dict:
+        with open(os.path.join(work, f"{tag}.json")) as f:
+            return json.load(f)
+
+    def cli(tag: str, *flags: str, outs=True) -> tuple:
+        """One in-process CLI run on the card: (rc, stderr, wall)."""
+        rc, _st, err, wall = run_cli(
+            [paf, "-r", fa, *(out_args(work, tag) if outs else []),
+             "--device=cuda", f"--stats={os.path.join(work, tag)}.json",
+             *flags])
+        return rc, err, wall
+
+    def same(tag: str, want: dict, what: str, resumed=False) -> None:
+        """The run's outputs equal ``want``; a resumed run's -s covers
+        only the resumed portion (in both packages), so it is left
+        out there."""
+        got = read_outputs(work, tag)
+        differ = [n for n in OUTPUTS if got[n] != want[n]
+                  and not (resumed and n == "summary.txt")]
+        if differ:
+            raise AssertionError(f"{what}: outputs differ from the clean "
+                                 f"run's: {differ}")
+
+    record: dict = {}
+
+    # a: seeded raise / nan / corrupt faults on the --realign path
+    reset()
+    rc, err, wall = cli("sup_faults", "--realign", "--max-retries=8",
+                        "--inject-faults=seed=7,rate=0.3,"
+                        "kinds=raise+nan+corrupt")
+    faulted = launched()
+    if rc != 0:
+        raise AssertionError(f"a: rc {rc}: {err[-2000:]}")
+    same("sup_faults", re_outputs, "a (faults, --realign)")
+    res = stats_of("sup_faults")["resilience"]
+    if not (res["injected_faults"] > 0 and res["retries"] > 0
+            and res["guardrail_rejects"] > 0) or res["fallbacks"] \
+            or not (faulted["consensus"] and faulted["fwdptr"]
+                    and faulted["walk"]):
+        raise AssertionError(f"a: resilience {res}, launches {faulted}")
+    record["faults"] = dict(wall_s=wall, resilience=res, launches=faulted,
+                            by_site=stats_of("sup_faults")["device"][
+                                "by_site"])
+
+    # b: injected hangs against the per-attempt deadline
+    reset()
+    rc, err, clean_wall = cli("sup_clean16", "--batch=16")
+    clean = launched()
+    if rc != 0:
+        raise AssertionError(f"b clean: rc {rc}: {err[-2000:]}")
+    reset()
+    rc, err, wall = cli("sup_hang", "--batch=16", "--max-retries=8",
+                        "--device-deadline=0.5", "--inject-faults=seed=7,"
+                        "rate=0.3,kinds=hang,hang_s=2")
+    threads = abandoned_threads_done()
+    hung = launched()
+    if rc != 0:
+        raise AssertionError(f"b: rc {rc}: {err[-2000:]}")
+    same("sup_hang", outputs, "b (hangs)")
+    res = stats_of("sup_hang")["resilience"]
+    if res["deadline_timeouts"] < 1 or res["fallbacks"] \
+            or hung["ctx_scan"] < clean["ctx_scan"] \
+            or hung["consensus"] < clean["consensus"]:
+        raise AssertionError(f"b: resilience {res}, launches {hung} (clean "
+                             f"{clean})")
+    record["hangs"] = dict(wall_s=wall, clean_wall_s=clean_wall,
+                           resilience=res, launches=hung,
+                           clean_launches=clean, abandoned_threads=threads)
+
+    # c: the injected OOM, its bisection, the ceiling in the checkpoint
+    rc, err, wall = cli("sup_oom", "--batch=100", "--inject-faults=oom=64")
+    if rc != 0:
+        raise AssertionError(f"c: rc {rc}: {err[-2000:]}")
+    same("sup_oom", outputs, "c (oom=64)")
+    st = stats_of("sup_oom")
+    res = st["resilience"]
+    attempts = sum(st["device"]["by_site"].values())
+    if not (res["oom_events"] > 0 and res["batch_splits"] > 0
+            and res["bucket_demotions"] > 0) or res["fallbacks"]:
+        raise AssertionError(f"c: resilience {res}")
+    report = os.path.join(work, "sup_kill.report.dfa")
+    killed = False
+    try:
+        # the last supervised attempt is the consensus launch; the one
+        # before it the last chunk of the second report batch
+        cli("sup_kill", "--batch=100",
+            f"--inject-faults=oom=64,kill={attempts - 1}")
+    except InjectedKill:
+        killed = True
+    ck = _load_checkpoint(report)
+    if not killed or not isinstance(ck, tuple) or ck[1] != 100 \
+            or (ck[2] or {}).get("bucket_ceiling") != 64:
+        raise AssertionError(f"c: killed {killed}, checkpoint {ck}")
+    rc, err, resume_wall = cli("sup_kill", "--batch=100",
+                               "--inject-faults=oom=64", "--resume")
+    if rc != 0:
+        raise AssertionError(f"c --resume: rc {rc}: {err[-2000:]}")
+    same("sup_kill", outputs, "c (killed, resumed)", resumed=True)
+    res_resume = stats_of("sup_kill")["resilience"]
+    if res_resume["oom_events"] or res_resume["batch_splits"] \
+            or stats_of("sup_kill")["resumed_past"] != 100:
+        raise AssertionError(f"c --resume: {res_resume}")
+    record["oom"] = dict(wall_s=wall, resilience=res, attempts=attempts,
+                         by_site=st["device"]["by_site"],
+                         checkpoint=dict(records=ck[1], resilience=ck[2]),
+                         resume_wall_s=resume_wall,
+                         resume_resilience=res_resume)
+
+    # d: a real allocation failure on the card, bisected
+    torch.cuda.empty_cache()
+    sizes, gib = [], 1 << 30
+
+    def allocate(items):
+        t = torch.empty(len(items) * gib, dtype=torch.uint8,
+                        device="cuda:0")
+        sizes.append(len(items))
+        del t
+        return len(items)
+
+    sup_st = RunStats()
+    sup = BatchSupervisor(ResiliencePolicy(max_retries=2), stats=sup_st,
+                          stderr=io.StringIO())
+    seen = []
+    t0 = time.perf_counter()
+    got = sup.run("ctx_scan", lambda: allocate(list(range(128))),
+                  bisect=BisectableBatch(
+                      items=list(range(128)), attempt_for=allocate,
+                      combine=lambda parts: seen.extend(parts) or sum(
+                          r for _i, r in parts)))
+    oom_wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    try:
+        torch.empty(128 * gib, dtype=torch.uint8, device="cuda:0")
+        real_error = None
+    except torch.cuda.OutOfMemoryError as e:
+        real_error = e
+    torch.cuda.empty_cache()
+    launch_text = cuda_error_text(2)
+    if got != 128 or sizes != [64, 64] or [len(i) for i, _r in seen] \
+            != [64, 64] or (sup_st.res_oom_events, sup_st.res_batch_splits,
+                            sup_st.res_bucket_demotions, sup_st.res_retries,
+                            sup_st.res_breaker_trips) != (1, 1, 1, 0, 0) \
+            or sup.bucket_ceiling != 64 or not is_oom_error(real_error) \
+            or "out of memory" not in launch_text:
+        raise AssertionError(
+            f"d: got {got}, allocations {sizes}, parts "
+            f"{[len(i) for i, _r in seen]}, counters "
+            f"{sup_st.as_dict()['resilience']}, ceiling "
+            f"{sup.bucket_ceiling}, error {real_error!r}, "
+            f"cudaGetErrorString(2) {launch_text!r}")
+    record["real_oom"] = dict(wall_s=oom_wall, error=str(real_error)[:200],
+                              halves=sizes, cuda_error_2=launch_text)
+
+    # e: --fallback=fail aborts with a resumable checkpoint
+    rc, err, wall = cli("sup_fail", "--max-retries=1",
+                        "--inject-faults=rate=1,sites=consensus")
+    line = "Error: device work 'consensus' failed and --fallback=fail " \
+        "forbids degrading"
+    ck = _load_checkpoint(os.path.join(work, "sup_fail.report.dfa"))
+    if rc != 1 or line not in err or not isinstance(ck, tuple) \
+            or ck[1] != 200:
+        raise AssertionError(f"e: rc {rc}, checkpoint {ck}: {err[-2000:]}")
+    rc, err, resume_wall = cli("sup_fail", "--resume")
+    if rc != 0:
+        raise AssertionError(f"e --resume: rc {rc}: {err[-2000:]}")
+    same("sup_fail", outputs, "e (--fallback=fail, resumed)",
+         resumed=True)
+    record["fail"] = dict(wall_s=wall, resume_wall_s=resume_wall,
+                          error=line, checkpoint_records=ck[1])
+
+    # f: the bounded probe, paid once, then answered by the TTL marker
+    probe = []
+    for k, ttl in enumerate(("0", None, None)):
+        tag = f"sup_probe{k}"
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop("PWASM_DEVICE_PROBE", None)
+        env.pop("PWASM_DEVICE_PROBE_TTL", None)
+        if ttl is not None:
+            env["PWASM_DEVICE_PROBE_TTL"] = ttl
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "pwasm_tpu_torch.cli", paf, "-r", fa,
+             *out_args(work, tag), "--device=cuda",
+             f"--stats={os.path.join(work, tag)}.json"], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"f {tag}: rc {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        same(tag, outputs, f"f ({tag})")
+        probe.append(dict(ttl=ttl, wall_s=time.perf_counter() - t0,
+                          **stats_of(tag)["backend"]))
+    if [(p["probes"], p["warm_hits"]) for p in probe] \
+            != [(1, 0), (0, 1), (0, 1)]:
+        raise AssertionError(f"f: backend counters {probe}")
+    t0 = time.perf_counter()
+    platform, why = backend.probe_backend(dict(os.environ),
+                                          backend.probe_timeout())
+    probe_s = time.perf_counter() - t0
+    if platform != "cuda":
+        raise AssertionError(f"f: probe_backend -> {platform!r}: {why}")
+    record["probe"] = dict(probe_s=probe_s, runs=probe)
+
+    # g: config 3 with --max-retries: one fetch a supervised dispatch
+    qfa = os.path.join(work, "m2m_cds.fa")
+    tfa = os.path.join(work, "m2m_targets.fa")
+    out = os.path.join(work, "sup_m2m")
+    rc, st, err, wall = run_cli(
+        ["--many2many", tfa, "-r", qfa, "-o", f"{out}.tsv",
+         "--device=cuda", "--max-retries=2", f"--stats={out}.json"])
+    with open(f"{out}.json") as f:
+        dev = json.load(f)["device"]
+    with open(f"{out}.tsv", "rb") as f:
+        same_report = f.read() == m2m_tsv
+    if rc != 0 or not same_report or not dev["dispatches"] \
+            == dev["flushes"] == st["dispatches"] == 360:
+        raise AssertionError(f"g: rc {rc}, report equal {same_report}, "
+                             f"device {dev}, dispatches {st.get('dispatches')}"
+                             f": {err[-2000:]}")
+    record["many2many"] = dict(wall_s=wall, score_s=st["times"]["score"],
+                               stage_s=st["times"],
+                               dispatches=dev["dispatches"],
+                               flushes=dev["flushes"])
+    print(f"supervisor walls, s: faults --realign {record['faults']['wall_s']:.3f}; "
+          f"hangs {record['hangs']['wall_s']:.3f} (clean "
+          f"{clean_wall:.3f}); oom=64 {record['oom']['wall_s']:.3f}; "
+          f"real OOM bisection {oom_wall:.3f}; probe "
+          f"{probe_s:.3f} (CLI walls "
+          + ", ".join(f"{p['wall_s']:.3f}" for p in probe)
+          + f"); config-3 scoring {st['times']['score']:.3f}; {smi}",
+          flush=True)
+    return record
+
+
 def run_shard_library(pile, main_inputs, long_inputs) -> list:
     """Phase 12's library checks on meshes of 4 and 8 entries that all
     name cuda:0: each sharded call against its unsharded call on the
@@ -2970,7 +3294,16 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="resilience", nvidia_smi=smi, **resilience))
     resume_launches = resilience["res_term"]["resume"]["launches"]
 
-    # 15. the kernels line, the card, the verdict
+    # 15. the supervisor: faults, hangs, OOMs (injected and real), the
+    # abort, the bounded probe and config 3 under --max-retries
+    with open(os.path.join(work, "m2m_cuda.tsv"), "rb") as f:
+        m2m_tsv = f.read()
+    supervisor = run_supervisor(work, paf, fa, runs["cuda"]["outputs"],
+                                re_runs["cuda"]["outputs"], m2m_tsv, smi)
+    emit(dict(phase="supervisor", nvidia_smi=smi, **supervisor))
+    faulted_launches = supervisor["faults"]["launches"]
+
+    # 16. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -3001,6 +3334,7 @@ def main(argv: list[str]) -> int:
         launches=main_launches,
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
+        faulted_launches=faulted_launches["consensus"],
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -3015,6 +3349,7 @@ def main(argv: list[str]) -> int:
         launches=re_launches["fwdptr"],
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
+        faulted_launches=faulted_launches["fwdptr"],
         max_abs_err=re_err,
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
@@ -3042,6 +3377,7 @@ def main(argv: list[str]) -> int:
         launches=re_launches["walk"],
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
+        faulted_launches=faulted_launches["walk"],
         max_abs_err=re_err,
         ms=main_re["ms_walk"], plain_ms=main_re["plain_ms_walk"],
         bound_ms=main_re["bound_ms_walk"],

@@ -18,7 +18,6 @@ import numpy as np
 
 from pwasm_tpu_torch.core.dna import revcomp
 from pwasm_tpu_torch.core.errors import PwasmError
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 
 # per-seq bit flags (GapAssem.h:12-16)
 FLAG_IS_REF = 0
@@ -274,7 +273,7 @@ class GapSeq:
 def refine_clipping_batch(seqs: list[GapSeq], cons: bytes,
                           cposes: list[int], device,
                           skip_dels: bool = False,
-                          hook=NULL_HOOK) -> None:
+                          supervisor=None) -> None:
     """Refine the clipped ends of MANY members against the consensus in
     one vectorized pass (the refineMSA member loop,
     GapAssem.cpp:1133-1183, flattened into (members, layout) tensors).
@@ -286,8 +285,8 @@ def refine_clipping_batch(seqs: list[GapSeq], cons: bytes,
     ``torch.device``, or a mesh the members shard over;
     ops/refine_clip.py); the host writes the clips
     back.  Members with no clips are skipped outright (the common case
-    costs nothing).  ``hook`` counts and traces the device dispatch
-    (``obs/dispatch.py``).
+    costs nothing).  ``supervisor`` supervises the device dispatch
+    (``ops/refine_clip.py::refine_phases``).
     """
     sel = [i for i, s in enumerate(seqs) if s.clp5 or s.clp3]
     if not sel:
@@ -371,7 +370,7 @@ def refine_clipping_batch(seqs: list[GapSeq], cons: bytes,
     clipL, clipR, missR, missL = refine_phases(
         gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL, gclipR,
         clipL0, clipR0, seqlens, XDROP, MATCH_SC, MISMATCH_SC,
-        device=device, hook=hook)
+        device=device, supervisor=supervisor)
     for km in np.nonzero(missR)[0]:
         print(f"Warning: reached clipL trying to find an "
               f"initial match on {seqs[sel[km]].name}!", file=sys.stderr)

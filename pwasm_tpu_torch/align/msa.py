@@ -24,7 +24,7 @@ import numpy as np
 
 from pwasm_tpu_torch.align.gapseq import FLAG_BAD_ALN, FLAG_PREPPED, GapSeq
 from pwasm_tpu_torch.core.errors import PwasmError, ZeroCoverageError
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
+from pwasm_tpu_torch.resilience.guardrails import check_consensus
 
 # column buckets, exactly this order (GapAssem.h:257-264)
 NUC_ORDER = b"ACGTN-"
@@ -56,8 +56,8 @@ def device_counts_votes(pile: np.ndarray, device):
     counts summed before the vote (``sharded_counts_votes``; a device is
     its one-shard mesh).  Returns ``(chars (cols,) int64 — vote
     character codes, 0 = zero coverage; counts (cols, 6) int32)``, both
-    on the host: a caller's ``consensus`` dispatch (``obs/dispatch.py``)
-    is this whole call."""
+    on the host: a caller's supervised ``consensus`` dispatch
+    (``resilience/supervisor.py``) is this whole call."""
     from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_counts_votes
 
     votes, counts = sharded_counts_votes(as_mesh(device))(pile)
@@ -343,14 +343,17 @@ class Msa:
             mat = np.concatenate([mat, rows], axis=0)
         return mat
 
-    def build_msa(self, device, hook=NULL_HOOK) -> None:
+    def build_msa(self, device, supervisor=None) -> None:
         """(GSeqAlign::buildMSA, GapAssem.cpp:1088-1106).  The column
         counts and the consensus votes come from one consensus launch over
         ``pileup_matrix()`` on ``device`` (a ``torch.device``, or a
         mesh to shard over; device_counts_votes — the device form of
         toMSA+bestChar, GapAssem.cpp:1088-1106 / 1048-1069); the host
         keeps only the geometry side effects (live window, clip
-        witnesses, bad-trim flags)."""
+        witnesses, bad-trim flags).  ``supervisor``
+        (``resilience/supervisor.py``) supervises the launch as one
+        ``consensus`` dispatch, its output checked by
+        ``check_consensus``; None makes it a direct call."""
         if self.msacolumns is not None:
             raise PwasmError("Error: cannot call buildMSA() twice!\n")
         # deleted bases are handled via spill rows in pileup_matrix; a
@@ -367,8 +370,12 @@ class Msa:
                 s.set_flag(FLAG_BAD_ALN)
                 self.badseqs += 1
             self._seq_geometry(s, self.msacolumns)
-        chars, counts = hook.run(
-            "consensus", lambda: device_counts_votes(pile, device))
+        if supervisor is None:
+            chars, counts = device_counts_votes(pile, device)
+        else:
+            chars, counts = supervisor.run(
+                "consensus", lambda: device_counts_votes(pile, device),
+                validate=lambda r: check_consensus(r[0], r[1], pile))
         self.msacolumns.counts[:] = counts
         self.msacolumns.layers[:] = counts.sum(axis=1, dtype=np.int32)
         self._vote_chars = chars
@@ -385,7 +392,7 @@ class Msa:
     def refine_msa(self, device, remove_cons_gaps: bool = True,
                    refine_clipping: bool = True,
                    times: dict | None = None,
-                   hook=NULL_HOOK) -> None:
+                   supervisor=None) -> None:
         """Consensus construction + clipping refinement
         (GSeqAlign::refineMSA, GapAssem.cpp:1133-1183) on ``device`` (a
         ``torch.device``): the column counts and the votes come from one
@@ -395,10 +402,9 @@ class Msa:
         remove_cons_gaps=False (SURVEY.md §2.5.8).  With a mesh for
         ``device`` both shard over it (``pafreport --shard``).  ``times``
         accumulates the ``consensus`` and ``refine`` stage seconds;
-        ``hook`` counts and traces the device dispatches
-        (``obs/dispatch.py``)."""
+        ``supervisor`` supervises the device dispatches."""
         t0 = time.perf_counter()
-        self.build_msa(device, hook)
+        self.build_msa(device, supervisor)
         cols = self.msacolumns
         votes = self._vote_chars[cols.mincol:cols.maxcol + 1]
         cols_removed = 0
@@ -427,7 +433,8 @@ class Msa:
         if refine_clipping:
             refine_clipping_batch(
                 self.seqs, bytes(self.consensus),
-                [_cpos(s) for s in self.seqs], device, hook=hook)
+                [_cpos(s) for s in self.seqs], device,
+                supervisor=supervisor)
         second: list = []
         for s in self.seqs:
             grem = s.remove_clip_gaps() if remove_cons_gaps else 0
@@ -437,7 +444,7 @@ class Msa:
             refine_clipping_batch(
                 second, bytes(self.consensus),
                 [_cpos(s) for s in second], device, skip_dels=True,
-                hook=hook)
+                supervisor=supervisor)
         self.refined = True
         if times is not None:
             times["consensus"] = times.get("consensus", 0.0) + t1 - t0

@@ -18,10 +18,17 @@ gap structure is first replaced by a banded Gotoh re-alignment
 (``parallel/mesh.py``).  ``--stats`` writes the run's counters
 (``utils/runstats.py``), ``--profile`` a ``torch.profiler`` trace
 (``utils/profiling.py``), and ``--trace-json``, ``--log-json`` and
-``--metrics-textfile`` the run's spans, events and metrics (``obs/``);
-each device dispatch is counted and traced by ``obs/dispatch.py``.
-Every ``-o`` run leaves a checkpoint after each report batch
-(``<report>.ckpt``, version 2, CRC'd), from which ``--resume``
+``--metrics-textfile`` the run's spans, events and metrics (``obs/``).
+Every device dispatch runs under the run's one ``BatchSupervisor``
+(``resilience/supervisor.py``), which counts and traces it, retries it
+on the same device (``--max-retries``), abandons a hung attempt
+(``--device-deadline``), re-executes output its guardrails reject,
+bisects a batch the card could not allocate, and aborts the run (exit
+1, ``--fallback=fail``, the only policy) when that runs out;
+``--inject-faults`` arms its deterministic fault injection
+(``resilience/faults.py``).  Every ``-o`` run leaves a checkpoint after
+each report batch (``<report>.ckpt``, version 2, CRC'd, with the
+supervisor's state under ``resilience``), from which ``--resume``
 continues a killed run; SIGTERM/SIGINT and ``--deadline-s`` drain the
 run at the next batch boundary and exit 75, resumable
 (``resilience/lifecycle.py``).
@@ -37,10 +44,11 @@ Usage:
       [--shard[=N]] [--skip-bad-lines] [--stats=FILE] [--profile=DIR]
       [--trace-json=FILE] [--trace-max-events=N] [--log-json=FILE|-]
       [--log-json-max-bytes=N] [--metrics-textfile=PATH] [--resume]
-      [--deadline-s=S]
+      [--deadline-s=S] [--max-retries=N] [--device-deadline=S]
+      [--inject-faults=SPEC] [--fallback=fail] [--recover=off]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
-      [--stats=FILE] [--deadline-s=S]
+      [--stats=FILE] [--deadline-s=S] [--max-retries=N] [--fallback=fail]
   python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
       [-o OUT.json]
 """
@@ -51,8 +59,11 @@ import sys
 import threading
 import time
 
-from pwasm_tpu_torch.core.config import (AUTO_FULLGENOME_FASTA_BYTES, Config,
-                                         deadline_seconds, load_motifs)
+from pwasm_tpu_torch.core.config import (AUTO_FULLGENOME_FASTA_BYTES,
+                                         FALLBACK_CPU_REFUSED,
+                                         RECOVER_AUTO_REFUSED, Config,
+                                         deadline_seconds, load_motifs,
+                                         reprobe_refused)
 from pwasm_tpu_torch.core.dna import revcomp
 from pwasm_tpu_torch.core.errors import (EXIT_PREEMPTED, EXIT_USAGE,
                                          PwasmError)
@@ -62,6 +73,7 @@ from pwasm_tpu_torch.core.paf import _atoi, parse_paf_line
 from pwasm_tpu_torch.obs import NULL_OBS
 from pwasm_tpu_torch.report.diff_report import Summary
 from pwasm_tpu_torch.resilience.lifecycle import PreemptedError, SignalDrain
+from pwasm_tpu_torch.utils.runstats import RunStats
 
 USAGE = """Usage:
  pafreport <paf_with_cg_cs> -r <refseq.fa> [-s <summary.txt>]
@@ -137,10 +149,28 @@ USAGE = """Usage:
    --metrics-textfile=PATH  write the run's metrics as Prometheus
                text exposition at end of run (atomic publish) for a
                node-exporter textfile collector
+   --max-retries=N    re-execute a failed/rejected device batch up to
+               N times on the same device (exponential backoff +
+               jitter; default 2)
+   --device-deadline=S  per-batch device deadline in seconds: a hung
+               attempt is abandoned and retried (default: none)
+   --fallback=fail  what exhausted retries do: abort the run (exit 1)
+               with a valid checkpoint; the only policy (device work
+               never moves to the host)
+   --recover=off  the only setting (nothing is moved to the host, so
+               nothing is re-promoted)
+   --inject-faults=SPEC  debug: deterministic seeded fault injection
+               into supervised device calls, e.g.
+               seed=7,rate=0.3,kinds=raise+hang+nan+corrupt
+               a scripted outage window down=A-B[+C-D], a scripted
+               preemption preempt=N (graceful drain at supervised
+               call N), a simulated memory ceiling oom=N, or a kill at
+               supervised attempt K, kill=K
+               (see pwasm_tpu_torch/resilience/faults.py for the spec)
 
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [--stats=FILE] [-v]
-    [--deadline-s=S]
+    [--deadline-s=S] [--max-retries=N] [--fallback=fail]
    score every query of the -r FASTA against every target of
    <targets.fa> (banded affine-gap DP); one report section per query
 
@@ -156,13 +186,15 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "remove-cons-gaps", "no-refine-clip", "device", "shard",
                "skip-bad-lines", "profile", "stats", "trace-json",
                "trace-max-events", "log-json", "log-json-max-bytes",
-               "metrics-textfile", "resume", "deadline-s")
+               "metrics-textfile", "resume", "deadline-s", "max-retries",
+               "device-deadline", "inject-faults", "fallback", "recover",
+               "reprobe-interval", "reprobe-max")
 
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queue A)
-_LATER = ("a later slice (the resilience supervisor: --max-retries, "
-          "--device-deadline, --inject-faults, --fallback, --recover and "
-          "--reprobe-*; then stream, service, fleet and surveil)")
+_LATER = ("a later slice (stream: --follow; service: the subcommands, "
+          "--result-cache and --compile-cache-dir; then fleet and "
+          "surveil)")
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
                  "inspect", "top", "route", "health", "logs")
 
@@ -244,9 +276,9 @@ def _ckpt_path(report_path: str) -> str:
 # plus a report-tail boundary check (the recorded byte offset must land
 # exactly on a record boundary of the actual report file).  Any failure
 # quarantines the ckpt to <report>.ckpt.bad and the run restarts
-# cleanly — never resumes onto garbage.  The port has no supervisor
-# yet, so it writes no "resilience" key; the CRC still covers every
-# non-meta key, so a checkpoint the reference wrote verifies here.
+# cleanly — never resumes onto garbage.  The supervisor's state rides
+# under "resilience" (``BatchSupervisor.export_state``, the reference's
+# keys), so a checkpoint either package wrote resumes in the other.
 CKPT_VERSION = 2
 _CKPT_META = ("version", "crc")   # non-payload keys, excluded from CRC
 
@@ -288,9 +320,10 @@ def _on_record_boundary(report_path: str, nbytes: int) -> bool:
 
 
 def _load_checkpoint(report_path: str) \
-        -> tuple[int, int] | str | None:
+        -> tuple[int, int, dict | None] | str | None:
     """Read and VERIFY the batch-granular resume checkpoint for
-    ``report_path``.  Returns ``(bytes, records)`` when the ckpt is whole (version + CRC verified, offset on a record
+    ``report_path``.  Returns ``(bytes, records, resilience_state)``
+    when the ckpt is whole (version + CRC verified, offset on a record
     boundary of the actual report); ``None`` when no ckpt file exists
     (the header-scan heuristic applies); or a ``str`` diagnostic when a
     ckpt EXISTS but is torn/corrupt/inconsistent — the caller must
@@ -333,7 +366,8 @@ def _load_checkpoint(report_path: str) \
     if not _on_record_boundary(report_path, nbytes):
         return f"ckpt offset {nbytes} is not a record boundary of " \
                "the report"
-    return nbytes, nrec
+    res = ck.get("resilience")
+    return nbytes, nrec, res if isinstance(res, dict) else None
 
 
 def _quarantine_checkpoint(report_path: str, why: str, stderr) -> None:
@@ -358,14 +392,17 @@ def _quarantine_checkpoint(report_path: str, why: str, stderr) -> None:
           "a corrupt prefix", file=stderr)
 
 
-def _write_checkpoint(freport, report_path: str, records: int) -> bool:
+def _write_checkpoint(freport, report_path: str, records: int,
+                      res_state: dict | None = None) -> bool:
     """Atomically AND durably persist the report's durable prefix after
     one completed batch: fsync the report, then publish the v2
     (versioned, CRC'd) ckpt JSON via the audited fsync-then-replace
     (``utils.fsio``: tmp write + tmp fsync + rename + parent-dir
     fsync — a crash at any instant leaves the old ckpt or the new one,
     never a torn or empty file that merely *looks* atomic).
-    Best-effort — a failed write never stops the run (returns
+    ``res_state`` rides along (the supervisor's breaker, bucket-ceiling
+    and fault-clock snapshot) so a ``--resume`` after a kill inherits
+    it.  Best-effort — a failed write never stops the run (returns
     False)."""
     import json
     import os
@@ -378,6 +415,8 @@ def _write_checkpoint(freport, report_path: str, records: int) -> bool:
         size = os.fstat(freport.fileno()).st_size
         ck = {"version": CKPT_VERSION, "bytes": size,
               "records": records}
+        if res_state is not None:
+            ck["resilience"] = res_state
         ck["crc"] = _ckpt_crc(ck)
         write_durable_text(_ckpt_path(report_path), json.dumps(ck),
                            tmp_suffix=".tmp")
@@ -486,7 +525,9 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
             stderr.write(f"{USAGE} Error: --shard requires "
                          "--device=cuda!\n")
             return EXIT_USAGE
-    device = resolve_device(cfg.device)
+    _parse_resilience_opts(cfg, opts)
+    run_stats = RunStats()
+    device = resolve_device(cfg.device, run_stats)
     cfg.realign = bool(opts.get("realign"))
     if cfg.realign and "w" not in opts \
             and not any(k in opts for k in ("ace", "info", "cons")):
@@ -516,11 +557,11 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
             raise CliError(f"{USAGE}\nInvalid --deadline-s value: "
                            f"{opts['deadline-s']}\n")
     _parse_obs_opts(cfg, opts)
-    resume_skip = 0
+    resume_skip, resume_state = 0, None
     if cfg.resume:
         if "o" not in opts:
             raise CliError(f"{USAGE}\n--resume requires -o <report>\n")
-        resume_skip = _resume_point(str(opts["o"]), stderr)
+        resume_skip, resume_state = _resume_point(str(opts["o"]), stderr)
     elif "o" in opts:
         # a fresh run invalidates any checkpoint left by a killed
         # predecessor writing the same report path
@@ -607,7 +648,7 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
                               qfasta, stderr, cons_outs, nmsa,
                               stats if stats is not None else {}, obs,
                               str(opts["o"]) if "o" in opts else None,
-                              resume_skip, drain)
+                              resume_skip, resume_state, drain, run_stats)
     except PwasmError as e:
         stderr.write(str(e))
         if obs.enabled:
@@ -623,10 +664,11 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         obs.close(stderr)
 
 
-def _resume_point(report_path: str, stderr) -> int:
+def _resume_point(report_path: str, stderr) -> tuple[int, dict | None]:
     """``--resume``'s preamble (reference cli.py:837-914): the number
     of accepted alignments whose rows the report already holds, with
-    the report truncated to exactly their bytes.
+    the report truncated to exactly their bytes, and the supervisor
+    state the checkpoint carries (or None).
 
     Checkpoint first: a verified ``<report>.ckpt`` names the byte size
     and record count of the last completed batch; any torn tail past it
@@ -638,7 +680,7 @@ def _resume_point(report_path: str, stderr) -> int:
     landed), truncates there and skips the surviving headers."""
     from pwasm_tpu_torch.utils.fsio import truncate_durable
 
-    resume_skip = 0
+    resume_skip, resume_state = 0, None
     ck = _load_checkpoint(report_path)
     if isinstance(ck, str):
         _quarantine_checkpoint(report_path, ck, stderr)
@@ -646,15 +688,15 @@ def _resume_point(report_path: str, stderr) -> int:
             truncate_durable(report_path, 0)
         except OSError:
             pass
-        return 0
+        return 0, None
     if ck is not None:
-        nbytes, resume_skip = ck
+        nbytes, resume_skip, resume_state = ck
         try:
             truncate_durable(report_path, nbytes)
         except OSError:
-            resume_skip = 0
+            resume_skip, resume_state = 0, None
     if resume_skip:
-        return resume_skip
+        return resume_skip, resume_state
     try:
         # stream in chunks (reports can be GBs): count record headers
         # and remember where the last one starts
@@ -690,7 +732,7 @@ def _resume_point(report_path: str, stderr) -> int:
             truncate_durable(report_path, keep)
     except OSError:
         resume_skip = 0   # nothing emitted yet: a fresh run
-    return resume_skip
+    return resume_skip, resume_state
 
 
 def _parse_obs_opts(cfg: Config, opts: dict) -> None:
@@ -721,6 +763,60 @@ def _parse_obs_opts(cfg: Config, opts: dict) -> None:
                        "(stdout already carries the report)\n")
 
 
+def _parse_resilience_opts(cfg: Config, opts: dict) -> None:
+    """``--max-retries``, ``--device-deadline`` and ``--inject-faults``
+    with the reference's checks and messages (reference cli.py:731-806);
+    ``--fallback`` and ``--recover`` take only the port's one setting,
+    and the reference's degradations (``--fallback=cpu``,
+    ``--recover=auto``, ``--reprobe-*``) exit 1 naming what they
+    are."""
+    import math
+
+    if "max-retries" in opts:
+        val = opts["max-retries"]
+        if val is True or not str(val).isascii() \
+                or not str(val).isdigit():
+            raise CliError(f"{USAGE}\nInvalid --max-retries value: "
+                           f"{val}\n")
+        cfg.max_retries = int(val)
+    if "device-deadline" in opts:
+        try:
+            cfg.device_deadline = float(str(opts["device-deadline"]))
+            # nan would poison every thread join, inf is no deadline
+            if cfg.device_deadline <= 0 \
+                    or not math.isfinite(cfg.device_deadline):
+                raise ValueError
+        except (TypeError, ValueError):
+            raise CliError(f"{USAGE}\nInvalid --device-deadline "
+                           f"value: {opts['device-deadline']}\n")
+    if "fallback" in opts:
+        cfg.fallback = str(opts["fallback"])
+        if cfg.fallback not in ("cpu", "fail"):
+            raise CliError(f"{USAGE}\nInvalid --fallback value: "
+                           f"{cfg.fallback} (must be cpu or fail)\n")
+        if cfg.fallback == "cpu":
+            raise CliError(FALLBACK_CPU_REFUSED)
+    if "recover" in opts:
+        cfg.recover = str(opts["recover"])
+        if cfg.recover not in ("auto", "off"):
+            raise CliError(f"{USAGE}\nInvalid --recover value: "
+                           f"{cfg.recover} (must be auto or off)\n")
+        if cfg.recover == "auto":
+            raise CliError(RECOVER_AUTO_REFUSED)
+    for knob in ("reprobe-interval", "reprobe-max"):
+        if knob in opts:
+            raise CliError(reprobe_refused(knob))
+    if "inject-faults" in opts:
+        if opts["inject-faults"] is True:
+            raise CliError(f"{USAGE}\n--inject-faults requires a spec\n")
+        cfg.inject_faults = str(opts["inject-faults"])
+        from pwasm_tpu_torch.resilience.faults import parse_fault_spec
+        try:
+            parse_fault_spec(cfg.inject_faults)
+        except ValueError as e:
+            raise CliError(f"{USAGE}\nInvalid --inject-faults: {e}\n")
+
+
 def _run_mesh(shard: int, device, stderr, verbose: bool):
     """The run's one mesh: with ``--shard[=N]`` over the first N visible
     CUDA devices (every one for -1), else the 1 x 1 mesh of ``device``."""
@@ -739,21 +835,24 @@ def _run_mesh(shard: int, device, stderr, verbose: bool):
 
 
 def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
-                        stderr, stats: dict, times: dict, hook) -> None:
+                        stderr, stats: dict, times: dict,
+                        supervisor) -> None:
     """End-of-run MSA outputs of the C++ engine: the ``-D`` layout, the
     unrefined ``-w``, then, for the consensus outputs, the engine's
     rendered pileup counted and voted by the consensus launch on
     the run's ``mesh`` (the CUDA kernel on a CUDA device), the votes
     applied back
     in the engine (``refine_external``, which also runs the X-drop clip
-    refinement), and the ace/info/cons writers.  ``hook`` counts and
-    traces the consensus dispatch (``obs/dispatch.py``)."""
+    refinement), and the ace/info/cons writers.  The consensus launch
+    is one ``consensus`` dispatch through ``supervisor``, its output
+    checked by ``check_consensus``."""
     import os
     import tempfile
 
     import numpy as np
 
     from pwasm_tpu_torch.align.msa import device_counts_votes
+    from pwasm_tpu_torch.resilience.guardrails import check_consensus
 
     t0 = time.perf_counter()
     built = nmsa.count() > 0
@@ -780,8 +879,9 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
     stats["pileup"] = (depth, length)
     pile = np.empty((depth, length), dtype=np.int8)
     nmsa.render_pileup(pile)
-    chars, counts = hook.run("consensus",
-                             lambda: device_counts_votes(pile, mesh))
+    chars, counts = supervisor.run(
+        "consensus", lambda: device_counts_votes(pile, mesh),
+        validate=lambda r: check_consensus(r[0], r[1], pile))
     t2 = time.perf_counter()
     times["consensus"] += t2 - t1
     nmsa.refine_external(counts, chars, cfg.remove_cons_gaps,
@@ -800,12 +900,12 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
 
 def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
                         cons_outs: dict, stderr, stats: dict,
-                        times: dict, hook) -> None:
+                        times: dict, supervisor) -> None:
     """End-of-run MSA outputs of the Python engine (``align/msa.py``):
     the ``-D`` layout, the unrefined ``-w``, then refine once (the
     consensus launch over ``Msa.pileup_matrix`` over the run's
     ``mesh``, the clip refinement as torch ops there; both dispatches
-    through ``hook``) and the ace/info/cons writers."""
+    through ``supervisor``) and the ace/info/cons writers."""
     t0 = time.perf_counter()
     if cfg.debug:
         print(f">MSA ({ref_msa.count()})", file=stderr)
@@ -818,7 +918,8 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
         stats["pileup"] = (ref_msa.count(), ref_msa.length)
         ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
                            refine_clipping=cfg.refine_clipping,
-                           device=mesh, times=times, hook=hook)
+                           device=mesh, times=times,
+                           supervisor=supervisor)
         t0 = time.perf_counter()
         contig = ref_msa.seqs[0].name if ref_msa.seqs else "contig"
         if "ace" in cons_outs:
@@ -833,34 +934,57 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
 def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                qfasta: FastaFile, stderr, cons_outs: dict, nmsa,
                stats: dict, obs, report_path: str | None,
-               resume_skip: int, drain: SignalDrain) -> int:
+               resume_skip: int, resume_state: dict | None,
+               drain: SignalDrain, run_stats) -> int:
     """The per-PAF-line loop (pafreport.cpp:296-460).  ``nmsa`` is the
     C++ MSA engine (``native.NativeMsa``), or None for the Python
     engine (``align/msa.py``).  ``mesh`` is the run's mesh, over which
     the device work spreads (``parallel/mesh.py``): ``--shard``'s, or
     the one device's.  ``obs`` is the run's observability bundle
-    (``obs/``): each device dispatch goes through one ``DispatchHook``
-    that counts it into the run's ``RunStats`` and traces it.
+    (``obs/``) and ``run_stats`` its ``RunStats``: each device dispatch
+    goes through the run's one ``BatchSupervisor``, which counts it
+    into both and traces it.
 
     ``report_path`` (``-o``, else None) gets a checkpoint after each
-    completed report batch.  ``resume_skip`` is the number of accepted
-    alignments whose rows the report already holds (``--resume``): they
-    are parsed (and, for an MSA output, extracted, re-aligned and
-    merged) but not reported again.  ``drain`` is the run's
-    ``SignalDrain``: a drain requested before the end of input stops
+    completed report batch, with the supervisor's state.
+    ``resume_skip`` is the number of accepted alignments whose rows the
+    report already holds (``--resume``): they are parsed (and, for an
+    MSA output, extracted, re-aligned and merged) but not reported
+    again; ``resume_state`` is the supervisor state the checkpoint
+    carried.  ``drain`` is the run's ``SignalDrain``: a drain requested
+    before the end of input (or by ``--inject-faults=preempt=N``) stops
     the line loop at the next line, one requested in the MSA tail
     aborts it, and either way the run returns 75 with its checkpoint
     kept."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
-    from pwasm_tpu_torch.obs.dispatch import DispatchHook
     from pwasm_tpu_torch.report.device_report import submit_diff_info_batch
-    from pwasm_tpu_torch.utils.runstats import RunStats
+    from pwasm_tpu_torch.resilience.faults import (parse_fault_spec,
+                                                   plan_from_env)
+    from pwasm_tpu_torch.resilience.supervisor import (BatchSupervisor,
+                                                       ResiliencePolicy)
 
     t_run = time.perf_counter()
-    run_stats = RunStats()
-    hook = DispatchHook(run_stats, obs)
+    # one supervisor a run: every device round-trip (report batches,
+    # --realign dispatches, the consensus and refine launches) goes
+    # through it, with the run's fault plan
+    fault_plan = parse_fault_spec(cfg.inject_faults) \
+        if cfg.inject_faults else plan_from_env()
+    if fault_plan is not None:
+        print(f"pwasm: fault injection armed (debug): {fault_plan}",
+              file=stderr)
+        if fault_plan.preempt:
+            # preempt=N pulls the same drain flag a SIGTERM sets
+            fault_plan.on_preempt = drain.request
+    supervisor = BatchSupervisor(
+        ResiliencePolicy(max_retries=cfg.max_retries,
+                         deadline_s=cfg.device_deadline or None),
+        stats=run_stats, stderr=stderr, faults=fault_plan, obs=obs)
+    if resume_state is not None:
+        # a --resume inherits the killed run's breaker, bucket ceiling
+        # and fault clock
+        supervisor.restore_state(resume_state)
     times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
                            "consensus", "refine", "write")
                           + (("realign",) if cfg.realign else ()), 0.0)
@@ -911,7 +1035,8 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         emitted += nrec
         fold_host_stages()
         if report_path is not None \
-                and _write_checkpoint(freport, report_path, emitted):
+                and _write_checkpoint(freport, report_path, emitted,
+                                      supervisor.export_state()):
             run_stats.res_checkpoints += 1
             obs.event("ckpt_write", records=emitted, batch=nrec)
 
@@ -928,7 +1053,8 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             with obs.span("flush_submit", n=len(batch)):
                 inflight.append((submit_diff_info_batch(
                     batch, freport, mesh, skip_codan=cfg.skip_codan,
-                    motifs=cfg.motifs, summary=summary, hook=hook),
+                    motifs=cfg.motifs, summary=summary, stats=run_stats,
+                    supervisor=supervisor),
                     len(batch)))
             run_stats.device_batches += 1
         t1 = time.perf_counter()
@@ -1049,7 +1175,7 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         items, re_pending[:] = re_pending[:], []
         results = realign_pairs(
             [(q_seg, bytes(aln.tseq)) for aln, _t, _r, _o, q_seg in items],
-            band=cfg.band, device=mesh, hook=hook)
+            band=cfg.band, device=mesh, supervisor=supervisor)
         times["realign"] += time.perf_counter() - t0
         for (aln, tlabel, refseq_b, ordn, _q), res in zip(items, results):
             al = aln.alninfo
@@ -1266,11 +1392,11 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 if nmsa is not None:
                     flush_msa_pending()
                     _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs,
-                                        stderr, stats, times, hook)
+                                        stderr, stats, times, supervisor)
                 elif ref_msa is not None:
                     _python_msa_outputs(ref_msa, cfg, mesh, fmsa,
                                         cons_outs, stderr, stats, times,
-                                        hook)
+                                        supervisor)
         except PreemptedError:
             preempted = True
     if preempted and nmsa is not None:
@@ -1287,6 +1413,7 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             # the report is whole: its checkpoint is obsolete.  A
             # preempted run keeps it: it is what --resume continues from
             _unlink_checkpoint(report_path)
+    supervisor.finalize_stats()
     run_stats.preempted = preempted
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(mesh.devices.flat[0]))
@@ -1296,7 +1423,7 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         # the metrics are a function of the same --stats schema
         # (obs/catalog.py): fold the finished run in (only the host
         # residual the per-flush folds left) and stamp the breaker
-        # gauge (closed: the port has no breaker yet); obs.close
+        # gauge (the port has no re-probing monitor); obs.close
         # publishes the textfile
         from pwasm_tpu_torch.obs.catalog import (breaker_state_value,
                                                  fold_run_stats)
@@ -1305,7 +1432,8 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             0.0, d["host"][k + "_s"] - host_folded[k]), 6)
             for k in host_folded}
         fold_run_stats(obs.run_metrics, d)
-        obs.set_gauge("breaker_state", breaker_state_value(False))
+        obs.set_gauge("breaker_state",
+                      breaker_state_value(supervisor.breaker_open))
     if cfg.stats_path:
         try:
             with open(cfg.stats_path, "w") as f:

@@ -53,6 +53,34 @@ class Config:
     #                                 budget (0 = unbounded); expiry
     #                                 drains at the next batch boundary:
     #                                 resumable ckpt, rc 75
+    max_retries: int = 2            # --max-retries: extra attempts of
+    #                                 a failed/rejected device batch
+    device_deadline: float = 0.0    # --device-deadline: per-attempt wall
+    #                                 ceiling in seconds (0 = none)
+    inject_faults: str = ""         # --inject-faults: FaultPlan spec
+    fallback: str = "fail"          # --fallback: the only policy, abort
+    recover: str = "off"            # --recover: the only setting, no
+    #                                 re-promotion (nothing is demoted)
+
+
+# the reference's degradations, which the port does not have: each
+# option that asks for one exits 1 with its message
+FALLBACK_CPU_REFUSED = (
+    "Error: --fallback=cpu moves failed device work to the host, a "
+    "degradation pwasm_tpu_torch does not have; --fallback=fail (the "
+    "default: abort with a resumable checkpoint) is its only policy\n")
+RECOVER_AUTO_REFUSED = (
+    "Error: --recover=auto re-promotes device work after a move to the "
+    "host, a degradation pwasm_tpu_torch does not have; --recover=off "
+    "(the default) is its only setting\n")
+
+
+def reprobe_refused(knob: str) -> str:
+    """The message of ``--reprobe-interval`` / ``--reprobe-max``, the
+    schedule of ``--recover=auto``'s re-probes."""
+    return (f"Error: --{knob} schedules --recover=auto's re-probes after a "
+            "move to the host, a degradation pwasm_tpu_torch does not "
+            "have\n")
 
 
 def deadline_seconds(val) -> float | None:

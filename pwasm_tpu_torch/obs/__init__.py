@@ -15,7 +15,7 @@ subsystem behind three CLI flags and one subcommand:
   axis (:mod:`pwasm_tpu_torch.obs.merge`).
 
 The :class:`Observability` facade is what gets threaded through the
-run (cli -> the device dispatch hook, ``obs/dispatch.py``): a null
+run (cli -> the batch supervisor, ``resilience/supervisor.py``): a null
 instance (every hook a cheap no-op) when no flag asked for anything, so
 the hot path carries one attribute check per hook and the byte-parity
 contract — report bytes identical with observability on and off —

@@ -318,10 +318,23 @@ def scores_plan(m: int, n: int, band: int,
                 window=out[6], smem=out[7])
 
 
+def cuda_error_text(rc: int) -> str:
+    """The CUDA runtime's description of error code ``rc``
+    (``cudaGetErrorString``, through torch's binding of the runtime)."""
+    rt = torch.cuda.cudart()
+    return rt.cudaGetErrorString(rt.cudaError(rc))
+
+
 def check_launch(rc: int, what: str) -> None:
-    """Raise when a C launcher returned a CUDA error code."""
+    """Raise when a C launcher (the scores, realign and consensus
+    kernels') returned a CUDA error code.  The message names the
+    runtime's description, so the supervisor classifies a
+    ``cudaErrorMemoryAllocation`` ("out of memory") as a device OOM
+    (``resilience/supervisor.py::is_oom_error``), not a compute
+    fault."""
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                           f"{rc}: {cuda_error_text(rc)}")
 
 
 def pad16(x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from pwasm_tpu_torch.ops import _build
+from pwasm_tpu_torch.ops.banded_dp import check_launch
 from pwasm_tpu_torch.ops.consensus_host import CODE_ZERO_COV, N_CLASSES
 
 LAUNCHES = 0
@@ -158,9 +159,7 @@ def launch(pile: torch.Tensor, counts: torch.Tensor,
     rc = _fn("pw_consensus")(pile.data_ptr(), depth, cols,
                              counts.data_ptr(), votes.data_ptr(),
                              torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"consensus kernel launch failed: CUDA error "
-                           f"{rc}")
+    check_launch(rc, "consensus")
     LAUNCHES += 1
 
 

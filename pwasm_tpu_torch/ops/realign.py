@@ -49,11 +49,11 @@ import torch
 
 from pwasm_tpu_torch import native
 from pwasm_tpu_torch.core.events import GapData
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops import _build
 from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, check_launch,
                                            initial_wavefront, interior_rows,
                                            make_row_step, pad16)
+from pwasm_tpu_torch.resilience.guardrails import check_realign
 
 OP_DIAG, OP_IX, OP_IY = 1, 2, 3
 
@@ -853,7 +853,7 @@ _PTR_BYTES_LIMIT = 1 << 30
 
 def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
                   params: ScoreParams = ScoreParams(), *,
-                  device, hook=NULL_HOOK):
+                  device, supervisor=None):
     """Re-align a batch of (query_segment, target) byte-string pairs on
     ``device``, a ``torch.device`` or a mesh of them
     (``parallel/mesh.py``): each dispatch's lanes shard over the mesh
@@ -867,8 +867,10 @@ def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
     Lanes whose end diagonal the band cannot cover retry with an
     escalated band (x4 per retry up to 4096); leftovers of at most
     ``_NATIVE_ORACLE_CELL_LIMIT`` cells use the native host oracle.
-    Each chunk's launch and fetch is one ``realign`` dispatch through
-    ``hook`` (``obs/dispatch.py``), a mesh's shards together."""
+    Each chunk's launch and fetch is one ``realign`` dispatch, a mesh's
+    shards together, supervised by ``supervisor``
+    (``resilience/supervisor.py``: its host outputs checked by
+    ``check_realign``) or, with None, a direct call."""
     from pwasm_tpu_torch.core.dna import encode
     from pwasm_tpu_torch.parallel.bucketing import group_by_shape
     from pwasm_tpu_torch.parallel.mesh import as_mesh
@@ -880,13 +882,13 @@ def realign_pairs(pairs: list[tuple[bytes, bytes]], band: int = 64,
     groups = group_by_shape((len(qc), len(tc)) for qc, tc in enc)
     for (mb, nb), idxs in sorted(groups.items()):
         _realign_group(enc, idxs, mb, nb, band, params, out,
-                       as_mesh(device), hook)
+                       as_mesh(device), supervisor)
     return out
 
 
 def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
                    params: ScoreParams, out: list,
-                   mesh, hook) -> None:
+                   mesh, supervisor) -> None:
     """Dispatch one shape bucket of ``realign_pairs`` lanes (padded to
     (m_max, n)) over ``mesh``, writing results into ``out`` at their
     original indices."""
@@ -917,11 +919,20 @@ def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
         for c0 in range(0, len(todo), chunk):
             sub = todo[c0:c0 + chunk]
             dlo = _pick_dlo(t_lens[sub] - q_lens[sub], cur_band)
-            scores, leads, iy_runs, ops_rows, ok = hook.run(
-                "realign", lambda: tuple(
-                    x.numpy() for x in sharded_realign_rows(
-                        mesh, *(x[sub] for x in (qs, ts, q_lens, t_lens)),
-                        band=cur_band, params=params, dlo=dlo)))
+            def dispatch(sub=sub, dlo=dlo, cur_band=cur_band):
+                return tuple(x.numpy() for x in sharded_realign_rows(
+                    mesh, *(x[sub] for x in (qs, ts, q_lens, t_lens)),
+                    band=cur_band, params=params, dlo=dlo))
+
+            if supervisor is None:
+                res = dispatch()
+            else:
+                res = supervisor.run(
+                    "realign", dispatch,
+                    validate=lambda r, sub=sub: check_realign(
+                        *r, q_lens=q_lens[sub], t_lens=t_lens[sub],
+                        match_score=params.match))
+            scores, leads, iy_runs, ops_rows, ok = res
             for idx, k in enumerate(sub):
                 if ok[idx]:
                     out[idxs[k]] = (int(scores[idx]),

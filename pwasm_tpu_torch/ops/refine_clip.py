@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops.ctx_scan_impl import first_true
+from pwasm_tpu_torch.resilience.guardrails import check_refine_clips
 
 STAR = ord("*")
 
@@ -126,13 +126,15 @@ def _phases(gseq, gxpos, cons, cpos, glen, totals, gclipL, gclipR,
 def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
                   gclipR, clipL0, clipR0, seqlens, xdrop: int,
                   match_sc: int, mismatch_sc: int,
-                  device, hook=NULL_HOOK):
+                  device, supervisor=None):
     """Run both refinement phases over the layout arrays built by
     refine_clipping_batch (numpy in, numpy out) on ``device``, a
     ``torch.device`` or a mesh of them (``parallel/mesh.py``): the
     member axis shards over every mesh axis (``sharded_refine_phases``;
     a device is its one-shard mesh).  The launch and fetch is one
-    ``refine`` dispatch through ``hook`` (``obs/dispatch.py``).
+    ``refine`` dispatch, supervised by ``supervisor``
+    (``resilience/supervisor.py``: the clips checked by
+    ``check_refine_clips``) or, with None, a direct call.
     Returns (clipL, clipR, missR, missL) for the M real members."""
     from pwasm_tpu_torch.parallel.mesh import as_mesh, sharded_refine_phases
 
@@ -160,5 +162,12 @@ def refine_phases(gseq2, gxpos2, cons_arr, cpos, glen, totals, gclipL,
             padv(seqlens))
     phases = sharded_refine_phases(as_mesh(device), int(xdrop),
                                    int(match_sc), int(mismatch_sc))
-    return hook.run("refine", lambda: tuple(
-        x[:M].numpy() for x in phases(*args, C)))
+
+    def dispatch():
+        return tuple(x[:M].numpy() for x in phases(*args, C))
+
+    if supervisor is None:
+        return dispatch()
+    return supervisor.run("refine", dispatch,
+                          validate=lambda r: check_refine_clips(
+                              r[0], r[1], seqlens))

@@ -18,13 +18,13 @@ import time
 import numpy as np
 import torch
 
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK
 from pwasm_tpu_torch.ops.banded_dp import (NEG, ScoreParams, band_dlo,
                                            banded_scores_matrix)
 from pwasm_tpu_torch.parallel.bucketing import (bucket_queries, encode_seqs,
                                                 pad_to_width)
 from pwasm_tpu_torch.parallel.mesh import (Mesh, _inner_factor, device_grid,
                                            device_pool, grid_of, shard_bounds)
+from pwasm_tpu_torch.resilience.guardrails import check_scores_matrix
 
 
 def make_mesh2d(n_devices: int | None = None,
@@ -72,7 +72,7 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
                             params: ScoreParams = ScoreParams(), *,
                             device: torch.device,
                             stats: dict | None = None,
-                            hook=NULL_HOOK) -> np.ndarray:
+                            supervisor=None) -> np.ndarray:
     """(Q, T) int32 scores for RAGGED query/target sequence lists
     (bytes/str or int8 code arrays), computed on ``device``.
 
@@ -100,12 +100,13 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
     ``pad_to_width`` of those targets at that width.  Results scatter
     back to input order.  ``stats``, when given, gains ``bucket_s``
     (host bucketing and upload), ``score_s`` (the dispatches, through
-    the copy of the scores to the host) and ``dispatches`` (the
-    launches made).  Each launch is one ``many2many`` dispatch through
-    ``hook`` (``obs/dispatch.py``) that leaves its scores on the device:
-    they come back in one copy after the last launch, the call's one
-    flush.  On a CUDA device a dispatch's wall is thus the launch and
-    the scatter."""
+    the copies of the scores to the host) and ``dispatches`` (the
+    dispatches made).  Each launch is one ``many2many`` dispatch that
+    ends in the copy of its (rows x in-band targets) block to the host,
+    supervised by ``supervisor`` (``resilience/supervisor.py``: the
+    block checked by ``check_scores_matrix``) or, with None, a direct
+    call; the blocks scatter into the result after each dispatch
+    returns, so an attempt writes into no shared array."""
     t0 = time.perf_counter()
     qbs = bucket_queries(list(qs))
     ts_enc = encode_seqs(ts)
@@ -115,13 +116,12 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
     tall = pad_to_width(ts_enc, width)
     t_all = torch.from_numpy(tall.data).to(device)
     lens_all = torch.from_numpy(tall.lens).to(device)
-    out = torch.full((Q, T), NEG, dtype=torch.int32, device=device)
+    out = np.full((Q, T), NEG, dtype=np.int32)
     t1 = time.perf_counter()
     dispatches = 0
     for qb in qbs:
         m = qb.width
         qd = torch.from_numpy(qb.data).to(device)
-        rows = torch.from_numpy(qb.idx).to(device)
         for group, n_eff in ((t_len <= m, m), (t_len > m, m + band - 2)):
             if not group.any():
                 continue
@@ -131,18 +131,23 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
                 continue
             cols = torch.from_numpy(keep).to(device)
 
-            def launch():
-                out[rows[:, None], cols[None, :]] = banded_scores_matrix(
-                    qd, t_all[cols, :n_eff], lens_all[cols], band, params)
+            def dispatch(qd=qd, cols=cols, n_eff=n_eff):
+                return banded_scores_matrix(
+                    qd, t_all[cols, :n_eff], lens_all[cols], band,
+                    params).cpu().numpy()
 
-            hook.launch("many2many", launch)
+            if supervisor is None:
+                block = dispatch()
+            else:
+                block = supervisor.run(
+                    "many2many", dispatch,
+                    validate=lambda s, n=len(qb.idx), k=len(keep), m=m:
+                        check_scores_matrix(s, n, k, params.match, m))
+            out[np.ix_(qb.idx, keep)] = block
             dispatches += 1
-    if dispatches:
-        hook.note_flush()
-    res = out.cpu().numpy()
     if stats is not None:
         stats["bucket_s"] = stats.get("bucket_s", 0.0) + t1 - t0
         stats["score_s"] = stats.get("score_s", 0.0) \
             + time.perf_counter() - t1
         stats["dispatches"] = stats.get("dispatches", 0) + dispatches
-    return res
+    return out

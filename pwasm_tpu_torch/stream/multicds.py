@@ -4,13 +4,16 @@ Counterpart of ``pwasm_tpu/stream/multicds.py``, reduced to the one-shot
 job: load both FASTAs, score every query in the ``-r`` FASTA against
 every target in the positional FASTA through one
 ``many2many_scores_ragged`` call (queries bucketed by exact length,
-targets padded per query bucket), format, and write.  ``--stats``
-writes the run's counters (``utils/runstats.py``): the pairs as lines
-and alignments, and one ``many2many`` dispatch a launch
-(``obs/dispatch.py``).  ``--deadline-s`` is checked at the dispatch
-boundary: a job whose budget is spent before its scoring call exits 75
-(preempted) and writes no report.  The result cache, the supervisor
-and the served jobs come with later slices.
+targets padded per query bucket), format, and write.  Each dispatch
+runs under the job's ``BatchSupervisor`` (``--max-retries``; the
+port's only policy is ``--fallback=fail``), with no fault plan, as in
+the reference.  ``--stats`` writes the run's counters
+(``utils/runstats.py``): the pairs as lines and alignments, and one
+``many2many`` dispatch and flush a supervised attempt.
+``--deadline-s`` is checked at the dispatch boundary: a job whose
+budget is spent before its scoring call exits 75 (preempted) and
+writes no report.  The result cache and the served jobs come with
+later slices.
 
 Output contract: the report is a sequence of per-CDS sections, each
 depending only on (that query, the targets) —
@@ -34,7 +37,8 @@ import time
 
 import numpy as np
 
-from pwasm_tpu_torch.core.config import deadline_seconds
+from pwasm_tpu_torch.core.config import (FALLBACK_CPU_REFUSED,
+                                         deadline_seconds)
 from pwasm_tpu_torch.core.errors import (EXIT_PREEMPTED, EXIT_USAGE,
                                          PwasmError)
 from pwasm_tpu_torch.utils.runstats import RunStats
@@ -42,7 +46,7 @@ from pwasm_tpu_torch.utils.runstats import RunStats
 M2M_USAGE = """Usage:
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--device=cuda|cpu] [--band=N] [--stats=FILE] [-v]
-    [--deadline-s=S]
+    [--deadline-s=S] [--max-retries=N] [--fallback=fail]
 
    Score EVERY query in the -r FASTA against EVERY target in
    <targets.fa> (banded affine-gap DP, parallel/many2many.py).  The
@@ -57,15 +61,16 @@ M2M_USAGE = """Usage:
    --stats=FILE   write run statistics as one JSON object
    --deadline-s=S  end-to-end wall budget: a job whose budget runs out
                before its scoring dispatch exits 75 (preempted)
+   --max-retries=N  re-execute a failed/rejected scoring dispatch up
+               to N times on the same device (default 2)
+   --fallback=fail  what exhausted retries do: abort the job (exit 1),
+               the only policy (the host path is never taken)
 """
 
 # options of the reference's --many2many that later slices of the port
 # bring (ROADMAP.md queue A)
-_RESILIENCE = "the resilience slice (retries and fallbacks)"
 _SERVICE = "the service slice (the result cache and the warm pool)"
 _LATER = {
-    "max-retries": _RESILIENCE,
-    "fallback": _RESILIENCE,
     "result-cache": _SERVICE,
     "result-cache-max-bytes": _SERVICE,
     "compile-cache-dir": _SERVICE,
@@ -131,6 +136,19 @@ def parse_m2m_opts(opts: dict):
                 or not str(val).isdigit() or int(val) < 1:
             raise _usage_err(f"Error: invalid --band value: {val}")
         band = int(val)
+    max_retries = 2
+    if "max-retries" in opts:
+        val = opts["max-retries"]
+        if val is True or not str(val).isascii() \
+                or not str(val).isdigit():
+            raise _usage_err(
+                f"Error: invalid --max-retries value: {val}")
+        max_retries = int(val)
+    fallback = str(opts.get("fallback", "fail"))
+    if fallback not in ("cpu", "fail"):
+        raise _usage_err(f"Error: invalid --fallback value: {fallback}")
+    if fallback == "cpu":
+        raise PwasmError(FALLBACK_CPU_REFUSED, EXIT_USAGE)
     deadline_s = None
     if "deadline-s" in opts:
         deadline_s = deadline_seconds(opts["deadline-s"])
@@ -146,6 +164,7 @@ def parse_m2m_opts(opts: dict):
         raise _usage_err("Error: --stats requires a file argument")
     return SimpleNamespace(
         rpath=rpath, device=device, band=band, deadline_s=deadline_s,
+        max_retries=max_retries,
         stats_path=str(opts.get("stats", "")),
         verbose=bool(opts.get("v")) or bool(opts.get("D")))
 
@@ -216,16 +235,18 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     bucket, score, format, write), the wall time, the dispatch count,
     the pair count and the device."""
     from pwasm_tpu_torch.device import resolve_device
-    from pwasm_tpu_torch.obs.dispatch import DispatchHook
     from pwasm_tpu_torch.ops.banded_dp import NEG, BandPlacementError
     from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
+    from pwasm_tpu_torch.resilience.supervisor import (BatchSupervisor,
+                                                       ResiliencePolicy)
 
     t_run = time.perf_counter()
     cfg = parse_m2m_opts(opts)
     if len(positional) != 1:
         raise _usage_err("Error: --many2many takes exactly one "
                          "<targets.fa> argument")
-    device = resolve_device(cfg.device)
+    run_stats = RunStats()
+    device = resolve_device(cfg.device, run_stats)
     t0_mono = time.monotonic()
     times = dict.fromkeys(("load", "bucket", "score", "format", "write"),
                           0.0)
@@ -234,7 +255,6 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     tnames, ts = load_fasta(positional[0], "target")
     tlens = [len(t) for t in ts]
     times["load"] = time.perf_counter() - t0
-    run_stats = RunStats()
     pairs = len(qs) * len(ts)
     if cfg.verbose:
         print(f"many2many: {pairs} of {pairs} pair(s), band {cfg.band}, "
@@ -246,10 +266,13 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
         # never start a dispatch the budget cannot see
         return _preempted(cfg, len(qs), run_stats, stderr)
     sc: dict = {}
+    supervisor = BatchSupervisor(
+        ResiliencePolicy(max_retries=cfg.max_retries), stats=run_stats,
+        stderr=stderr)
     try:
         scores = many2many_scores_ragged(qs, ts, band=cfg.band,
                                          device=device, stats=sc,
-                                         hook=DispatchHook(run_stats))
+                                         supervisor=supervisor)
     except BandPlacementError as e:   # a band too narrow for a group
         raise PwasmError(f"Error: {e}\n")
     times["bucket"], times["score"] = sc["bucket_s"], sc["score_s"]
@@ -275,6 +298,7 @@ def many2many_main(opts: dict, positional: list, stdout, stderr,
     # events none, aligned bases every target once per query
     run_stats.lines = run_stats.alignments = pairs
     run_stats.aligned_bases = sum(tlens) * len(qs)
+    supervisor.finalize_stats()
     if cfg.stats_path:
         try:
             with open(cfg.stats_path, "w") as f:

@@ -10,14 +10,19 @@ host stage walls, and writes one JSON object; the per-event
 Where the port counts:
 
 - the input counters in ``cli.py::_main_loop``, as the reference's;
-- ``device.*`` at each device dispatch, through ``obs/dispatch.py``
-  (one ``note_dispatch``/``note_flush`` and one attempt wall a
-  dispatch), and ``device_batches`` once a ctx_scan flush;
+- ``device.*`` at each supervised attempt, in
+  ``resilience/supervisor.py::BatchSupervisor.run`` (one
+  ``note_dispatch``/``note_flush`` and one attempt wall an attempt),
+  and ``device_batches`` once a ctx_scan flush;
 - ``device.pad_*`` where the ctx_scan event axis is padded to its
   power-of-two bucket (``report/device_report.py``);
 - ``resumed_past`` at the ``--resume`` cursor, ``preempted`` at a
   drain's exit (75), and ``resilience.checkpoints`` once a report batch
-  checkpoint is written (``cli.py::_main_loop``).
+  checkpoint is written (``cli.py::_main_loop``);
+- the rest of ``resilience.*`` (retries, guardrail rejects, deadline
+  timeouts, injected faults, OOM bisection, breaker trips) in the
+  supervisor, and ``backend.*`` around the bounded CUDA probe
+  (``device.py::resolve_device``).
 
 The ``host`` block maps the port's own stage timers: ``parse_s`` is
 the time in ``parse_paf_line``, ``extract_s`` the event extraction
@@ -25,10 +30,11 @@ the time in ``parse_paf_line``, ``extract_s`` the event extraction
 the ctx_scan submit (pack, upload, launch) and ``format_s`` its finish
 (fetch, assembly and row formatting).
 
-Counters of later slices stay 0 under the reference's keys:
-``backend.*`` (the bounded device probe), the rest of ``resilience.*``
-(retries, the breaker), ``fallback_batches`` and ``engine_fallbacks``
-(the port has no supervisor and no fallback yet).
+Counters of the reference's degradations stay 0 under its keys: the
+port never moves device work to the host, so ``fallback_batches``,
+``engine_fallbacks``, ``resilience.fallbacks``, ``degraded_*``,
+``breaker_recloses``, ``reprobe_attempts`` and ``recovered_batches``
+are 0 on every run that finishes.
 """
 
 from __future__ import annotations
@@ -95,7 +101,7 @@ class RunStats:
         self.host_analyze_s = 0.0
         self.host_format_s = 0.0
         # dispatch budget: a "dispatch" is one device program launch
-        # (one obs/dispatch.py call), a "flush" one host-blocking
+        # (one supervised attempt), a "flush" one host-blocking
         # round-trip (the host waits on device results); one nested
         # "device" block in the JSON
         self.device_dispatches = 0     # device program launches

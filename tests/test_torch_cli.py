@@ -127,9 +127,9 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--max-retries=2", "resilience"), ("--m2m-stream", "surveil"),
+    ("--compile-cache-dir=cc", "service"), ("--m2m-stream", "surveil"),
     ("--follow", "stream"), ("--result-cache=rc", "service"),
-    ("--inject-faults=kill=1", "resilience"),
+    ("--follow=2.5", "stream"),
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
     paf, fa = _golden_inputs(tmp_path)

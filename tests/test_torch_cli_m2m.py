@@ -150,8 +150,9 @@ def test_device_tpu_rejected(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    ("--fallback=fail", "resilience"), ("--result-cache=off", "service"),
-    ("--max-retries=2", "resilience"), ("--fallback=cpu", "resilience"),
+    ("--result-cache", "service"), ("--result-cache=off", "service"),
+    ("--compile-cache-dir", "service"),
+    ("--result-cache-max-bytes=1k", "service"),
     ("--result-cache=rc", "service"),
     ("--result-cache-max-bytes=100", "service"),
     ("--compile-cache-dir=cc", "service")])

@@ -122,12 +122,14 @@ def unsharded(tmp_path_factory):
 
 @pytest.fixture
 def cpu_pool(monkeypatch):
-    """``--device=cuda`` resolves to the CPU, and the pool holds eight
-    CPU entries."""
+    """``--device=cuda`` resolves to the CPU, the pool holds eight CPU
+    entries, and no bounded CUDA probe runs (this box has no card)."""
     real = devmod.resolve_device
     monkeypatch.setattr(devmod, "resolve_device",
-                        lambda name: CPU if name == "cuda" else real(name))
+                        lambda name, stats=None: CPU if name == "cuda"
+                        else real(name, stats))
     monkeypatch.setattr(pm, "visible_devices", lambda: [CPU] * 8)
+    monkeypatch.setenv("PWASM_DEVICE_PROBE", "0")
 
 
 @pytest.mark.parametrize("flag,shards", [("--shard", 8), ("--shard=4", 4)])

@@ -58,13 +58,14 @@ def test_port_sources_never_name_jax_or_the_reference():
         "mesh", "many2many", "wavefront_sp", "bucketing")} <= rel
     # and so are the run statistics, the profiler hook and obs/
     assert {f"pwasm_tpu_torch/obs/{m}.py" for m in (
-        "__init__", "catalog", "dispatch", "events", "merge", "metrics",
+        "__init__", "catalog", "events", "merge", "metrics",
         "tracing")} <= rel
     assert {f"pwasm_tpu_torch/utils/{m}.py" for m in (
-        "fsio", "profiling", "runstats")} <= rel
-    # and the drain
+        "backend", "fsio", "profiling", "runstats")} <= rel
+    # and the drain, the supervisor, its guardrails and fault injection
     assert {f"pwasm_tpu_torch/resilience/{m}.py" for m in (
-        "__init__", "lifecycle")} <= rel
+        "__init__", "faults", "guardrails", "lifecycle",
+        "supervisor")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -95,7 +96,8 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
            f"--metrics-textfile={tmp_path / 'm.prom'}",
            f"--profile={tmp_path / 'prof'}"]
     argv = [str(tmp_path / "in.paf"), "-r", str(tmp_path / "q.fa"),
-            *outs, *obs, "--device=cpu"]
+            *outs, *obs, "--device=cpu", "--max-retries=8",
+            "--inject-faults=seed=1,rate=0.3,kinds=raise+nan+corrupt"]
     merge = ["trace-merge", str(tmp_path / "t.json"), "-o",
              str(tmp_path / "tm.json")]
     code = (
@@ -107,9 +109,9 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.parallel.many2many\n"
         "import pwasm_tpu_torch.parallel.wavefront_sp\n"
         "import pwasm_tpu_torch.obs.catalog\n"
-        "import pwasm_tpu_torch.obs.dispatch\n"
+        "import pwasm_tpu_torch.utils.backend\n"
         "import pwasm_tpu_torch.utils.profiling\n"
-        "import pwasm_tpu_torch.resilience.lifecycle\n"
+        "import pwasm_tpu_torch.resilience\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"

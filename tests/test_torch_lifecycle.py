@@ -3,12 +3,9 @@ and ``--deadline-s`` against the JAX package's.
 
 ``SignalDrain`` as a unit (the reference's tests/test_durability.py
 cases, with the handler called directly: no test raises a real signal
-in its own process), then the CLI drained mid-run.  The reference
-drains with ``--inject-faults=preempt=N``, which requests the drain at
-its N-th supervised device call; the port has no fault injection, so
-these tests request it from the test side on the same clock, one tick a
-dispatch through ``obs/dispatch.py::DispatchHook.launch``.  Comparisons
-are exact: exit 75, the drain's stderr lines, the checkpoint, the
+in its own process), then the CLI drained mid-run.  Both packages drain
+with ``--inject-faults=preempt=N``, which requests the drain at the
+N-th supervised device call.  Comparisons are exact: exit 75, the drain's stderr lines, the checkpoint, the
 partial ``--stats``, the events and the resumed outputs.  One test runs
 the CLI as a process and sends it a real SIGTERM, then a real SIGKILL.
 """
@@ -21,7 +18,6 @@ import subprocess
 import sys
 import threading
 import time
-from contextlib import contextmanager
 
 import pytest
 
@@ -29,7 +25,6 @@ from pwasm_tpu.cli import run as ref_run
 from pwasm_tpu.resilience.lifecycle import SignalDrain as RefSignalDrain
 from pwasm_tpu_torch.cli import _load_checkpoint, run
 from pwasm_tpu_torch.core.errors import EXIT_PREEMPTED
-from pwasm_tpu_torch.obs.dispatch import DispatchHook
 from pwasm_tpu_torch.resilience import PreemptedError, SignalDrain
 
 from test_durability import _corpus
@@ -125,50 +120,22 @@ def test_say_survives_a_stream_that_raises():
 # ---------------------------------------------------------------------------
 # the CLI drained at the N-th dispatch, against the reference's preempt=N
 # ---------------------------------------------------------------------------
-@contextmanager
-def port_preempt_at(monkeypatch, n: int, sleep_ctx_scan: float = 0.0):
-    """Request the run's drain at the ``n``-th device dispatch, before
-    its work, as the reference's ``preempt=N`` does (``n`` 0: never);
-    each ctx_scan dispatch first sleeps ``sleep_ctx_scan`` seconds."""
-    drains = []
-    calls = [0]
-    orig_install, orig_launch = SignalDrain.install, DispatchHook.launch
-
-    def install(self):
-        drains.append(self)
-        return orig_install(self)
-
-    def launch(self, site, attempt, items=None):
-        calls[0] += 1
-        if n and calls[0] == n:
-            drains[-1].request(f"injected preemption at supervised call "
-                               f"{calls[0]}")
-        if site == "ctx_scan" and sleep_ctx_scan:
-            time.sleep(sleep_ctx_scan)
-        return orig_launch(self, site, attempt, items)
-
-    with monkeypatch.context() as mp:
-        mp.setattr(SignalDrain, "install", install)
-        mp.setattr(DispatchHook, "launch", launch)
-        yield drains
-
-
 def _args(paf, fa, d, tag, extra=()):
     p = str(d / tag)
     return [paf, "-r", fa, "-o", f"{p}.dfa", "-w", f"{p}.mfa",
             f"--cons={p}.cons", "--batch=2", f"--stats={p}.json", *extra]
 
 
-def _run_both(paf, fa, d, n, monkeypatch, extra=()):
-    """The port drained at dispatch ``n`` (outputs ``p.*``) and the
-    reference at ``preempt=n`` (``r.*``); "OUT" in ``extra`` stands for
-    ``port`` or ``ref``: {who: (rc, stderr)}."""
+def _run_both(paf, fa, d, n, extra=()):
+    """Both packages drained at ``--inject-faults=preempt=n``, the port
+    (outputs ``p.*``) and the reference (``r.*``); "OUT" in ``extra``
+    stands for ``port`` or ``ref``: {who: (rc, stderr)}."""
     got = {}
-    with port_preempt_at(monkeypatch, n):
-        err = io.StringIO()
-        got["port"] = (run(_args(paf, fa, d, "p", [
-            a.replace("OUT", "port") for a in extra]) + ["--device=cpu"],
-            stderr=err), err.getvalue())
+    err = io.StringIO()
+    got["port"] = (run(_args(paf, fa, d, "p", [
+        a.replace("OUT", "port") for a in extra])
+        + ["--device=cpu", f"--inject-faults=preempt={n}"], stderr=err),
+        err.getvalue())
     err = io.StringIO()
     got["ref"] = (ref_run(_args(paf, fa, d, "r", [
         a.replace("OUT", "ref") for a in extra])
@@ -217,7 +184,7 @@ def test_preempt_at_n_drains_as_the_reference(whole, tmp_path, monkeypatch,
     if n == "tail":
         assert by_site["consensus"] == 1
         n = by_site["ctx_scan"] + 1
-    got = _run_both(paf, fa, tmp_path, n, monkeypatch)
+    got = _run_both(paf, fa, tmp_path, n)
     assert got["port"][0] == got["ref"][0] == EXIT_PREEMPTED == 75
     lines = _drain_lines(got["port"][1])
     assert lines == _drain_lines(got["ref"][1]) and len(lines) == 2
@@ -230,7 +197,7 @@ def test_preempt_at_n_drains_as_the_reference(whole, tmp_path, monkeypatch,
     assert st["p"]["resilience"]["checkpoints"] \
         == st["r"]["resilience"]["checkpoints"]
     ck = _load_checkpoint(str(tmp_path / "p.dfa"))
-    assert ck == _load_checkpoint(str(tmp_path / "r.dfa"))[:2]
+    assert ck == _load_checkpoint(str(tmp_path / "r.dfa"))
     assert (tmp_path / "p.dfa").read_bytes() \
         == (tmp_path / "r.dfa").read_bytes()
     if n == by_site["ctx_scan"] + 1:
@@ -251,11 +218,11 @@ def test_preempt_without_a_report_checkpoints_nothing(whole, monkeypatch):
     _d0, paf, fa, _st = whole
     monkeypatch.setenv("PWASM_DEVICE_PROBE", "0")
     lines = {}
-    with port_preempt_at(monkeypatch, 1):
-        err = io.StringIO()
-        assert run([paf, "-r", fa, "--batch=2", "--device=cpu"],
-                   stdout=io.StringIO(), stderr=err) == EXIT_PREEMPTED
-        lines["port"] = _drain_lines(err.getvalue())
+    err = io.StringIO()
+    assert run([paf, "-r", fa, "--batch=2", "--device=cpu",
+                "--inject-faults=preempt=1"],
+               stdout=io.StringIO(), stderr=err) == EXIT_PREEMPTED
+    lines["port"] = _drain_lines(err.getvalue())
     err = io.StringIO()
     assert ref_run([paf, "-r", fa, "--batch=2", "--device=tpu",
                     "--inject-faults=preempt=1"], stdout=io.StringIO(),
@@ -274,7 +241,7 @@ def test_drain_events_and_checkpoint_counts_match_the_reference(
         whole, tmp_path, monkeypatch):
     _d0, paf, fa, _st = whole
     monkeypatch.setenv("PWASM_DEVICE_PROBE", "0")
-    got = _run_both(paf, fa, tmp_path, 3, monkeypatch,
+    got = _run_both(paf, fa, tmp_path, 3,
                     [f"--log-json={tmp_path / 'OUT.ndjson'}"])
     assert got["port"][0] == got["ref"][0] == EXIT_PREEMPTED
     evs = {who: [json.loads(ln) for ln in
@@ -320,14 +287,15 @@ def test_bad_deadline_exits_1_as_the_reference(whole, tmp_path, path, val):
     assert not any(p.name.startswith("port.") for p in tmp_path.iterdir())
 
 
-def test_deadline_drains_the_main_path(whole, tmp_path, monkeypatch):
+def test_deadline_drains_the_main_path(whole, tmp_path):
     """A 0.3 s budget against twelve one-record batches whose ctx_scan
-    dispatch sleeps 0.1 s: the timer drains the run mid-input."""
+    dispatch sleeps 0.1 s (an injected hang, which then runs the work):
+    the timer drains the run mid-input."""
     d0, paf, fa, _st = whole
     args = _args(paf, fa, tmp_path, "dl") + ["--batch=1", "--device=cpu"]
-    with port_preempt_at(monkeypatch, 0, sleep_ctx_scan=0.1):
-        err = io.StringIO()
-        rc = run(args + ["--deadline-s=0.3"], stderr=err)
+    err = io.StringIO()
+    rc = run(args + ["--deadline-s=0.3", "--inject-faults=rate=1,"
+                     "kinds=hang,hang_s=0.1,sites=ctx_scan"], stderr=err)
     assert rc == EXIT_PREEMPTED, err.getvalue()
     assert "deadline_exceeded: --deadline-s=0.3 budget spent" \
         in err.getvalue()

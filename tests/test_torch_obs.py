@@ -15,7 +15,9 @@ import re
 import shutil
 from collections import Counter
 
+import numpy as np
 import pytest
+import torch
 
 from pwasm_tpu.cli import run as ref_run
 from pwasm_tpu.obs.catalog import build_cache_metrics as ref_build_cache
@@ -35,9 +37,11 @@ from pwasm_tpu_torch.obs.catalog import (breaker_state_value,
                                          build_run_metrics,
                                          build_service_metrics,
                                          fold_run_stats)
-from pwasm_tpu_torch.obs.dispatch import NULL_HOOK, DispatchHook
 from pwasm_tpu_torch.obs.merge import merge_traces
 from pwasm_tpu_torch.obs.metrics import NAME_RE
+from pwasm_tpu_torch.resilience.supervisor import (BatchSupervisor,
+                                                   ResilienceError,
+                                                   ResiliencePolicy)
 from pwasm_tpu_torch.utils.runstats import RunStats
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -394,6 +398,9 @@ def test_observability_facade_null_hooks():
     NULL_OBS.set_gauge("breaker_state", 2)
     NULL_OBS.count("host_stage_seconds", 1.0, stage="parse")
     NULL_OBS.span_complete("y", NULL_OBS.clock())
+    # a supervisor made without an obs bundle traces into the null one
+    sup = BatchSupervisor()
+    assert sup.obs is NULL_OBS and sup.run("ctx_scan", lambda: 4) == 4
 
 
 def test_make_observability_subsets(tmp_path):
@@ -412,10 +419,14 @@ def test_make_observability_subsets(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the dispatch hook: one supervised attempt's accounting
+# the supervised dispatch: one attempt's accounting
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("fails", [False, True])
 def test_dispatch_hook_counts_traces_and_observes(fails):
+    """Each attempt of ``BatchSupervisor.run`` is one dispatch and one
+    flush, one ``device_batch`` span with its real ``attempt`` index,
+    and one ``batch_attempt_seconds`` sample; a run that exhausts its
+    retries aborts with ``ResilienceError``."""
     from pwasm_tpu_torch.obs import tracing
     reg = MetricsRegistry()
     rm = build_run_metrics(reg)
@@ -423,7 +434,8 @@ def test_dispatch_hook_counts_traces_and_observes(fails):
     obs = Observability(registry=reg, run_metrics=rm,
                         tracer=tracing.TraceRecorder(clock=clk))
     st = RunStats()
-    hook = DispatchHook(st, obs)
+    sup = BatchSupervisor(ResiliencePolicy(max_retries=1, backoff_s=0.0),
+                          stats=st, stderr=io.StringIO(), obs=obs)
 
     def attempt():
         clk.t += 1.0
@@ -431,57 +443,79 @@ def test_dispatch_hook_counts_traces_and_observes(fails):
             raise RuntimeError("launch failed")
         return 7
 
-    for _ in range(2):
-        if fails:
-            with pytest.raises(RuntimeError):
-                hook.run("realign", attempt, items=3)
-        else:
-            assert hook.run("realign", attempt, items=3) == 7
+    if fails:
+        with pytest.raises(ResilienceError):   # 2 attempts, then abort
+            sup.run("realign", attempt, size=3)
+    else:
+        for _ in range(2):
+            assert sup.run("realign", attempt, size=3) == 7
     dev = st.as_dict()["device"]
     assert dev["dispatches"] == dev["flushes"] == 2
     assert dev["by_site"] == {"realign": 2}
     assert dev["compile_s"] > 0 and dev["steady_s"] > 0
     assert rm["batch_attempt_seconds"].count(site="realign") == 2
+    assert st.res_retries == (1 if fails else 0)
     spans = [e for e in obs.tracer.to_dict()["traceEvents"]]
     assert [e["name"] for e in spans] == ["device_batch"] * 2
     assert spans[0]["args"]["site"] == "realign"
-    assert spans[0]["args"]["attempt"] == 0
+    assert [e["args"]["attempt"] for e in spans] == ([0, 1] if fails
+                                                     else [0, 0])
     assert spans[0]["args"]["items"] == 3
     assert spans[0]["dur"] == 1_000_000
     assert ("error" in spans[0]["args"]) == fails
 
 
 def test_null_hook_calls_through():
-    """A library call outside a run takes ``NULL_HOOK``: the work runs,
-    and nothing is counted or traced."""
-    assert NULL_HOOK.run("ctx_scan", lambda: 5) == 5
-    assert NULL_HOOK.launch("many2many", lambda: 6) == 6
-    NULL_HOOK.note_flush()
-    NULL_HOOK.note_pad(3, 4)
-    NULL_HOOK.note_events(device=2, scalar=1)
-    assert NULL_HOOK.stats is None and NULL_HOOK.obs is NULL_OBS
+    """A library call outside a run takes ``supervisor=None``: the work
+    runs as a direct call, and only ctx_scan, as in the reference,
+    counts its own round-trip (into the ``stats`` it is given)."""
+    from pwasm_tpu_torch.core.events import extract_alignment
+    from pwasm_tpu_torch.core.paf import parse_paf_line
+    from pwasm_tpu_torch.ops.realign import realign_pairs
+    from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
+    from pwasm_tpu_torch.report.device_report import submit_events_device
+
+    from helpers import make_paf_line
+
+    cpu = torch.device("cpu")
+    res = realign_pairs([(b"ACGTACGTAC", b"ACGTTACGTAC")], band=8,
+                        device=cpu)
+    assert res[0] is not None
+    scores = many2many_scores_ragged([b"ACGTACGT"], [b"ACGTACGT"], band=8,
+                                     device=cpu)
+    assert scores.shape == (1, 1) and scores[0, 0] > 0
+    q = "ATGGCCTGGAAAGATCTGTACCTGAACGT"
+    line, _ = make_paf_line("q", q, "t", "+", [("=", 10), ("*", "t", "a"),
+                                               ("=", 18)])
+    aln = extract_alignment(parse_paf_line(line), q.encode())
     st = RunStats()
-    assert DispatchHook(st).run("ctx_scan", lambda: 7) == 7
-    assert st.as_dict()["device"]["by_site"] == {"ctx_scan": 1}
+    rows = submit_events_device(q.encode(), aln.tdiffs, cpu, stats=st)()
+    assert len(rows) == len(aln.tdiffs) == 1
+    d = st.as_dict()
+    assert d["device"]["by_site"] == {"ctx_scan": 1}
+    assert (d["device"]["flushes"], d["device"]["pad_items"],
+            d["device_events"]) == (1, 1, 1)
 
 
 def test_launches_count_no_flush_until_the_fetch():
-    """``launch`` is a dispatch whose results stay on the device: the
-    caller's one fetch is the flush."""
+    """A supervised many2many dispatch ends in the fetch of its own
+    block, so each attempt is one dispatch AND one flush (as in the
+    reference), and the blocks scatter into the result after
+    ``run`` returns; without a supervisor nothing is counted."""
+    from pwasm_tpu_torch.parallel.many2many import many2many_scores_ragged
+
+    qs = [b"ACGTACGTAA", b"ACGTACGTAA", b"ACGTAC"]
+    ts = [b"ACGTACGTAA", b"ACGTAC", b"ACGTACGTAAC"]
+    cpu = torch.device("cpu")
     st = RunStats()
-    hook = DispatchHook(st)
-    for _ in range(3):
-        hook.launch("many2many", lambda: None, items=2)
-    assert (st.as_dict()["device"]["dispatches"],
-            st.as_dict()["device"]["flushes"]) == (3, 0)
-    hook.note_flush()
-    hook.note_pad(5, 8)
-    hook.note_events(device=4, scalar=1)
-    d = st.as_dict()
-    assert d["device"]["by_site"] == {"many2many": 3}
-    assert (d["device"]["flushes"], d["device"]["pad_items"],
-            d["device"]["pad_slots"]) == (1, 5, 8)
-    assert (d["device_events"], d["scalar_events"]) == (4, 1)
+    sc: dict = {}
+    got = many2many_scores_ragged(qs, ts, band=8, device=cpu, stats=sc,
+                                  supervisor=BatchSupervisor(stats=st))
+    assert np.array_equal(got, many2many_scores_ragged(qs, ts, band=8,
+                                                       device=cpu))
+    d = st.as_dict()["device"]
+    assert d["by_site"] == {"many2many": sc["dispatches"]}
+    assert d["flushes"] == d["dispatches"] == sc["dispatches"] >= 2
 
 
 # ---------------------------------------------------------------------------

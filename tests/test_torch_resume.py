@@ -2,21 +2,17 @@
 package's (``pwasm_tpu.cli`` at ``--device=tpu`` on its CPU backend,
 ``PWASM_DEVICE_PROBE=0``).
 
-The reference kills a run with ``--inject-faults=kill=K``: its K-th
-supervised device attempt raises a ``BaseException`` before the work.
-The port has no fault injection, so these tests stand in for it from
-the test side on the same clock, one tick a dispatch through
-``obs/dispatch.py::DispatchHook.launch`` (the reference's supervised
-calls, site for site), with the reference's ``>=`` rule.  Every
-comparison is exact: the killed reports, the checkpoints' ``bytes`` and
-``records``, the quarantine diagnostics and the resumed outputs.
+Both packages kill a run with ``--inject-faults=kill=K``: its K-th
+supervised device attempt raises a ``BaseException`` (``InjectedKill``)
+before the work.  Every comparison is exact: the killed reports, the
+checkpoints (their ``resilience`` state too), the quarantine
+diagnostics and the resumed outputs.
 """
 
 import io
 import json
 import os
 import shutil
-from contextlib import contextmanager
 
 import pytest
 
@@ -27,32 +23,10 @@ from pwasm_tpu.resilience.faults import InjectedKill
 from pwasm_tpu.utils.fsio import payload_crc as ref_payload_crc
 from pwasm_tpu_torch import cli as port_cli
 from pwasm_tpu_torch.cli import _ckpt_crc, _load_checkpoint, run
-from pwasm_tpu_torch.obs.dispatch import DispatchHook
+from pwasm_tpu_torch.resilience.faults import InjectedKill as PortKill
 from pwasm_tpu_torch.utils import fsio
 
 from test_durability import _corpus, _corrupt_ckpt
-
-
-class PortKill(BaseException):
-    """The port's stand-in for the reference's ``InjectedKill``."""
-
-
-@contextmanager
-def port_kill_at(monkeypatch, k: int):
-    """From the ``k``-th device dispatch on, counted across sites, raise
-    :class:`PortKill` before the work (the reference's ``kill=K``)."""
-    calls = [0]
-    orig = DispatchHook.launch
-
-    def launch(self, site, attempt, items=None):
-        calls[0] += 1
-        if calls[0] >= k:
-            raise PortKill(f"kill at dispatch {calls[0]} (site {site})")
-        return orig(self, site, attempt, items)
-
-    with monkeypatch.context() as mp:
-        mp.setattr(DispatchHook, "launch", launch)
-        yield calls
 
 
 def _args(paf, fa, d, tag, extra=()):
@@ -108,14 +82,14 @@ def base(tmp_path_factory):
 
 
 def _kill(who, paf, fa, d, tag, k, monkeypatch):
-    """Kill ``who``'s run at dispatch ``k``; True when it was killed
-    (False: the run ended first, rc 0)."""
+    """Kill ``who``'s run at supervised attempt ``k``
+    (``--inject-faults=kill=K``); True when it was killed (False: the
+    run ended first, rc 0)."""
     if who == "port":
-        with port_kill_at(monkeypatch, k):
-            try:
-                rc, err = _port(paf, fa, d, tag)
-            except PortKill:
-                return True
+        try:
+            rc, err = _port(paf, fa, d, tag, [f"--inject-faults=kill={k}"])
+        except PortKill:
+            return True
     else:
         try:
             rc, err = _ref(paf, fa, d, tag, [f"--inject-faults=kill={k}"])
@@ -195,12 +169,14 @@ def test_kill_then_resume_matches_the_reference(base, tmp_path, monkeypatch,
         ck_p, ck_r = _ckpt(d, "k_port"), _ckpt(d, "k_ref")
         assert (ck_p is None) == (ck_r is None) == (k <= 1 or k > dispatches)
         if ck_p is not None:
-            assert (ck_p["bytes"], ck_p["records"]) \
-                == (ck_r["bytes"], ck_r["records"])
+            # the same checkpoint, the supervisor's state included
+            assert ck_p == ck_r
             assert ck_p["version"] == 2 and ck_p["crc"] == _ckpt_crc(ck_p)
-            assert set(ck_p) == {"version", "bytes", "records", "crc"}
+            assert set(ck_p) == {"version", "bytes", "records",
+                                 "resilience", "crc"}
+            assert ck_p["resilience"]["fault_calls"] > 0
             assert _load_checkpoint(str(d / "k_port.dfa")) \
-                == (ck_p["bytes"], ck_p["records"])
+                == (ck_p["bytes"], ck_p["records"], ck_p["resilience"])
         resume = tags.items()
     else:
         # one package's killed run resumed by the other
@@ -349,5 +325,5 @@ def test_durable_helpers_match_the_reference(tmp_path):
     ck = json.loads(dest.read_text())
     assert ck == {"version": 2, "bytes": 3, "records": 1,
                   "crc": ref_ckpt_crc(ck)}
-    assert _load_checkpoint(str(tmp_path / "r.dfa")) == (3, 1)
+    assert _load_checkpoint(str(tmp_path / "r.dfa")) == (3, 1, None)
     assert ref_load_checkpoint(str(tmp_path / "r.dfa")) == (3, 1, None)

@@ -18,7 +18,8 @@ from pwasm_tpu.utils.runstats import STATS_VERSION as REF_VERSION
 from pwasm_tpu.utils.runstats import RunStats as RefRunStats
 from pwasm_tpu_torch.align.gapseq import GapSeq
 from pwasm_tpu_torch.align.msa import Msa
-from pwasm_tpu_torch.obs.dispatch import DispatchHook
+from pwasm_tpu_torch.resilience.supervisor import \
+    BatchSupervisor as PortSupervisor
 from pwasm_tpu_torch.utils.runstats import STATS_VERSION, RunStats
 
 WALLS = ("wall_s", "aligned_bases_per_s")
@@ -121,7 +122,7 @@ def test_refine_msa_dispatch_sites_equal_the_reference(seed, remove_gaps):
     port_st = RunStats()
     port = _msa(GapSeq, Msa, seed)
     port.refine_msa(torch.device("cpu"), remove_cons_gaps=remove_gaps,
-                    hook=DispatchHook(port_st))
+                    supervisor=PortSupervisor(stats=port_st))
     ref_st = RefRunStats()
     ref = _msa(RefGapSeq, RefMsa, seed)
     sup = BatchSupervisor(ResiliencePolicy(), stats=ref_st,
