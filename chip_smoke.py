@@ -148,10 +148,27 @@ Phases, one JSON line each; any failure exits non-zero:
               marker, as CLI processes; config 3 through
               ``--many2many --max-retries=2`` with dispatches = flushes
               = 360;
-16. the ``kernels`` line (with each main-path kernel's
+16. stream  — streaming ingest (``run_stream``): the realistic corpus
+              with all six outputs and --device=cuda, each run its own
+              process following a file that a writer thread grows once
+              the process has it open: ``--follow=1.5 --batch=16`` (20
+              uneven appends over ~2 s) equal to phase 5's outputs, the
+              same with ``--realign`` equal to phase 14's uninterrupted
+              run (consensus, forward and walk launched on cuda); a bare
+              ``--follow --realign --batch=16`` SIGTERMed once 64 records
+              are checkpointed (exit 75), then ``--resume`` on the
+              completed file equal to phase 14's; ``--follow=3
+              --device-deadline=0.5`` with appends 1 s apart and no
+              deadline timeout; the port's standalone ``pafreport``
+              binary (g++, ``native.native_cli_path``) on the corpus, its
+              report and summary equal to phase 5's; the walls, the
+              seconds from the last append to exit against IDLE_S, the
+              SIGTERM-to-exit seconds and the binary's build and run;
+17. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
-   phase 15's faulted ``--realign`` run), the card's name and power
+   phase 15's faulted ``--realign`` run and ``follow_launches`` from
+   phase 16's ``--follow --realign`` run), the card's name and power
    limit as nvidia-smi prints them, and the final ``{"ok": true, ...}``
    line.
 
@@ -2167,6 +2184,254 @@ def run_resilience(work: str, paf: str, fa: str, outputs: dict,
     return record
 
 
+def holds_open(pid: int, path: str) -> bool:
+    """True once process ``pid`` holds ``path`` open (its line loop's
+    ``FollowReader`` opens the file at its first poll)."""
+    want = os.path.realpath(path)
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}") == want:
+                return True
+        except OSError:
+            pass
+    return False
+
+
+class Appender:
+    """A writer thread that appends ``chunks`` to ``path`` once ``proc``
+    holds the file open, ``pause_s`` between appends; ``last_t`` is the
+    perf_counter time of its last append."""
+
+    def __init__(self, path: str, proc, chunks: list[str], pause_s: float):
+        import threading
+
+        self.path, self.proc, self.chunks = path, proc, chunks
+        self.pause_s, self.last_t, self.error = pause_s, None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        t_end = time.monotonic() + 120
+        while not holds_open(self.proc.pid, self.path):
+            if self.proc.poll() is not None or time.monotonic() > t_end:
+                self.error = "the CLI never opened the followed file"
+                return
+            time.sleep(0.01)
+        with open(self.path, "a") as f:
+            for k, ch in enumerate(self.chunks):
+                if k:
+                    time.sleep(self.pause_s)
+                f.write(ch)
+                f.flush()
+                self.last_t = time.perf_counter()
+
+    def join(self) -> None:
+        self.thread.join(180)
+        if self.error:
+            raise AssertionError(self.error)
+
+
+def uneven_chunks(text: str, n: int, seed: int) -> list[str]:
+    """``text`` cut at ``n - 1`` random offsets: most cuts fall inside a
+    line, some at its end."""
+    import random
+
+    rng = random.Random(seed)
+    cuts = sorted(rng.sample(range(1, len(text)), n - 1)) + [len(text)]
+    out, prev = [], 0
+    for c in cuts:
+        out.append(text[prev:c])
+        prev = c
+    return out
+
+
+def run_stream(work: str, paf: str, fa: str, outputs: dict,
+               res_outputs: dict, main_wall: float, smi: str) -> dict:
+    """Phase 16: streaming ingest on the card.  The realistic corpus with
+    all six outputs and ``--device=cuda``, each run its own process
+    (``CliProcess``) following a file that an ``Appender`` grows once the
+    process has it open:
+
+    - a: ``--follow=1.5 --batch=16``, the PAF in 20 uneven chunks (most
+      split inside a line) over about 2 s: outputs equal to phase 5's,
+      one consensus launch and the ctx_scan flushes on cuda;
+    - b: the same with ``--realign``: outputs equal to phase 14's
+      uninterrupted ``--realign --batch=16`` run (the MSA depends on
+      ``--batch`` at ``--realign``), the consensus, forward and walk
+      kernels launched on cuda (the kernels line's ``follow_launches``);
+    - c: a bare ``--follow --realign --batch=16`` fed 100 lines, SIGTERM
+      once its checkpoint covers 64 records: exit 75, the checkpoint
+      verifies; the writer then completes the file, and ``--resume``
+      without ``--follow`` gives phase 14's outputs (but -s, which
+      covers only the resumed portion);
+    - d: ``--follow=3 --device-deadline=0.5 --batch=16``, the PAF in
+      four appends 1 s apart (two report batches in flight over each
+      pause): ``resilience.deadline_timeouts`` is 0 (the wait for input
+      is not a supervised attempt), outputs equal phase 5's;
+    - e: the port's standalone binary (``native.native_cli_path``, built
+      with g++ here while a-d run) on the corpus with ``-o -s``: report
+      and summary equal to phase 5's cuda run.
+
+    Each run writes ``--stats``: its own wall and host stages are kept
+    beside the process's.  Returns the phase's record (walls; the
+    seconds from the last append to exit against IDLE_S; SIGTERM to exit; the binary's build and run
+    walls beside phase 5's cuda wall).  Raises on a failure."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pwasm_tpu_torch import native
+
+    with open(paf) as f:
+        text = f.read()
+    lines = text.splitlines(keepends=True)
+    pool = ThreadPoolExecutor(1)
+
+    def build_binary():
+        t0 = time.perf_counter()
+        path = native.native_cli_path()
+        return path, time.perf_counter() - t0
+
+    binary = pool.submit(build_binary)
+    record: dict = {}
+
+    def follow(tag: str, extra: list, chunks: list, pause_s: float,
+               want: dict) -> dict:
+        grow = os.path.join(work, f"{tag}.paf")
+        open(grow, "w").close()
+        p = os.path.join(work, tag)
+        proc = CliProcess(p, [grow, "-r", fa, *out_args(work, tag),
+                              "--device=cuda", f"--stats={p}.json", *extra])
+        writer = Appender(grow, proc.proc, chunks, pause_s)
+        rc = proc.finish(180)
+        t_exit = time.perf_counter()
+        writer.join()
+        if rc != 0:
+            raise AssertionError(f"{tag}: rc {rc}: {proc.stderr()[-2000:]}")
+        got = read_outputs(work, tag)
+        differ = [n for n in OUTPUTS if got[n] != want[n]]
+        counts = proc.counts()
+        if differ or counts["consensus"] != 1 \
+                or counts["ctx_scan"].get("cuda", 0) < 1 \
+                or counts["ctx_scan"].get("cpu", 0):
+            raise AssertionError(f"{tag}: outputs differ {differ}, or "
+                                 f"launches {counts}")
+        with open(f"{p}.json") as f:
+            st = json.load(f)
+        # the run's own wall and stages beside the process's wall
+        return dict(wall_s=proc.wall_s, appends=len(chunks),
+                    last_append_to_exit_s=t_exit - writer.last_t,
+                    launches=counts, run_wall_s=st["wall_s"],
+                    host=st["host"], device_steady_s=st["device"]["steady_s"],
+                    device_compile_s=st["device"]["compile_s"],
+                    deadline_timeouts=st["resilience"]["deadline_timeouts"])
+
+    # a and b: 20 uneven chunks over about 2 s
+    chunks = uneven_chunks(text, 20, seed=16)
+    record["follow"] = follow("st_follow", ["--follow=1.5", "--batch=16"],
+                              chunks, 0.1, outputs)
+    record["follow_realign"] = rec = follow(
+        "st_follow_re", ["--follow=1.5", "--batch=16", "--realign"],
+        chunks, 0.1, res_outputs)
+    counts = rec["launches"]
+    fwd = counts["fwdptr"] + counts["fwdptr_long"]
+    if fwd < 1 or counts["walk"] != fwd:
+        raise AssertionError(f"st_follow_re: forward {fwd} and walk "
+                             f"{counts['walk']} launches")
+
+    # c: a bare --follow, SIGTERMed once 64 records are durable
+    tag = "st_term"
+    grow = os.path.join(work, f"{tag}.paf")
+    p = os.path.join(work, tag)
+    open(grow, "w").close()
+    proc = CliProcess(p, [grow, "-r", fa, *out_args(work, tag),
+                          "--device=cuda", "--follow", "--realign",
+                          "--batch=16"])
+    writer = Appender(grow, proc.proc, ["".join(lines[:100])], 0.0)
+    try:
+        proc.wait_checkpoint(f"{p}.report.dfa", 64)
+        t_sig = time.perf_counter()
+        proc.proc.send_signal(signal.SIGTERM)
+        rc = proc.finish(60)
+        term_s = time.perf_counter() - t_sig
+    finally:
+        if proc.proc.poll() is None:
+            proc.proc.kill()
+            proc.proc.wait()
+    writer.join()
+    err = proc.stderr()
+    if rc != 75 or "draining" not in err \
+            or "preempted (caught SIGTERM)" not in err:
+        raise AssertionError(f"{tag}: rc {rc} (want 75): {err[-2000:]}")
+    ck = verified_checkpoint(f"{p}.report.dfa", tag)
+    with open(grow, "a") as f:
+        f.write("".join(lines[100:]))
+    rc, _st, err, resume_wall = run_cli(
+        [grow, "-r", fa, *out_args(work, tag), "--device=cuda", "--realign",
+         "--batch=16", "--resume"])
+    got = read_outputs(work, tag)
+    # a resumed -s covers only the resumed portion
+    differ = [n for n in OUTPUTS if n != "summary.txt"
+              and got[n] != res_outputs[n]]
+    if rc != 0 or differ or os.path.exists(f"{p}.report.dfa.ckpt"):
+        raise AssertionError(f"{tag} --resume: rc {rc}, outputs differ "
+                             f"from phase 14's {differ}: {err[-2000:]}")
+    record["sigterm"] = dict(rc=75, wall_s=proc.wall_s,
+                             sigterm_to_exit_s=term_s,
+                             checkpoint=dict(bytes=ck["bytes"],
+                                             records=ck["records"]),
+                             launches=proc.counts(),
+                             resume_wall_s=resume_wall)
+
+    # d: --device-deadline does not count the wait for input
+    quarter = -(-len(lines) // 4)
+    rec = follow("st_deadline", ["--follow=3", "--device-deadline=0.5",
+                                 "--batch=16"],
+                 ["".join(lines[k:k + quarter])
+                  for k in range(0, len(lines), quarter)], 1.0, outputs)
+    if rec["deadline_timeouts"] != 0:
+        raise AssertionError(f"st_deadline: deadline_timeouts "
+                             f"{rec['deadline_timeouts']} (want 0)")
+    record["device_deadline"] = rec
+
+    # e: the standalone binary on the corpus
+    path, build_s = binary.result()
+    pool.shutdown()
+    nat = os.path.join(work, "st_native")
+    t0 = time.perf_counter()
+    res = subprocess.run([path, paf, "-r", fa, "-o", f"{nat}.report.dfa",
+                          "-s", f"{nat}.summary.txt"], capture_output=True,
+                         text=True, timeout=120)
+    run_s = time.perf_counter() - t0
+    got = {}
+    for name in ("report.dfa", "summary.txt"):
+        with open(f"{nat}.{name}", "rb") as f:
+            got[name] = f.read()
+    if res.returncode != 0 or any(got[n] != outputs[n] for n in got):
+        raise AssertionError(f"st_native: rc {res.returncode}, or the "
+                             f"report or summary differ from phase 5's: "
+                             f"{res.stderr[-2000:]}")
+    record["native_binary"] = dict(
+        binary=os.path.relpath(path, ROOT), build_s=build_s, run_s=run_s,
+        main_path_cuda_wall_s=main_wall)
+    print("stream walls, s: --follow=1.5 {:.3f} (last append to exit "
+          "{:.3f}, IDLE_S 1.5); --realign {:.3f} ({:.3f}); bare --follow "
+          "SIGTERM to exit {:.3f}, --resume {:.3f}; --follow=3 "
+          "--device-deadline=0.5 {:.3f} ({:.3f}, IDLE_S 3); native binary "
+          "build {:.3f}, run {:.3f} (phase 5 cuda {:.3f}); {}".format(
+              record["follow"]["wall_s"],
+              record["follow"]["last_append_to_exit_s"],
+              record["follow_realign"]["wall_s"],
+              record["follow_realign"]["last_append_to_exit_s"],
+              term_s, resume_wall, record["device_deadline"]["wall_s"],
+              record["device_deadline"]["last_append_to_exit_s"],
+              build_s, run_s, main_wall, smi), flush=True)
+    return record
+
+
 def abandoned_threads_done(limit_s: float = 30.0) -> int:
     """Wait for the supervisor's abandoned attempt threads (``pwasm-*``,
     left running at their deadline) to end; returns how many there
@@ -3030,7 +3295,8 @@ def main(argv: list[str]) -> int:
         if rc != 0:
             return fail("realistic", f"{tag} rc={rc}: {err}")
         runs[tag] = dict(launches=launches, flushes=flushes, stats=st,
-                         piles=piles, outputs=read_outputs(work, tag))
+                         piles=piles, outputs=read_outputs(work, tag),
+                         wall=wall)
         emit(dict(phase="realistic", device=dev,
                   msa_engine="python" if msa_env else "native", wall_s=wall,
                   stage_s=st["times"], run_s=st["wall_s"],
@@ -3303,7 +3569,16 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="supervisor", nvidia_smi=smi, **supervisor))
     faulted_launches = supervisor["faults"]["launches"]
 
-    # 16. the kernels line, the card, the verdict
+    # 16. streaming ingest: --follow on the card (without and with
+    # --realign), its SIGTERM drain and --resume, --device-deadline
+    # against the wait for input, and the standalone binary
+    stream = run_stream(work, paf, fa, runs["cuda"]["outputs"],
+                        read_outputs(work, "res_whole"),
+                        runs["cuda"]["wall"], smi)
+    emit(dict(phase="stream", nvidia_smi=smi, **stream))
+    follow_launches = stream["follow_realign"]["launches"]
+
+    # 17. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -3335,6 +3610,7 @@ def main(argv: list[str]) -> int:
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
+        follow_launches=follow_launches["consensus"],
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -3350,6 +3626,7 @@ def main(argv: list[str]) -> int:
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
+        follow_launches=follow_launches["fwdptr"],
         max_abs_err=re_err,
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
@@ -3363,7 +3640,8 @@ def main(argv: list[str]) -> int:
         # taken at the main path's shape, forced, beside the resident
         # kernel's, and at the long-read shape; its plain version there
         # ran on the host CPU (plain_host_s, forward and walk)
-        launches=long_launches["fwdptr_long"], max_abs_err=re_err,
+        launches=long_launches["fwdptr_long"],
+        follow_launches=follow_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
         library_ms=None, library=no_library, shape=main_re["shape"],
@@ -3378,6 +3656,7 @@ def main(argv: list[str]) -> int:
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
+        follow_launches=follow_launches["walk"],
         max_abs_err=re_err,
         ms=main_re["ms_walk"], plain_ms=main_re["plain_ms_walk"],
         bound_ms=main_re["bound_ms_walk"],

@@ -19,6 +19,10 @@ gap structure is first replaced by a banded Gotoh re-alignment
 (``utils/runstats.py``), ``--profile`` a ``torch.profiler`` trace
 (``utils/profiling.py``), and ``--trace-json``, ``--log-json`` and
 ``--metrics-textfile`` the run's spans, events and metrics (``obs/``).
+A positional PAF is read in 1 MiB blocks (``stream/pafstream.py``'s
+``BlockLineReader``), byte-identical to a text-mode read;
+``--follow[=IDLE_S]`` tails a growing PAF instead (``FollowReader``),
+until IDLE_S seconds pass without growth or a drain ends the run.
 Every device dispatch runs under the run's one ``BatchSupervisor``
 (``resilience/supervisor.py``), which counts and traces it, retries it
 on the same device (``--max-retries``), abandons a hung attempt
@@ -46,6 +50,7 @@ Usage:
       [--log-json-max-bytes=N] [--metrics-textfile=PATH] [--resume]
       [--deadline-s=S] [--max-retries=N] [--device-deadline=S]
       [--inject-faults=SPEC] [--fallback=fail] [--recover=off]
+      [--follow[=IDLE_S]]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
       [--stats=FILE] [--deadline-s=S] [--max-retries=N] [--fallback=fail]
@@ -113,6 +118,14 @@ USAGE = """Usage:
                and the consensus pileup's depth shards' counts are
                summed before the vote
    --skip-bad-lines    warn and continue on malformed PAF lines
+   --follow[=IDLE_S]  tail the input PAF as a writer appends to it (a
+               minimap2 run writing into a file): records are reported
+               as they arrive, in the batches a whole-file run makes,
+               to the same bytes.  With IDLE_S the stream ends once the
+               file has not grown for IDLE_S seconds; a bare --follow
+               runs until SIGTERM/SIGINT or --deadline-s drains it
+               (exit 75, resumable with --resume on the completed
+               file).  Needs an input file (stdin already streams)
    --resume    append to an existing -o report, skipping alignments
                already emitted (a -s summary then covers only the
                resumed portion); every -o run leaves an atomic
@@ -188,13 +201,12 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "trace-max-events", "log-json", "log-json-max-bytes",
                "metrics-textfile", "resume", "deadline-s", "max-retries",
                "device-deadline", "inject-faults", "fallback", "recover",
-               "reprobe-interval", "reprobe-max")
+               "reprobe-interval", "reprobe-max", "follow")
 
 # flags and subcommands of the reference that later slices of the port
 # bring (ROADMAP.md queue A)
-_LATER = ("a later slice (stream: --follow; service: the subcommands, "
-          "--result-cache and --compile-cache-dir; then fleet and "
-          "surveil)")
+_LATER = ("a later slice (service: the subcommands, --result-cache and "
+          "--compile-cache-dir; then fleet and surveil)")
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
                  "inspect", "top", "route", "health", "logs")
 
@@ -536,12 +548,22 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         return EXIT_USAGE
 
     infile = positional[0] if positional else None
+    if infile == "-":
+        infile = None     # the conventional stdin marker
+    follow_idle = _follow_idle(opts, infile)
     inf = sys.stdin
-    if infile and infile != "-":
-        try:
-            inf = open(infile)
-        except OSError:
-            raise PwasmError(f"Cannot open input file {infile}!\n")
+    if infile:
+        from pwasm_tpu_torch.stream.pafstream import (BlockLineReader,
+                                                      FollowReader)
+        if "follow" in opts:
+            # --follow[=IDLE_S]: tail the growing file (it may not exist
+            # yet: the reader waits for it, as tail -F does)
+            inf = FollowReader(infile, idle_timeout_s=follow_idle)
+        else:
+            try:
+                inf = BlockLineReader(infile)
+            except OSError:
+                raise PwasmError(f"Cannot open input file {infile}!\n")
         opened.append(inf)
     if "motifs" in opts:
         try:
@@ -733,6 +755,28 @@ def _resume_point(report_path: str, stderr) -> tuple[int, dict | None]:
     except OSError:
         resume_skip = 0   # nothing emitted yet: a fresh run
     return resume_skip, resume_state
+
+
+def _follow_idle(opts: dict, infile: str | None) -> float | None:
+    """``--follow[=IDLE_S]``'s idle timeout (None: a bare ``--follow``
+    or no ``--follow``), checked with the reference's messages
+    (reference cli.py:582-600)."""
+    import math
+
+    if "follow" not in opts:
+        return None
+    val, idle = opts["follow"], None
+    if val is not True:
+        try:
+            idle = float(str(val))
+            if idle <= 0 or not math.isfinite(idle):
+                raise ValueError
+        except (TypeError, ValueError):
+            raise CliError(f"{USAGE}\nInvalid --follow value: {val}\n")
+    if infile is None:
+        raise CliError(f"{USAGE}\n--follow requires an input PAF file "
+                       "to tail (stdin already streams)\n")
+    return idle
 
 
 def _parse_obs_opts(cfg: Config, opts: dict) -> None:
@@ -966,6 +1010,11 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                                                        ResiliencePolicy)
 
     t_run = time.perf_counter()
+    # a --follow reader blocks between records: the drain flag wakes it,
+    # so a SIGTERM or --deadline-s ends the line loop at this record
+    # boundary instead of waiting out the idle timeout, or forever
+    if hasattr(inf, "bind_drain"):
+        inf.bind_drain(drain)
     # one supervisor a run: every device round-trip (report batches,
     # --realign dispatches, the consensus and refine launches) goes
     # through it, with the run's fault plan

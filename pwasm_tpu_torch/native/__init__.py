@@ -14,6 +14,16 @@ A failed build raises with g++'s output; nothing falls back quietly.
 ``PWASM_NATIVE=0`` sends the callers to the port's Python engines
 (``enabled``), ``PWASM_NATIVE_MSA=0`` only the MSA merge and writers
 (``native_msa``).
+
+``pafreport_main.cpp`` links the same engine into a standalone
+``pafreport`` binary, the ``--device=cpu`` path of the port's CLI with
+the same report, summary and MSA bytes, and the engine's test hooks
+(``--refine-selftest``, ``--clip-selftest``).  ``native_cli_path``
+builds it into ``_build/pafreport-<hash>`` the same way.  The
+``Makefile`` beside the sources builds it too, and its ``memcheck``
+target runs the engine under ASan/UBSan (``selftest.cpp``,
+``msa_bridge_san.cpp`` and the binary); every product lands in
+``_build/``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("fastparse.cpp", "pafreport_msa.h", "pafreport_util.h")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+# the standalone binary: its main, then the engine it links
+CLI_SOURCES = ("pafreport_main.cpp",) + SOURCES
+CLI_FLAGS = ("-O2", "-std=c++17")
 EV_FIELDS = 10
 
 _lock = threading.Lock()
@@ -96,15 +109,28 @@ def enabled() -> bool:
     return os.environ.get("PWASM_NATIVE", "1") != "0"
 
 
+def _key(sources: tuple, flags: tuple) -> str:
+    """A build's key: a hash of its sources' bytes and its flags."""
+    h = hashlib.sha256()
+    for name in sources:
+        with open(os.path.join(_HERE, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def lib_path() -> str:
     """Where the engine's library lives: ``_build/``, keyed by a hash of
     the sources and the flags."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(_HERE, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libfastparse-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR,
+                        f"libfastparse-{_key(SOURCES, GXX_FLAGS)}.so")
+
+
+def cli_path() -> str:
+    """Where the standalone ``pafreport`` binary lives: ``_build/``,
+    keyed by a hash of its four sources and the flags."""
+    return os.path.join(BUILD_DIR,
+                        f"pafreport-{_key(CLI_SOURCES, CLI_FLAGS)}")
 
 
 def _unlink(path: str) -> None:
@@ -114,33 +140,34 @@ def _unlink(path: str) -> None:
         pass
 
 
-def build() -> float:
-    """Compile the engine unless its library is built.  Returns g++'s
-    seconds (0.0 when the library was there).  Raises RuntimeError with
-    g++'s output when the build fails."""
+def _gxx(out: str, flags: tuple, sources: tuple) -> float:
+    """Compile ``sources`` (those g++ is given: the ``.cpp`` files) with
+    ``flags`` into ``out`` unless it is built.  Returns g++'s seconds
+    (0.0 when ``out`` was there).  Raises RuntimeError with g++'s output
+    when the build fails."""
     from pwasm_tpu_torch.utils.fsio import replace_durable
 
-    out = lib_path()
     if os.path.exists(out):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, os.path.join(_HERE, SOURCES[0])]
+    cmd = ["g++", *flags, "-o", tmp,
+           *(os.path.join(_HERE, name) for name in sources)]
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
         _unlink(tmp)
-        raise RuntimeError(f"g++ could not build the native engine "
-                           f"of pwasm_tpu_torch: {e}") from e
+        raise RuntimeError(f"g++ could not build pwasm_tpu_torch/native/"
+                           f"{sources[0]}: {e}") from e
     if res.returncode != 0:
         _unlink(tmp)
         raise RuntimeError(f"g++ failed on pwasm_tpu_torch/native/"
-                           f"{SOURCES[0]} (exit {res.returncode}):\n"
+                           f"{sources[0]} (exit {res.returncode}):\n"
                            f"{res.stderr}")
-    # the library is state a sibling process may load a moment later:
-    # its bytes reach the disk before the rename publishes it
+    # the build is state a sibling process may load or run a moment
+    # later: its bytes reach the disk before the rename publishes it
     fd = os.open(tmp, os.O_RDONLY)
     try:
         os.fsync(fd)
@@ -148,6 +175,28 @@ def build() -> float:
         os.close(fd)
     replace_durable(tmp, out)
     return time.perf_counter() - t0
+
+
+def build() -> float:
+    """Compile the engine unless its library is built.  Returns g++'s
+    seconds (0.0 when the library was there).  Raises RuntimeError with
+    g++'s output when the build fails."""
+    return _gxx(lib_path(), GXX_FLAGS, SOURCES[:1])
+
+
+def native_cli_path() -> str:
+    """The standalone ``pafreport`` binary (``pafreport_main.cpp`` with
+    the engine linked in), built with g++ on first use into
+    ``_build/pafreport-<hash>`` and published atomically, so concurrent
+    processes never run a partial file.  Raises RuntimeError with g++'s
+    output when the build fails, and when ``PWASM_NATIVE=0`` turns the
+    engine off: there is no binary to fall back from."""
+    if not enabled():
+        raise RuntimeError("PWASM_NATIVE=0 turns the C++ engine off, and "
+                           "the pafreport binary is that engine")
+    out = cli_path()
+    _gxx(out, CLI_FLAGS, CLI_SOURCES[:2])
+    return out
 
 
 def get_lib() -> ctypes.CDLL:

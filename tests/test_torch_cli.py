@@ -128,15 +128,16 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,later", [
     ("--compile-cache-dir=cc", "service"), ("--m2m-stream", "surveil"),
-    ("--follow", "stream"), ("--result-cache=rc", "service"),
-    ("--follow=2.5", "stream"),
+    ("--result-cache-max-bytes=1", "service"),
+    ("--result-cache=rc", "service"),
+    ("--follow --result-cache=rc", "service"),
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
     paf, fa = _golden_inputs(tmp_path)
     err = io.StringIO()
     dev = [] if flag.startswith("--device") else ["--device=cpu"]
-    assert run([paf, "-r", fa, "-w", str(tmp_path / "m.mfa"), flag,
-                *dev], stderr=err) == 1
+    assert run([paf, "-r", fa, "-w", str(tmp_path / "m.mfa"),
+                *flag.split(), *dev], stderr=err) == 1
     assert later in err.getvalue()
     err = io.StringIO()
     assert run(["serve", "--socket=x"], stderr=err) == 1

@@ -66,14 +66,19 @@ def test_port_sources_never_name_jax_or_the_reference():
     assert {f"pwasm_tpu_torch/resilience/{m}.py" for m in (
         "__init__", "faults", "guardrails", "lifecycle",
         "supervisor")} <= rel
+    # and the streaming ingest
+    assert {f"pwasm_tpu_torch/stream/{m}.py" for m in (
+        "__init__", "multicds", "pafstream")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
     top = os.path.join(REPO, "pwasm_tpu_torch", "native")
     paths = sorted(os.path.join(top, fn) for fn in os.listdir(top)
-                   if fn.endswith((".cpp", ".h")))
+                   if fn.endswith((".cpp", ".h")) or fn == "Makefile")
     assert [os.path.basename(p) for p in paths] == [
-        "fastparse.cpp", "pafreport_msa.h", "pafreport_util.h"]
+        "Makefile", "fastparse.cpp", "msa_bridge_san.cpp",
+        "pafreport_main.cpp", "pafreport_msa.h", "pafreport_util.h",
+        "selftest.cpp"]
     hits = []
     for path in paths:
         with open(path, encoding="utf-8") as f:
@@ -112,6 +117,7 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.utils.backend\n"
         "import pwasm_tpu_torch.utils.profiling\n"
         "import pwasm_tpu_torch.resilience\n"
+        "import pwasm_tpu_torch.stream.pafstream\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"
