@@ -164,13 +164,35 @@ Phases, one JSON line each; any failure exits non-zero:
               report and summary equal to phase 5's; the walls, the
               seconds from the last append to exit against IDLE_S, the
               SIGTERM-to-exit seconds and the binary's build and run;
-17. the ``kernels`` line (with each main-path kernel's
+17. serve   — the warm serving daemon (``run_serve``): one
+              ``serve --max-concurrent=2 --lanes=2 --warmup=cuda`` daemon
+              (both lanes on the one card) with a journal, a metrics
+              textfile and a trace, driven by ``python -m
+              pwasm_tpu_torch`` client processes on the realistic corpus
+              with all six outputs and --device=cuda: three consecutive
+              ``submit`` jobs equal to phase 5's outputs, jobs 2 and 3
+              paying no CUDA probe; two concurrent submitters (the
+              default flags and ``--realign --batch=16``) equal to phase
+              5's and phase 14's uninterrupted run, then the same two in
+              turn; a ``stream`` job fed in 20 uneven chunks equal to
+              phase 5's; SIGTERM to the daemon while a slowed ``--realign
+              --batch=16`` job runs (exit 75, the job preempted, its
+              checkpoint verifying); a second daemon on the same journal
+              running that job resubmitted with ``--resume`` (equal to
+              phase 14's but -s), then ``svc-stats``, ``metrics`` and
+              ``inspect``, and ``svc-stats --drain`` (exit 75); the
+              daemons' start-to-socket and warmup walls, each job's wall
+              beside its run's and the cold walls, the gaps between jobs,
+              the concurrent pair against the two in turn, SIGTERM to
+              exit;
+18. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
-   phase 15's faulted ``--realign`` run and ``follow_launches`` from
-   phase 16's ``--follow --realign`` run), the card's name and power
-   limit as nvidia-smi prints them, and the final ``{"ok": true, ...}``
-   line.
+   phase 15's faulted ``--realign`` run, ``follow_launches`` from
+   phase 16's ``--follow --realign`` run and ``serve_launches`` from
+   phase 17's first daemon, every job of its life), the card's name
+   and power limit as nvidia-smi prints them, and the final
+   ``{"ok": true, ...}`` line.
 
 Phase 3 also holds both scores kernels (resident and streamed, forced)
 against the plain version at 3 queries x 37 targets for bands 1 to
@@ -2432,6 +2454,362 @@ def run_stream(work: str, paf: str, fa: str, outputs: dict,
     return record
 
 
+def serve_child(counts_path: str, args: list[str]) -> int:
+    """``python3 chip_smoke.py --serve COUNTS ARGS...``: run the port's
+    serve daemon, ``pwasm_tpu_torch.cli.run(["serve", *ARGS])``, in this
+    process's main thread (so its SIGTERM drain is installed), then write
+    the kernels' launch counts and the ctx_scan flushes by device to
+    COUNTS (phase 17's daemons).  Returns the daemon's exit code."""
+    sys.path.insert(0, ROOT)
+    from pwasm_tpu_torch.cli import run
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+
+    rc = 1
+    try:
+        rc = run(["serve", *args])
+    finally:
+        with open(counts_path, "w") as f:
+            json.dump(dict(ra.LAUNCHES, consensus=cons.LAUNCHES,
+                           ctx_scan=dict(ctx_scan.FLUSHES)), f)
+    return rc
+
+
+class ServeProcess:
+    """One phase-17 daemon (``serve_child``) on socket ``sock``: stderr to
+    ``<prefix>.err``, launch counts to ``<prefix>.counts`` at its exit;
+    ``up_s`` is the seconds from its start to a ping answered on the
+    socket."""
+
+    def __init__(self, prefix: str, sock: str, args: list[str]):
+        from pwasm_tpu_torch.service.client import wait_for_socket
+
+        self.prefix = prefix
+        self._err = open(f"{prefix}.err", "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve",
+             f"{prefix}.counts", f"--socket={sock}", *args],
+            stdout=subprocess.DEVNULL, stderr=self._err, cwd=ROOT)
+        if not wait_for_socket(sock, 120):
+            self.stop()
+            raise AssertionError(f"{prefix}: no daemon on {sock}: "
+                                 f"{self.stderr()[-2000:]}")
+        self.up_s = time.perf_counter() - t0
+
+    def warmup_s(self, limit_s: float = 120.0) -> float:
+        """Wait for the daemon's warmup line; its seconds."""
+        t_end = time.monotonic() + limit_s
+        while time.monotonic() < t_end:
+            for ln in self.stderr().splitlines():
+                if "warmup (cuda) done in " in ln:
+                    if not ln.endswith("(rc 0)"):
+                        raise AssertionError(f"{self.prefix}: {ln}")
+                    return float(ln.split(" done in ")[1].split("s")[0])
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"{self.prefix}: no warmup line: "
+                             f"{self.stderr()[-2000:]}")
+
+    def wait(self, limit_s: float = 60.0) -> int:
+        try:
+            self.proc.wait(limit_s)
+        finally:
+            self.stop()
+        return self.proc.returncode
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._err.close()
+
+    def stderr(self) -> str:
+        with open(f"{self.prefix}.err") as f:
+            return f.read()
+
+    def counts(self) -> dict:
+        with open(f"{self.prefix}.counts") as f:
+            return json.load(f)
+
+
+def client_cmd(sock: str, verb: str, *args: str) -> list[str]:
+    """A ``python -m pwasm_tpu_torch`` client process's argv."""
+    return [sys.executable, "-m", "pwasm_tpu_torch", verb,
+            f"--socket={sock}", *args]
+
+
+def run_client(sock: str, verb: str, *args: str,
+               limit_s: float = 120.0) -> tuple[int, str, str, float]:
+    """One client process to its end: (rc, stdout, stderr, wall)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(client_cmd(sock, verb, *args), cwd=ROOT,
+                         capture_output=True, text=True, timeout=limit_s)
+    return (res.returncode, res.stdout, res.stderr,
+            time.perf_counter() - t0)
+
+
+def run_serve(work: str, paf: str, fa: str, outputs: dict,
+              res_outputs: dict, cold: dict, smi: str) -> dict:
+    """Phase 17: the warm serving daemon on the card.  One daemon
+    (``ServeProcess``) with ``--max-concurrent=2 --lanes=2 --warmup=cuda
+    --journal --metrics-textfile --trace-json``, driven by ``python -m
+    pwasm_tpu_torch`` client processes, every job on the realistic
+    corpus with all six outputs, ``--device=cuda`` and ``--stats``:
+
+    - a: three consecutive ``submit`` jobs: outputs equal to phase 5's;
+      jobs 2 and 3 pay no CUDA probe (``backend.probes`` 0,
+      ``warm_hits`` > 0);
+    - b: two concurrent submitters, the default flags and ``--realign
+      --batch=16``: outputs equal to phase 5's and to phase 14's
+      uninterrupted run's; then the same two jobs in turn (the walls of
+      both ways);
+    - c: a ``stream`` job fed the PAF over its stdin in 20 uneven chunks
+      (most split inside a line): outputs equal to phase 5's;
+    - d: a ``--realign --batch=16`` job slowed by injected 0.05 s hangs,
+      SIGTERM to the daemon once its checkpoint holds 64 records: the
+      daemon exits 75, the job ends preempted (its client exits 75),
+      and the checkpoint verifies.  The daemon's counts (every job of
+      a-d) are the kernels line's ``serve_launches``;
+    - e: a second daemon on the same ``--journal`` (the clean drain
+      retired it: nothing replays) runs the job resubmitted with
+      ``--resume``: its outputs equal phase 14's (but -s, which covers
+      the resumed portion); ``svc-stats``, ``metrics`` and ``inspect``
+      of that finished job answer; ``svc-stats --drain`` ends it with
+      75.
+
+    Returns the phase's record: the daemons' start-to-socket and warmup
+    walls, each job's client wall beside its run's own ``wall_s`` and
+    beside ``cold`` (phase 5's in-process run and phase 14's CLI
+    process), the gaps between consecutive jobs, the concurrent pair
+    against the two in turn, and SIGTERM to exit.  Raises on a
+    failure."""
+    import signal
+
+    from pwasm_tpu_torch.cli import _load_checkpoint
+
+    sock = os.path.join(work, "sv.sock")
+    journal = os.path.join(work, "sv.journal")
+    dargs = ["--max-concurrent=2", "--lanes=2", "--warmup=cuda",
+             f"--journal={journal}",
+             f"--metrics-textfile={work}/sv.prom",
+             f"--trace-json={work}/sv.trace.json"]
+
+    def job(tag: str, *extra: str) -> list[str]:
+        p = os.path.join(work, tag)
+        return [paf, "-r", fa, *out_args(work, tag), "--device=cuda",
+                f"--stats={p}.json", *extra]
+
+    def stats(tag: str) -> dict:
+        with open(os.path.join(work, f"{tag}.json")) as f:
+            return json.load(f)
+
+    def verdict(tag: str, rc: int, out: str, err: str, want: dict,
+                names=OUTPUTS) -> dict:
+        if rc != 0:
+            raise AssertionError(f"{tag}: rc {rc}: {err[-2000:]}")
+        got = read_outputs(work, tag)
+        differ = [n for n in names if got[n] != want[n]]
+        if differ:
+            raise AssertionError(f"{tag}: outputs differ {differ}")
+        return json.loads(out.splitlines()[-1])
+
+    record: dict = {}
+    d1 = ServeProcess(os.path.join(work, "sv_daemon1"), sock, dargs)
+    try:
+        record["daemon1"] = dict(up_s=d1.up_s, warmup_s=d1.warmup_s())
+        # a: three consecutive jobs
+        jobs = []
+        for k in (1, 2, 3):
+            tag = f"sv_a{k}"
+            rc, out, err, wall = run_client(sock, "submit", "--",
+                                            *job(tag))
+            v = verdict(tag, rc, out, err, outputs)
+            st = stats(tag)
+            if k > 1 and (st["backend"]["probes"] != 0
+                          or st["backend"]["warm_hits"] < 1):
+                raise AssertionError(f"{tag}: backend {st['backend']} "
+                                     "(want no probe, a warm hit)")
+            if st["device"]["by_site"].get("consensus") != 1:
+                raise AssertionError(f"{tag}: by_site "
+                                     f"{st['device']['by_site']}")
+            jobs.append(dict(job_id=v["job_id"], client_wall_s=wall,
+                             run_wall_s=st["wall_s"],
+                             backend=st["backend"]))
+        # b: two concurrent submitters, then the same two in turn
+        pair = (("default", ()), ("realign", ("--realign", "--batch=16")))
+
+        def start(tag, extra):
+            return subprocess.Popen(
+                client_cmd(sock, "submit", "--", *job(tag, *extra)),
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+
+        t0 = time.perf_counter()
+        procs = {name: start(f"sv_b_{name}", extra)
+                 for name, extra in pair}
+        done = {name: p.communicate(timeout=120)
+                for name, p in procs.items()}
+        concurrent_s = time.perf_counter() - t0
+        in_turn = {}
+        for name, extra in pair:
+            tag = f"sv_t_{name}"
+            rc, out, err, wall = run_client(sock, "submit", "--",
+                                            *job(tag, *extra))
+            verdict(tag, rc, out, err,
+                    outputs if name == "default" else res_outputs)
+            in_turn[name] = wall
+        for name, _extra in pair:
+            out, err = done[name]
+            verdict(f"sv_b_{name}", procs[name].returncode, out, err,
+                    outputs if name == "default" else res_outputs)
+        # c: a stream job fed in uneven chunks
+        with open(paf) as f:
+            text = f.read()
+        t0 = time.perf_counter()
+        sp = subprocess.Popen(
+            client_cmd(sock, "stream", "--", "-r", fa,
+                       *out_args(work, "sv_c"), "--device=cuda",
+                       f"--stats={work}/sv_c.json"),
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        for ch in uneven_chunks(text, 20, seed=17):
+            sp.stdin.write(ch)
+            sp.stdin.flush()
+            time.sleep(0.01)
+        out, err = sp.communicate(timeout=120)
+        stream_s = time.perf_counter() - t0
+        verdict("sv_c", sp.returncode, out, err, outputs)
+        # d: SIGTERM to the daemon while a slowed --realign job runs
+        tag = "sv_d"
+        p = os.path.join(work, tag)
+        slow = ["--realign", "--batch=16",
+                "--inject-faults=seed=1,rate=1,kinds=hang,hang_s=0.05"]
+        for stale in (f"{p}.report.dfa", f"{p}.report.dfa.ckpt"):
+            if os.path.exists(stale):
+                os.unlink(stale)
+        cp = subprocess.Popen(
+            client_cmd(sock, "submit", "--", *job(tag, *slow)), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t_end = time.monotonic() + 120
+        while True:
+            ck = _load_checkpoint(f"{p}.report.dfa")
+            if isinstance(ck, tuple) and ck[1] >= 64:
+                break
+            if cp.poll() is not None or time.monotonic() > t_end:
+                raise AssertionError(f"{tag}: no checkpoint of 64 records "
+                                     f"({ck}): {cp.stderr.read()[-2000:]}")
+            time.sleep(0.005)
+        t_sig = time.perf_counter()
+        d1.proc.send_signal(signal.SIGTERM)
+        drc = d1.wait(60)
+        term_s = time.perf_counter() - t_sig
+        out, err = cp.communicate(timeout=60)
+        v = json.loads(out.splitlines()[-1]) if out.strip() else {}
+        if drc != 75 or cp.returncode != 75 \
+                or v.get("state") != "preempted":
+            raise AssertionError(f"{tag}: daemon rc {drc}, client rc "
+                                 f"{cp.returncode}, verdict {v}: "
+                                 f"{d1.stderr()[-2000:]} {err[-1000:]}")
+        ckd = verified_checkpoint(f"{p}.report.dfa", tag)
+        if os.path.exists(journal):
+            raise AssertionError("the clean drain left the journal")
+        launches = d1.counts()
+    finally:
+        d1.stop()
+    fwd = launches["fwdptr"] + launches["fwdptr_long"]
+    # a: 3, b: 2 concurrent and 2 in turn, c: 1; d was preempted
+    # before its MSA tail
+    if launches["consensus"] != 8 or fwd < 88 or launches["walk"] != fwd \
+            or launches["ctx_scan"].get("cpu", 0) \
+            or launches["ctx_scan"].get("cuda", 0) < 1:
+        raise AssertionError(f"daemon 1 launches {launches}")
+    if os.path.getsize(os.path.join(work, "sv.prom")) == 0:
+        raise AssertionError("the daemon's metrics textfile is empty")
+    # the daemon's trace (written at its exit): the job spans, and the
+    # gaps between the consecutive jobs of a, on the daemon's clock
+    with open(os.path.join(work, "sv.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e.get("name") for e in events}
+    if not {"job_queue_wait", "job_lease_wait", "job_exec"} <= spans:
+        raise AssertionError(f"daemon trace spans {sorted(spans)[:20]}")
+    execs = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "job_exec" and e.get("ph") == "X")
+    gaps = [(b[0] - a[1]) / 1e6 for a, b in zip(execs[:2], execs[1:3])]
+    for j, (t0, t1) in zip(jobs, execs):
+        # the daemon's exec span of each job of a, beside its run's wall
+        j["exec_s"] = (t1 - t0) / 1e6
+
+    # e: a second daemon on the same journal; the preempted job
+    # resubmitted with --resume; svc-stats, metrics, inspect
+    d2 = ServeProcess(os.path.join(work, "sv_daemon2"), sock, dargs)
+    try:
+        record["daemon2"] = dict(up_s=d2.up_s, warmup_s=d2.warmup_s())
+        rc, out, err, resume_wall = run_client(
+            sock, "submit", "--", *job(tag, "--realign", "--batch=16",
+                                       "--resume"))
+        v = verdict(tag, rc, out, err, res_outputs,
+                    names=[n for n in OUTPUTS if n != "summary.txt"])
+        st = stats(tag)
+        if st["resumed_past"] != ckd["records"] \
+                or st["device"]["by_site"].get("consensus") != 1:
+            raise AssertionError(f"{tag} --resume: resumed_past "
+                                 f"{st['resumed_past']} (checkpoint "
+                                 f"{ckd['records']}), by_site "
+                                 f"{st['device']['by_site']}")
+        rc, out, err, _w = run_client(sock, "svc-stats")
+        svc = json.loads(out) if rc == 0 else {}
+        if rc != 0 or svc.get("stats_version") != 1 \
+                or svc["jobs"]["completed"] != 1 \
+                or svc["journal"]["replays"] != 0:
+            raise AssertionError(f"svc-stats: rc {rc} {out[:500]} {err}")
+        rc, out, err, _w = run_client(sock, "metrics")
+        families = [ln.split()[2] for ln in out.splitlines()
+                    if ln.startswith("# TYPE ")]
+        if rc != 0 or not {"pwasm_service_jobs_total",
+                           "pwasm_service_queue_depth"} <= set(families):
+            raise AssertionError(f"metrics: rc {rc} {families[:20]} {err}")
+        rc, out, err, _w = run_client(sock, "inspect", v["job_id"])
+        flight = json.loads(out).get("flight") if rc == 0 else None
+        if not flight or "exec" not in flight.get("phases", {}):
+            raise AssertionError(f"inspect: rc {rc} {out[:500]} {err}")
+        rc, out, err, _w = run_client(sock, "svc-stats", "--drain")
+        drc = d2.wait(60)
+        if rc != 0 or drc != 75:
+            raise AssertionError(f"svc-stats --drain: rc {rc}, daemon "
+                                 f"{drc}: {d2.stderr()[-2000:]}")
+        resume_launches = d2.counts()
+    finally:
+        d2.stop()
+
+    record.update(
+        jobs=jobs, gaps_s=gaps, concurrent_s=concurrent_s,
+        in_turn_s=sum(in_turn.values()), in_turn=in_turn,
+        stream_s=stream_s, sigterm_to_exit_s=term_s,
+        checkpoint=dict(bytes=ckd["bytes"], records=ckd["records"]),
+        resume_wall_s=resume_wall, launches=launches,
+        resume_launches=resume_launches, cold=cold,
+        svc_stats_keys=sorted(svc), metric_families=len(families),
+        flight_phases=sorted(flight["phases"]))
+    print("serve walls, s: daemon up {:.3f}, warmup {:.3f}; jobs {} "
+          "(exec spans {}, their runs {}; cold: phase 5 run {:.3f}, "
+          "phase 14 process {:.3f}); gaps {}; concurrent pair {:.3f} vs "
+          "in turn {:.3f}; "
+          "stream {:.3f}; SIGTERM to exit {:.3f}; resume {:.3f}; "
+          "{}".format(record["daemon1"]["up_s"],
+                      record["daemon1"]["warmup_s"],
+                      [round(j["client_wall_s"], 3) for j in jobs],
+                      [round(j["exec_s"], 3) for j in jobs],
+                      [round(j["run_wall_s"], 3) for j in jobs],
+                      cold["phase5_run_s"], cold["phase14_process_s"],
+                      [round(g, 3) for g in gaps], concurrent_s,
+                      record["in_turn_s"], stream_s, term_s, resume_wall,
+                      smi), flush=True)
+    return record
+
+
 def abandoned_threads_done(limit_s: float = 30.0) -> int:
     """Wait for the supervisor's abandoned attempt threads (``pwasm-*``,
     left running at their deadline) to end; returns how many there
@@ -3108,6 +3486,8 @@ def compare_forward_builds(parent, shapes: dict,
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--cli"] and len(argv) >= 2:
         return cli_child(argv[1], argv[2:])
+    if argv[:1] == ["--serve"] and len(argv) >= 2:
+        return serve_child(argv[1], argv[2:])
     opts = {"--compare": None, "--compare-realign": None,
             "--compare-consensus": None}
     args = list(argv)
@@ -3578,7 +3958,19 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="stream", nvidia_smi=smi, **stream))
     follow_launches = stream["follow_realign"]["launches"]
 
-    # 17. the kernels line, the card, the verdict
+    # 17. the warm serving daemon: served jobs (consecutive, concurrent,
+    # streamed), its SIGTERM drain, a --resume resubmission to a second
+    # daemon, and the svc-stats, metrics and inspect verbs
+    serve = run_serve(work, paf, fa, runs["cuda"]["outputs"],
+                      read_outputs(work, "res_whole"),
+                      dict(phase5_run_s=runs["cuda"]["stats"]["wall_s"],
+                           phase5_call_s=runs["cuda"]["wall"],
+                           phase14_process_s=resilience["whole"]["wall_s"]),
+                      smi)
+    emit(dict(phase="serve", nvidia_smi=smi, **serve))
+    serve_launches = serve["launches"]
+
+    # 18. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -3611,6 +4003,7 @@ def main(argv: list[str]) -> int:
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
         follow_launches=follow_launches["consensus"],
+        serve_launches=serve_launches["consensus"],
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -3627,6 +4020,7 @@ def main(argv: list[str]) -> int:
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
         follow_launches=follow_launches["fwdptr"],
+        serve_launches=serve_launches["fwdptr"],
         max_abs_err=re_err,
         ms=main_re["ms_resident"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
@@ -3641,7 +4035,8 @@ def main(argv: list[str]) -> int:
         # kernel's, and at the long-read shape; its plain version there
         # ran on the host CPU (plain_host_s, forward and walk)
         launches=long_launches["fwdptr_long"],
-        follow_launches=follow_launches["fwdptr_long"], max_abs_err=re_err,
+        follow_launches=follow_launches["fwdptr_long"],
+        serve_launches=serve_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
         bound_ms=main_re["bound_ms_fwd"], bound_by=main_re["bound_by_fwd"],
         library_ms=None, library=no_library, shape=main_re["shape"],
@@ -3657,6 +4052,7 @@ def main(argv: list[str]) -> int:
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
         follow_launches=follow_launches["walk"],
+        serve_launches=serve_launches["walk"],
         max_abs_err=re_err,
         ms=main_re["ms_walk"], plain_ms=main_re["plain_ms_walk"],
         bound_ms=main_re["bound_ms_walk"],

@@ -37,7 +37,10 @@ continues a killed run; SIGTERM/SIGINT and ``--deadline-s`` drain the
 run at the next batch boundary and exit 75, resumable
 (``resilience/lifecycle.py``).
 Outputs are byte-identical to the reference's, with these flags on or
-off.
+off.  ``serve`` starts the warm-pool daemon (``service/daemon.py``),
+which runs each job through :func:`run` with its ``warm`` hook;
+``submit``, ``stream``, ``svc-stats``, ``metrics`` and ``inspect`` are
+its client verbs (``service/client.py``).
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
@@ -56,6 +59,9 @@ Usage:
       [--stats=FILE] [--deadline-s=S] [--max-retries=N] [--fallback=fail]
   python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
       [-o OUT.json]
+  python -m pwasm_tpu_torch.cli serve --socket=PATH [options]
+  python -m pwasm_tpu_torch.cli submit|stream|svc-stats|metrics|inspect
+      --socket=PATH [options] [--] [job args]
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from __future__ import annotations
 import sys
 import threading
 import time
+from contextlib import ExitStack, contextmanager
 
 from pwasm_tpu_torch.core.config import (AUTO_FULLGENOME_FASTA_BYTES,
                                          FALLBACK_CPU_REFUSED,
@@ -189,6 +196,12 @@ USAGE = """Usage:
 
  pafreport trace-merge FILE.json [FILE.json ...] [-o OUT.json]
    merge --trace-json documents onto one wall-anchored timeline
+
+ pafreport serve --socket=PATH [options]
+   the warm-pool daemon: jobs run through this same CLI in one resident
+   process (serve -h lists its options)
+ pafreport submit|stream|svc-stats|metrics|inspect --socket=PATH ...
+   its client verbs (submit -h lists them)
 """
 
 # reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
@@ -203,16 +216,35 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "device-deadline", "inject-faults", "fallback", "recover",
                "reprobe-interval", "reprobe-max", "follow")
 
-# flags and subcommands of the reference that later slices of the port
-# bring (ROADMAP.md queue A)
-_LATER = ("a later slice (service: the subcommands, --result-cache and "
-          "--compile-cache-dir; then fleet and surveil)")
+# options and subcommands of the reference that later slices of the
+# port bring, each naming its slice (ROADMAP.md queue A)
+_A9B = "slice A9b of the service (the result cache and the build directory)"
+_A9C = ("slice A9c of the service (security, the SLO engine, the canary "
+        "and the operator verbs)")
+_LATER_OPTS = {"result-cache": _A9B, "result-cache-max-bytes": _A9B,
+               "compile-cache-dir": _A9B,
+               "m2m-stream": "slice A10 (surveil)"}
+_LATER_CMDS = {"top": _A9C, "health": _A9C, "logs": _A9C,
+               "route": "slice A11 (fleet)"}
+# the reference's subcommands, dispatched on the first argv token (a
+# served job may name none of them)
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
-                 "inspect", "top", "route", "health", "logs")
+                 "inspect", "top", "trace-merge", "route", "health",
+                 "logs")
 
 
 class CliError(PwasmError):
     exit_code = EXIT_USAGE
+
+
+def later_option(name: str) -> str | None:
+    """The refusal of ``--name`` when a later slice of the port brings
+    it (None otherwise); the serve daemon answers a submitted job with
+    it at admission."""
+    if name not in _LATER_OPTS:
+        return None
+    return (f"Error: --{name} is not ported to pwasm_tpu_torch yet; it "
+            f"comes with {_LATER_OPTS[name]}\n")
 
 
 def _parse_args(argv: list[str]) -> tuple[dict, list[str]]:
@@ -446,10 +478,52 @@ def _unlink_checkpoint(report_path: str) -> None:
         pass
 
 
-def run(argv: list[str], stdout=None, stderr=None,
-        stats: dict | None = None) -> int:
+def warmup_files(dirpath: str) -> tuple[str, str]:
+    """Write the deterministic warmup corpus (``serve --warmup``): a
+    120-base query FASTA and a PAF of 16 one-substitution alignments,
+    enough to pay the torch import, the CUDA probe and context and the
+    ctx_scan program's first run before a daemon's first real job.
+    Host-side text only: no torch, no randomness."""
+    import os
+
+    from pwasm_tpu_torch.utils.fsio import ensure_private_dir
+    ensure_private_dir(dirpath)
+    q = "ACGT" * 30                       # 120-base query
+    fa = os.path.join(dirpath, "warm.fa")
+    with open(fa, "w") as f:
+        f.write(f">warmq\n{q}\n")
+    lines = []
+    for i in range(16):
+        p = 10 + 6 * i                    # substitution position
+        qb = q[p]
+        tb = "ACGT"[("ACGT".index(qb) + 1) % 4]
+        cs = f":{p}*{tb.lower()}{qb.lower()}:{len(q) - p - 1}"
+        tseq_len = len(q)
+        lines.append("\t".join([
+            "warmq", str(len(q)), "0", str(len(q)), "+",
+            f"warmt{i}", str(tseq_len), "0", str(tseq_len),
+            str(len(q)), str(len(q)), "60", "NM:i:1", "AS:i:0",
+            f"cg:Z:{len(q)}M", f"cs:Z:{cs}"]))
+    paf = os.path.join(dirpath, "warm.paf")
+    with open(paf, "w") as f:
+        f.write("".join(ln + "\n" for ln in lines))
+    return paf, fa
+
+
+def run(argv: list[str], stdout=None, stderr=None, warm=None,
+        input_stream=None, stats: dict | None = None) -> int:
     """One CLI invocation; returns the exit code (1 usage, 3 parse,
-    5 zero-coverage column).  ``stats``, when given, is filled with the
+    5 zero-coverage column).
+
+    ``warm`` is the warm-pool service hook (the shape of
+    ``service.daemon.WarmContext``): a resident serve process passes
+    one a job, carrying the job's drain (which replaces the run's own
+    ``SignalDrain``), its lane's supervisor state (restored before the
+    run, saved after it), its lane's CUDA devices (``lease_devices``),
+    and the job's ``trace_id`` and flight recorder.  ``input_stream``
+    is the stream-job feed (``stream.pafstream.StreamFeed``), read in
+    place of a positional input.  A cold run (both None) behaves
+    exactly as before.  ``stats``, when given, is filled with the
     run's stage seconds (``times``), its wall time, the pileup shape of
     the consensus launch and the alignment count (for ``--many2many``:
     see ``stream/multicds.py::many2many_main``)."""
@@ -457,7 +531,8 @@ def run(argv: list[str], stdout=None, stderr=None,
     stderr = stderr or sys.stderr
     opened: list = []
     try:
-        return _run(argv, stdout, stderr, stats, opened)
+        return _run(argv, stdout, stderr, stats, opened, warm,
+                    input_stream)
     except PwasmError as e:
         stderr.write(str(e))
         return e.exit_code
@@ -475,16 +550,14 @@ def _open_out(path: str, opened: list, mode: str = "w"):
     return f
 
 
-def _run(argv, stdout, stderr, stats, opened) -> int:
+def _run(argv, stdout, stderr, stats, opened, warm=None,
+         input_stream=None) -> int:
+    if argv and argv[0] in _SERVICE_CMDS:
+        # the client verbs never import torch: a client process stays
+        # light
+        return _service_main(argv, stdout, stderr)
     from pwasm_tpu_torch.device import resolve_device
 
-    if argv and argv[0] == "trace-merge":
-        from pwasm_tpu_torch.obs.merge import trace_merge_main
-        return trace_merge_main(argv[1:], stdout, stderr)
-    if argv and argv[0] in _SERVICE_CMDS:
-        raise CliError(f"Error: '{argv[0]}' is not ported to "
-                       f"pwasm_tpu_torch yet; it comes with "
-                       f"{_LATER}\n")
     opts, positional = _parse_args(argv)
     if opts.get("h"):
         stderr.write(USAGE + "\n")
@@ -496,8 +569,8 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         return many2many_main(opts, positional, stdout, stderr, stats)
     for k in opts:
         if len(k) > 1 and k not in _LONG_FLAGS:
-            raise CliError(f"Error: --{k} is not ported to pwasm_tpu_torch "
-                           f"yet; it comes with {_LATER}\n")
+            raise CliError(later_option(k) or f"Error: --{k} is not an "
+                           "option of pwasm_tpu_torch\n")
     cfg = Config()
     cfg.debug = bool(opts.get("D"))
     cfg.fullgenome = bool(opts.get("F"))
@@ -552,7 +625,14 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         infile = None     # the conventional stdin marker
     follow_idle = _follow_idle(opts, infile)
     inf = sys.stdin
-    if infile:
+    if input_stream is not None:
+        # a served stream job: its records arrive over the socket
+        if infile is not None:
+            raise PwasmError(
+                "Error: a socket-streamed job reads records from the "
+                "stream — drop the positional PAF path!\n")
+        inf = input_stream
+    elif infile:
         from pwasm_tpu_torch.stream.pafstream import (BlockLineReader,
                                                       FollowReader)
         if "follow" in opts:
@@ -631,19 +711,32 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
         nmsa = native_msa(stream=stderr)
         if nmsa is not None:
             opened.append(nmsa)
-    mesh = _run_mesh(shard, device, stderr, cfg.verbose)
+    # a served job on a lease runs on its lane's CUDA devices: the
+    # lane's first device is this thread's current device for the
+    # whole run, and --shard spans exactly the lane
+    lane = ExitStack()
+    opened.append(lane)
+    pool = lane.enter_context(_lane_device_scope(cfg, warm, stderr))
+    if pool is not None:
+        device = pool[0]
+    mesh = _run_mesh(shard, device, stderr, cfg.verbose, pool)
     from pwasm_tpu_torch.obs import make_observability
     from pwasm_tpu_torch.utils.profiling import device_trace
 
     # --trace-json / --log-json / --metrics-textfile: the observability
     # bundle (obs/).  It writes only to its own sinks, never the report
     # stream, so the outputs are the same bytes with the flags on or off
+    # a served job carries the daemon-minted trace_id (stamped on every
+    # event line as the run id) and its flight recorder (the run's
+    # spans accumulate phase walls there)
     try:
         obs = make_observability(
             cfg.trace_json or None, cfg.log_json or None,
             cfg.metrics_textfile or None, stdout=stdout,
             trace_max_events=cfg.trace_max_events or None,
-            log_json_max_bytes=cfg.log_json_max_bytes or None)
+            log_json_max_bytes=cfg.log_json_max_bytes or None,
+            run_id=getattr(warm, "trace_id", None),
+            flight=getattr(warm, "flight", None))
     except OSError:
         raise PwasmError(f"Cannot open file {cfg.log_json} for writing!\n")
     if obs.enabled:
@@ -652,8 +745,11 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
     # line loop honors at the next batch boundary; the in-flight
     # batches complete, a final checkpoint and a partial --stats land,
     # and the run exits 75 ("preempted, resumable"); a second signal
-    # hard-aborts.  --deadline-s pulls the same flag from a timer
-    drain_cm = SignalDrain(stderr=stderr)
+    # hard-aborts.  --deadline-s pulls the same flag from a timer.  A
+    # served job's drain is the one the daemon made for it: the
+    # daemon's own signal handler fans out to these flags
+    drain_cm = warm.drain if warm is not None \
+        and warm.drain is not None else SignalDrain(stderr=stderr)
     drain_cm.obs = obs   # the drain request is a lifecycle event
     deadline_timer = None
     if cfg.deadline_s:
@@ -670,7 +766,8 @@ def _run(argv, stdout, stderr, stats, opened) -> int:
                               qfasta, stderr, cons_outs, nmsa,
                               stats if stats is not None else {}, obs,
                               str(opts["o"]) if "o" in opts else None,
-                              resume_skip, resume_state, drain, run_stats)
+                              resume_skip, resume_state, drain, run_stats,
+                              warm)
     except PwasmError as e:
         stderr.write(str(e))
         if obs.enabled:
@@ -861,21 +958,101 @@ def _parse_resilience_opts(cfg: Config, opts: dict) -> None:
             raise CliError(f"{USAGE}\nInvalid --inject-faults: {e}\n")
 
 
-def _run_mesh(shard: int, device, stderr, verbose: bool):
-    """The run's one mesh: with ``--shard[=N]`` over the first N visible
-    CUDA devices (every one for -1), else the 1 x 1 mesh of ``device``."""
+def _run_mesh(shard: int, device, stderr, verbose: bool, lane=None):
+    """The run's one mesh: with ``--shard[=N]`` over the first N
+    devices of the job's lease (``lane``, a served job's) or else of the
+    visible CUDA devices (every one for -1), else the 1 x 1 mesh of
+    ``device``."""
     from pwasm_tpu_torch.parallel import mesh as pmesh
     if not shard:
         return pmesh.as_mesh(device)
-    pool = pmesh.visible_devices()
+    pool = lane if lane is not None else pmesh.visible_devices()
     want = len(pool) if shard < 0 else shard
     if want > len(pool):
-        raise PwasmError(f"Error: --shard={want} but only {len(pool)} "
-                         "devices are visible!\n")
+        where = f"the job's device lease holds {len(pool)}" \
+            if lane is not None \
+            else f"only {len(pool)} devices are visible"
+        raise PwasmError(f"Error: --shard={want} but {where}!\n")
     mesh = pmesh.make_mesh(want, devices=pool)
     if verbose:
         print(f"sharding over mesh {dict(mesh.shape)}", file=stderr)
     return mesh
+
+
+def _service_main(argv: list[str], stdout, stderr) -> int:
+    """The subcommands: ``trace-merge``; ``serve`` (the daemon) and the
+    client verbs; the reference's others exit 1 naming their slice."""
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "trace-merge":
+        from pwasm_tpu_torch.obs.merge import trace_merge_main
+        return trace_merge_main(rest, stdout, stderr)
+    if cmd in _LATER_CMDS:
+        raise CliError(f"Error: '{cmd}' is not ported to pwasm_tpu_torch "
+                       f"yet; it comes with {_LATER_CMDS[cmd]}\n")
+    if cmd == "serve":
+        from pwasm_tpu_torch.service.daemon import serve_main
+        return serve_main(rest, stdout, stderr)
+    from pwasm_tpu_torch.service.client import client_main
+    return client_main(cmd, rest, stdout, stderr)
+
+
+def _lane_devices(warm):
+    """The CUDA device-index span ``[lo, hi)`` of a served job's device
+    lease, or None for a cold run or a single-lane daemon (the daemon
+    exposes the span only when it runs several lanes)."""
+    return getattr(warm, "lease_devices", None)
+
+
+def _lane_device_pool(span, stderr=None, warn: bool = True) -> list:
+    """Map a lease's device-index span onto the visible CUDA devices
+    (``parallel/mesh.py::visible_devices``; callable only once the
+    bounded probe passed).  Clamps when fewer devices exist than the
+    lane layout assumes: on a one-card host every lane maps to cuda:0
+    and the lease is a plain concurrency token (the bytes do not depend
+    on placement).  With more than one device a clamp means the lanes
+    (--lanes x --devices-per-job) oversubscribe the cards and share
+    one, which is warned on the job's stderr."""
+    from pwasm_tpu_torch.parallel.mesh import visible_devices
+
+    devs = visible_devices()
+    lo, hi = span
+    pool = devs[lo:hi]
+    clamped = len(pool) < hi - lo
+    if not pool:
+        pool = [devs[lo % len(devs)]]
+    if warn and clamped and len(devs) > 1:
+        print(f"Warning: device lease [{lo},{hi}) exceeds the "
+              f"{len(devs)}-device inventory — lane layout "
+              "oversubscribes the cards and lanes may share one; "
+              "size --lanes*--devices-per-job to the real device "
+              "count", file=stderr if stderr is not None
+              else sys.stderr)
+    return pool
+
+
+@contextmanager
+def _lane_device_scope(cfg: Config, warm, stderr=None):
+    """Pin a leased job to its lane: yields the lane's device pool and,
+    for the run's extent, makes the pool's first device this thread's
+    current CUDA device (``torch.cuda.device``), so two jobs holding
+    different leases place their work on different cards.  The current
+    device is per host thread, so the daemon's worker threads scope
+    independently.  Yields None, and changes nothing, for a cold run, a
+    ``--device=cpu`` job or a single-lane daemon.  Entered after the
+    bounded probe passed (``resolve_device``).  ``stderr`` is the job's
+    own, where the oversubscription warning belongs."""
+    span = _lane_devices(warm)
+    if span is None or cfg.device != "cuda":
+        yield None
+        return
+    pool = _lane_device_pool(span, stderr)
+    if pool[0].type != "cuda":
+        yield pool
+        return
+    import torch
+
+    with torch.cuda.device(pool[0]):
+        yield pool
 
 
 def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
@@ -979,7 +1156,7 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                qfasta: FastaFile, stderr, cons_outs: dict, nmsa,
                stats: dict, obs, report_path: str | None,
                resume_skip: int, resume_state: dict | None,
-               drain: SignalDrain, run_stats) -> int:
+               drain: SignalDrain, run_stats, warm=None) -> int:
     """The per-PAF-line loop (pafreport.cpp:296-460).  ``nmsa`` is the
     C++ MSA engine (``native.NativeMsa``), or None for the Python
     engine (``align/msa.py``).  ``mesh`` is the run's mesh, over which
@@ -999,7 +1176,9 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     before the end of input (or by ``--inject-faults=preempt=N``) stops
     the line loop at the next line, one requested in the MSA tail
     aborts it, and either way the run returns 75 with its checkpoint
-    kept."""
+    kept.  ``warm`` (a served job's, else None) carries its lane's
+    supervisor state: restored before the checkpoint's, handed back
+    at the end for the lane's next job."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.align.gapseq import FLAG_IS_REF, GapSeq
     from pwasm_tpu_torch.align.msa import Msa
@@ -1030,9 +1209,15 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         ResiliencePolicy(max_retries=cfg.max_retries,
                          deadline_s=cfg.device_deadline or None),
         stats=run_stats, stderr=stderr, faults=fault_plan, obs=obs)
+    if warm is not None and warm.supervisor_state:
+        # a served job inherits its lane's breaker and bucket ceiling
+        # from the lane's previous job: an open breaker is not
+        # re-discovered (and re-paid) job after job
+        supervisor.restore_state(warm.supervisor_state)
     if resume_state is not None:
         # a --resume inherits the killed run's breaker, bucket ceiling
-        # and fault clock
+        # and fault clock; restored after the lane's state, because the
+        # job's own checkpoint is the more specific fact
         supervisor.restore_state(resume_state)
     times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
                            "consensus", "refine", "write")
@@ -1463,6 +1648,12 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             # preempted run keeps it: it is what --resume continues from
             _unlink_checkpoint(report_path)
     supervisor.finalize_stats()
+    if warm is not None:
+        # the end state for the lane's next job, without the fault
+        # clock: a scripted fault window is one job's debug contract
+        warm.supervisor_state = {
+            k: v for k, v in supervisor.export_state().items()
+            if k != "fault_calls"}
     run_stats.preempted = preempted
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(mesh.devices.flat[0]))

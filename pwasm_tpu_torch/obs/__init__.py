@@ -12,7 +12,9 @@ subsystem behind three CLI flags and one subcommand:
 - ``--log-json=FILE|-``  the structured NDJSON run-lifecycle event log
   (:mod:`pwasm_tpu_torch.obs.events`);
 - ``trace-merge``  several ``--trace-json`` documents on one wall
-  axis (:mod:`pwasm_tpu_torch.obs.merge`).
+  axis (:mod:`pwasm_tpu_torch.obs.merge`);
+- the serve daemon's per-job flight record, read by the ``inspect``
+  verb (:mod:`pwasm_tpu_torch.obs.flight`).
 
 The :class:`Observability` facade is what gets threaded through the
 run (cli -> the batch supervisor, ``resilience/supervisor.py``): a null
@@ -23,9 +25,9 @@ holds by construction (observability writes only to its own sinks,
 never the report stream).  Metric NAMES live in
 :mod:`pwasm_tpu_torch.obs.catalog`, the single registration namespace.
 
-The facade keeps the reference's ``flight`` slot (the serve daemon's
-per-job flight recorder); no run of the port fills it yet, so it is
-always ``None`` here.
+A run served by the daemon fills the facade's ``flight`` slot with its
+job's :class:`~pwasm_tpu_torch.obs.flight.FlightRecorder`; a cold run
+leaves it ``None``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import time as _time
 from contextlib import nullcontext
 
 from pwasm_tpu_torch.obs.events import EventLog, new_run_id  # noqa: F401
+from pwasm_tpu_torch.obs.flight import FlightRecorder  # noqa: F401
 from pwasm_tpu_torch.obs.metrics import MetricsRegistry  # noqa: F401
 from pwasm_tpu_torch.obs.tracing import TraceRecorder  # noqa: F401
 
@@ -74,7 +77,7 @@ class Observability:
     ``registry``/``run_metrics`` — the metrics registry and the built
     run-metric families (``obs/catalog.py``); ``tracer`` — the span
     recorder; ``events`` — the NDJSON event log; ``flight`` — the
-    per-job flight recorder a serve
+    per-job :class:`~pwasm_tpu_torch.obs.flight.FlightRecorder` a serve
     daemon hands a served job (spans accumulate phase walls there,
     events land in its ring).  ``trace_path`` / ``metrics_path`` are
     written by :meth:`close`.

@@ -9,6 +9,10 @@ Nothing here runs at import: the first CUDA tensor that reaches a
 kernel wrapper builds its library (or ``build_all`` builds every source
 at once, one nvcc process per source, all started together).  A missing
 nvcc raises; there is no download and no prebuilt package.
+
+Loading and binding run under one module lock, so the serve daemon's
+worker threads reaching a wrapper together build a library once, and
+each sees every entry point of it.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()          # load() and bind(), whole
 BUILD_LOG: dict[str, str] = {}     # name -> nvcc's report (ptxas -v)
 
 
@@ -73,7 +79,9 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
         out = lib_path(name)
         if os.path.exists(out):
             continue
-        tmp = f"{out}.{os.getpid()}.tmp"
+        # process- and thread-unique: two threads building one source
+        # must not write one file
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, name + ".cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -93,23 +101,29 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _LIBS[name] = ctypes.CDLL(lib_path(name))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _LIBS[name] = ctypes.CDLL(lib_path(name))
+        return lib
 
 
 def bind(name: str, sigs: dict, cache: dict) -> dict:
     """``cache`` filled, on first use, with the C entry points of
     ``csrc/<name>.cu`` that ``sigs`` maps to their (argtypes, restype);
     returns ``cache``.  Each kernel module keeps its own cache, so a
-    module whose kernels were never called has built nothing."""
-    if not cache:
-        lib = load(name)
-        for fn_name, (argtypes, restype) in sigs.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-            cache[fn_name] = fn
-    return cache
+    module whose kernels were never called has built nothing.  The
+    cache is published whole, under the module lock: no thread sees it
+    with an entry point missing."""
+    with _LOCK:
+        if not cache:
+            lib = load(name)
+            fns = {}
+            for fn_name, (argtypes, restype) in sigs.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                fns[fn_name] = fn
+            cache.update(fns)
+        return cache

@@ -12,15 +12,25 @@ is a no-op and no profiler is made.
 
 The reference writes a ``jax.profiler`` TensorBoard directory instead;
 the port's trace is one file in the directory.
+
+One profile at a time a process: two ``torch.profiler`` sessions
+started from two threads at once (two ``--profile`` jobs of one serve
+daemon) crash the process, so a run asking for a profile while another
+holds it fails (exit 1), as the reference's second ``start_trace``
+fails its job.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import threading
 from contextlib import contextmanager
 
+from pwasm_tpu_torch.core.errors import PwasmError
+
 TRACE_NAME = "trace.json"
+_ACTIVE = threading.Lock()     # held while a profile runs
 
 
 @contextmanager
@@ -38,12 +48,19 @@ def device_trace(profile_dir: str | None, stderr=None,
     if device == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    prof = profile(activities=activities)
-    prof.start()
+    if not _ACTIVE.acquire(blocking=False):
+        raise PwasmError("Error: --profile: another run of this process "
+                         "is being profiled (one profile at a time)\n")
     try:
-        with record_function("run"):
-            yield
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            with record_function("run"):
+                yield
+        finally:
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(profile_dir,
+                                                  TRACE_NAME))
+            print(f"device trace written to {profile_dir}", file=stderr)
     finally:
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(profile_dir, TRACE_NAME))
-        print(f"device trace written to {profile_dir}", file=stderr)
+        _ACTIVE.release()

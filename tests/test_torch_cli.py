@@ -127,10 +127,10 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--compile-cache-dir=cc", "service"), ("--m2m-stream", "surveil"),
-    ("--result-cache-max-bytes=1", "service"),
-    ("--result-cache=rc", "service"),
-    ("--follow --result-cache=rc", "service"),
+    ("--compile-cache-dir=cc", "slice A9b"), ("--m2m-stream", "slice A10"),
+    ("--result-cache-max-bytes=1", "slice A9b"),
+    ("--result-cache=rc", "slice A9b"),
+    ("--follow --result-cache=rc", "slice A9b"),
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, flag, later):
     paf, fa = _golden_inputs(tmp_path)
@@ -140,8 +140,8 @@ def test_later_slices_are_refused(tmp_path, flag, later):
                 *flag.split(), *dev], stderr=err) == 1
     assert later in err.getvalue()
     err = io.StringIO()
-    assert run(["serve", "--socket=x"], stderr=err) == 1
-    assert "service" in err.getvalue()
+    assert run(["top", "--socket=x"], stderr=err) == 1
+    assert "slice A9c" in err.getvalue()
 
 
 def test_usage_and_parse_exit_codes(tmp_path):

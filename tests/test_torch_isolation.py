@@ -69,6 +69,13 @@ def test_port_sources_never_name_jax_or_the_reference():
     # and the streaming ingest
     assert {f"pwasm_tpu_torch/stream/{m}.py" for m in (
         "__init__", "multicds", "pafstream")} <= rel
+    # and the serving daemon, its fleet pieces and the flight record
+    assert {f"pwasm_tpu_torch/service/{m}.py" for m in (
+        "__init__", "cache", "client", "daemon", "journal", "leases",
+        "protocol", "queue")} <= rel
+    assert {f"pwasm_tpu_torch/fleet/{m}.py" for m in (
+        "__init__", "fencing", "transport")} <= rel
+    assert "pwasm_tpu_torch/obs/flight.py" in rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -105,9 +112,23 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
             "--inject-faults=seed=1,rate=0.3,kinds=raise+nan+corrupt"]
     merge = ["trace-merge", str(tmp_path / "t.json"), "-o",
              str(tmp_path / "tm.json")]
+    # a served job: a daemon on a thread of this process, and the
+    # client verb as the CLI dispatches it
+    serve = ["submit", f"--socket={tmp_path / 's.sock'}", "--",
+             *argv[:1], "-r", argv[2], f"-o{tmp_path / 'served.dfa'}",
+             "--device=cpu"]
+    code_serve = (
+        "import threading\n"
+        "from pwasm_tpu_torch.service.daemon import Daemon\n"
+        "from pwasm_tpu_torch.service.client import wait_for_socket\n"
+        f"dm = Daemon({str(tmp_path / 's.sock')!r}, journal_path=None)\n"
+        "t = threading.Thread(target=dm.serve, daemon=True)\n"
+        "t.start()\n"
+        f"assert wait_for_socket({str(tmp_path / 's.sock')!r}, 30)\n")
     code = (
         "import sys\n"
         "from pwasm_tpu_torch.cli import run\n"
+        + code_serve +
         f"assert run({argv!r}) == 0\n"
         f"assert run({merge!r}) == 0\n"
         "import pwasm_tpu_torch.parallel.mesh\n"
@@ -118,6 +139,14 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.utils.profiling\n"
         "import pwasm_tpu_torch.resilience\n"
         "import pwasm_tpu_torch.stream.pafstream\n"
+        "import pwasm_tpu_torch.obs.flight\n"
+        "import pwasm_tpu_torch.fleet.fencing\n"
+        "import pwasm_tpu_torch.fleet.transport\n"
+        "import pwasm_tpu_torch.service.cache\n"
+        "import pwasm_tpu_torch.service.journal\n"
+        "import pwasm_tpu_torch.service.leases\n"
+        "import pwasm_tpu_torch.service.queue\n"
+        f"assert run({serve!r}) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'pwasm_tpu' or m.startswith('pwasm_tpu.'))\n"
@@ -137,6 +166,8 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         out.stdout
     assert (tmp_path / "c.fa").read_bytes() == open(
         os.path.join(REPO, "tests", "golden", "cons.fa"), "rb").read()
+    assert (tmp_path / "served.dfa").read_bytes() \
+        == (tmp_path / "r.dfa").read_bytes()
     for name in ("st.json", "t.json", "e.ndjson", "m.prom",
                  "prof/trace.json", "tm.json"):
         assert (tmp_path / name).stat().st_size > 0, name
