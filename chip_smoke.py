@@ -185,12 +185,30 @@ Phases, one JSON line each; any failure exits non-zero:
               beside its run's and the cold walls, the gaps between jobs,
               the concurrent pair against the two in turn, SIGTERM to
               exit;
-18. the ``kernels`` line (with each main-path kernel's
+18. msa-library — the MSA engine's library surface on the card
+              (``run_msa_library``): the realistic corpus's MSA from the
+              Python engine, 40 seeded clip proposals through
+              ``eval_clipping`` (the accepted applied), ``refine_msa`` on
+              cuda (one consensus launch, the clip refinement over the
+              clipped members there) equal to the CPU's and to the scalar
+              oracle's (``refine_clipping_scalar``), consensus, clips
+              and writers' bytes; ``build_msa`` counts and provenance on
+              cuda equal to the CPU's, and ``column_mismatches`` at every
+              column of the first 12 alignments' MSA; the writers'
+              on-demand refine on cuda; ``banded_score`` on 16 seeded
+              pairs (bands 1-256) equal to ``banded_gotoh_batch`` and the
+              plain version; the single-core host baselines
+              (``consensus_vote_pileup`` on the engine's pileup,
+              ``banded_gotoh_batch`` at config 2's first 1,024 targets)
+              beside the kernels;
+19. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
    phase 15's faulted ``--realign`` run, ``follow_launches`` from
    phase 16's ``--follow --realign`` run and ``serve_launches`` from
-   phase 17's first daemon, every job of its life), the card's name
+   phase 17's first daemon, every job of its life; for the consensus
+   and scores kernels, ``library_launches`` from phase 18 and the
+   single-core host baseline's time), the card's name
    and power limit as nvidia-smi prints them, and the final
    ``{"ok": true, ...}`` line.
 
@@ -3117,6 +3135,362 @@ def run_supervisor(work: str, paf: str, fa: str, outputs: dict,
     return record
 
 
+@contextlib.contextmanager
+def captured_msas():
+    """Copies of the MSAs that the CLI's Python engine hands to its end-of-
+    run writers (``cli.py::_python_msa_outputs``): finalized, and refined
+    only when the run asked for a consensus output."""
+    import copy
+
+    from pwasm_tpu_torch import cli
+
+    got = []
+    real = cli._python_msa_outputs
+
+    def recording(ref_msa, *args, **kwargs):
+        real(ref_msa, *args, **kwargs)
+        got.append(copy.deepcopy(ref_msa))
+
+    cli._python_msa_outputs = recording
+    try:
+        yield got
+    finally:
+        cli._python_msa_outputs = real
+
+
+def python_engine_msa(work: str, paf: str, fa: str, tag: str, dev: str):
+    """The Python MSA engine's MSA of a corpus, as ``PWASM_NATIVE_MSA=0``
+    builds it: the CLI with ``-o`` and ``-w`` on ``dev``; returns (the
+    finalized, unrefined MSA, the ``-w`` bytes, the run's seconds)."""
+    p = os.path.join(work, tag)
+    with env_var("PWASM_NATIVE_MSA", "0"), captured_msas() as got:
+        rc, _st, err, wall = run_cli([paf, "-r", fa, "-o", f"{p}.report.dfa",
+                                      "-w", f"{p}.msa.mfa",
+                                      f"--device={dev}"])
+    if rc != 0 or len(got) != 1 or got[0].refined:
+        raise AssertionError(f"{tag}: rc={rc}, {len(got)} MSAs: {err}")
+    with open(f"{p}.msa.mfa", "rb") as f:
+        return got[0], f.read(), wall
+
+
+def propose_clips(m, seed: int, n: int = 40) -> tuple[int, int]:
+    """``n`` seeded end trims of random members through ``eval_clipping``
+    (clipmax absolute 40, 5% or none), each accepted one applied with
+    ``apply_clipping``.  Returns (accepted, refused)."""
+    import numpy as np
+
+    from pwasm_tpu_torch.align.msa import AlnClipOps
+
+    rng = np.random.default_rng(seed)
+    accepted = refused = 0
+    for _ in range(n):
+        s = m.seqs[int(rng.integers(0, m.count()))]
+        c5, c3 = (int(x) for x in rng.integers(-1, 60, 2))
+        ops = AlnClipOps()
+        if m.eval_clipping(s, c5, c3, float(rng.choice([0.0, 0.05, 40.0])),
+                           ops):
+            m.apply_clipping(ops)
+            accepted += 1
+        else:
+            refused += 1
+    return accepted, refused
+
+
+def msa_bytes(m) -> dict:
+    """A refined MSA's consensus, clips and writers' bytes."""
+    out = {"consensus": bytes(m.consensus),
+           "clips": [(s.clp5, s.clp3) for s in m.seqs]}
+    for kind, fn in (("ace", m.write_ace), ("info", m.write_info),
+                     ("cons", m.write_cons), ("mfa", m.write_msa)):
+        buf = io.StringIO()
+        fn(buf, "contig") if kind != "mfa" else fn(buf)
+        out[kind] = buf.getvalue()
+    return out
+
+
+def refine_quiet(fn) -> str:
+    """Run ``fn`` with its stderr captured; returns the captured text."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        fn()
+    return err.getvalue()
+
+
+@contextlib.contextmanager
+def logged_refines():
+    """The clip-refinement dispatches (``ops/refine_clip.py::
+    refine_phases``) as (device type, members) while the block runs."""
+    from pwasm_tpu_torch.ops import refine_clip
+
+    log = []
+    real = refine_clip.refine_phases
+
+    def recording(gseq2, *args, device, supervisor=None):
+        log.append((str(device).split(":")[0], len(gseq2)))
+        return real(gseq2, *args, device=device, supervisor=supervisor)
+
+    refine_clip.refine_phases = recording
+    try:
+        yield log
+    finally:
+        refine_clip.refine_phases = real
+
+
+@contextlib.contextmanager
+def scalar_refinement():
+    """``refine_clipping_batch`` replaced by the scalar oracle, one
+    ``refine_clipping_scalar`` a member, while the block runs."""
+    from pwasm_tpu_torch.align import gapseq
+
+    real = gapseq.refine_clipping_batch
+
+    def scalar(seqs, cons, cposes, device, skip_dels=False,
+               supervisor=None):
+        for s, cpos in zip(seqs, cposes):
+            s.refine_clipping_scalar(cons, cpos, skip_dels=skip_dels)
+
+    gapseq.refine_clipping_batch = scalar
+    try:
+        yield
+    finally:
+        gapseq.refine_clipping_batch = real
+
+
+def score_pairs(seed: int, n: int = 16):
+    """``n`` seeded (q, padded t, t_len, band) pairs: queries of 100 to
+    2,000 bases, bands 1 to 256, targets mutated copies of the query
+    (some with a tail) padded to the widest width the band places, so
+    that end cells fall inside and outside the band."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bands = [1, 2, 7, 8, 31, 33, 64, 64, 65, 100, 128, 129, 200, 255, 256,
+             256][:n]
+    pairs = []
+    for k, band in enumerate(bands):
+        m = int(rng.integers(100, 2001))
+        q = rng.integers(0, 5, m).astype(np.int8)
+        n_pad = m + (band - 1) // 2
+        t = mutate(rng, q, int(rng.integers(0, 30)), int(rng.integers(0, 6)))
+        if k % 3 == 2:
+            t = np.concatenate([t, rng.integers(0, 4, band).astype(np.int8)])
+        t = t[:n_pad]
+        tp = np.full(n_pad, 127, dtype=np.int8)
+        tp[:len(t)] = t
+        pairs.append((q, tp, len(t), band))
+    return pairs
+
+
+def run_msa_library(work: str, paf: str, fa: str, pile, consensus_ms: float,
+                    cycles_per_s: float | None, dev: str = "cuda") -> dict:
+    """Phase 18: the MSA engine's library surface with the card under it
+    (``dev``), each result held to the same call on the CPU:
+
+    - a: the realistic corpus's MSA from the Python engine; 40 seeded
+      clip proposals through ``eval_clipping``, the accepted applied;
+      ``refine_msa`` on ``dev`` (one consensus launch, the refinement
+      over the clipped members there), on a copy on the CPU, and on a
+      copy through the scalar oracle: consensus, clips, writers' bytes
+      and warnings equal (with ``pafreport``'s ``remove_cons_gaps=False``:
+      removing every consensus-gap column of this MSA, one walk over
+      the members each, takes longer than the phase);
+    - b: ``build_msa`` on ``dev`` and on the CPU of the unclipped MSA:
+      counts and provenance equal; then ``column_mismatches`` at every
+      column, equal on both, of the MSA of the corpus's first 12
+      alignments (each call recomputes every member's layout, ~0.15 ms
+      a member: 201 members x 9,894 columns would take minutes);
+    - c: the writers of an unrefined clipped copy refine on demand on
+      ``dev`` to (a)'s bytes;
+    - d: ``banded_score`` on ``dev`` for 16 seeded pairs equal to
+      ``native.banded_gotoh_batch`` and the plain version;
+    - e: the host baselines on one core: ``consensus_vote_pileup`` on the
+      engine's pileup ``pile``, held to the kernel's votes, and
+      ``banded_gotoh_batch`` at config 2 cut to its first 1,024 targets,
+      held to the kernel's scores; each beside the kernel's time at the
+      shape (``consensus_ms``, the main path's, and the scores kernel
+      timed here).
+
+    Returns the phase's record.  Raises on a failure."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    from pwasm_tpu_torch.ops import consensus as cons
+
+    card, cpu = torch.device(dev), torch.device("cpu")
+    rec: dict = {"device": dev}
+    t_phase = time.perf_counter()
+
+    # a: the clip transaction, then the refine on the card, the CPU and
+    # the scalar oracle
+    m, mfa, rec["build_s"] = python_engine_msa(work, paf, fa, "lib", dev)
+    with open(os.path.join(work, "cuda.msa.mfa"), "rb") as f:
+        if mfa != f.read():
+            raise AssertionError("the Python engine's -w differs from phase "
+                                 "5's")
+    unclipped = copy.deepcopy(m)
+    t0 = time.perf_counter()
+    rec["accepted"], rec["refused"] = propose_clips(m, seed=18)
+    rec["eval_s"] = time.perf_counter() - t0
+    rec["clipped_members"] = sum(1 for s in m.seqs if s.clp5 or s.clp3)
+    if not (rec["accepted"] and rec["refused"] and rec["clipped_members"]):
+        raise AssertionError(f"clip proposals: {rec['accepted']} accepted, "
+                             f"{rec['refused']} refused, "
+                             f"{rec['clipped_members']} members clipped")
+    host, oracle, lazy = (copy.deepcopy(m) for _ in range(3))
+    before = cons.LAUNCHES
+    t0 = time.perf_counter()
+    with logged_refines() as refines:
+        warn = refine_quiet(lambda: m.refine_msa(card, False))
+    rec["refine_s"] = time.perf_counter() - t0
+    rec["refine_launches"] = cons.LAUNCHES - before
+    rec["refine_dispatches"] = refines
+    if rec["refine_launches"] != (dev == "cuda") or not refines or any(
+            d != dev or n < 1 for d, n in refines):
+        raise AssertionError(f"refine_msa({dev}): {rec['refine_launches']} "
+                             f"consensus launches, dispatches {refines}")
+    want = msa_bytes(m)
+    if refine_quiet(lambda: host.refine_msa(cpu, False)) != warn \
+            or msa_bytes(host) != want:
+        raise AssertionError(f"refine_msa on {dev} and on the CPU differ")
+    with scalar_refinement():
+        oracle_warn = refine_quiet(lambda: oracle.refine_msa(cpu, False))
+    if sorted(oracle_warn.splitlines()) != sorted(warn.splitlines()) \
+            or msa_bytes(oracle) != want:
+        raise AssertionError("the refine's clips differ from "
+                             "refine_clipping_scalar's")
+    rec["clips_changed"] = sum(
+        a != b for a, b in zip(want["clips"], [(s.clp5, s.clp3)
+                                               for s in lazy.seqs]))
+
+    # b: counts and provenance at full size; every column's mismatches on
+    # the first 12 alignments' MSA
+    t0 = time.perf_counter()
+    on_cpu = copy.deepcopy(unclipped)
+    before = cons.LAUNCHES
+    unclipped.build_msa(card)
+    on_cpu.build_msa(cpu)
+    for name in ("counts", "layers"):
+        if not np.array_equal(getattr(unclipped.msacolumns, name),
+                              getattr(on_cpu.msacolumns, name)):
+            raise AssertionError(f"build_msa's {name} differ between {dev} "
+                                 "and the CPU")
+    if not np.array_equal(unclipped.provenance_matrix(),
+                          on_cpu.provenance_matrix()):
+        raise AssertionError("provenance matrices differ")
+    cut = os.path.join(work, "lib12.paf")
+    with open(paf) as src, open(cut, "w") as dst:
+        dst.writelines(src.readlines()[:12])
+    small, _mfa, _s = python_engine_msa(work, cut, fa, "lib12", dev)
+    small_cpu = copy.deepcopy(small)
+    small.build_msa(card)
+    small_cpu.build_msa(cpu)
+    rec["build_msa_launches"] = cons.LAUNCHES - before
+    mismatches = 0
+    for col in range(small.length):
+        got = small.column_mismatches(col)
+        if got != small_cpu.column_mismatches(col):
+            raise AssertionError(f"column_mismatches({col}) differ")
+        mismatches += len(got)
+    rec["mismatch_columns"], rec["mismatches"] = small.length, mismatches
+    rec["provenance_s"] = time.perf_counter() - t0
+    if not mismatches:
+        raise AssertionError("no column mismatches in the cut MSA")
+
+    # c: the writers refine on demand
+    before = cons.LAUNCHES
+    t0 = time.perf_counter()
+    written: dict = {}
+    lazy_warn = refine_quiet(
+        lambda: written.update(msa_bytes_on_demand(lazy, card)))
+    rec["on_demand_s"] = time.perf_counter() - t0
+    rec["on_demand_launches"] = cons.LAUNCHES - before
+    if lazy_warn != warn or any(written[k] != want[k] for k in written) \
+            or msa_bytes(lazy) != want \
+            or rec["on_demand_launches"] != (dev == "cuda"):
+        raise AssertionError("the on-demand writers differ from the "
+                             "explicit refine")
+
+    # d: banded_score, one pair a call
+    params = bd.ScoreParams()
+    before = dict(bd.LAUNCHES)
+    scores = []
+    for q, t, tl, band in score_pairs(seed=18):
+        qd, td = torch.from_numpy(q).to(card), torch.from_numpy(t).to(card)
+        got = int(bd.banded_score(qd, td, tl, band))
+        dlo = bd.band_dlo(len(q), len(t), band)
+        host_s = int(native.banded_gotoh_batch(
+            q, t[None], np.array([tl], np.int32), band, dlo, params.match,
+            params.mismatch, params.gap_open, params.gap_extend)[0])
+        plain = int(bd.banded_scores_plain(qd[None], td[None],
+                                           torch.tensor([tl], device=card),
+                                           band)[0, 0])
+        if not got == host_s == plain:
+            raise AssertionError(f"banded_score {got}, host {host_s}, plain "
+                                 f"{plain} at m={len(q)} n={len(t)} "
+                                 f"band={band}")
+        scores.append(got)
+    rec["score_pairs"] = len(scores)
+    rec["score_pairs_neg"] = sum(s == bd.NEG for s in scores)
+    rec["score_launches"] = launched(bd.LAUNCHES, before)
+
+    # e: the single-core host baselines beside the kernels
+    votes, _counts = cons.consensus_counts_votes(
+        torch.from_numpy(pile).to(card))
+    v = votes.cpu().numpy().astype(np.int64)
+    kernel_chars = np.where(v >= 0, np.frombuffer(b"ACGTN-", np.uint8)[v], 0)
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chars = native.consensus_vote_pileup(pile)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(chars, kernel_chars):
+        raise AssertionError("consensus_vote_pileup differs from the kernel")
+    rec["consensus_host"] = dict(shape=list(pile.shape),
+                                 host_ms=sorted(host_ms)[1],
+                                 kernel_ms=consensus_ms)
+    qs, ts, tl = workload_lanes(1024, 1500, seed=0)
+    (_, m_q), (T, n) = qs.shape, ts.shape
+    dlo = bd.band_dlo(m_q, n, 64)
+    kernel = bd.banded_scores(qs[0], ts, tl, 64).cpu().numpy()
+    q_h, ts_h, tl_h = (x.cpu().numpy() for x in (qs[0], ts, tl))
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = native.banded_gotoh_batch(q_h, ts_h, tl_h, 64, dlo,
+                                        params.match, params.mismatch,
+                                        params.gap_open, params.gap_extend)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(got, kernel):
+        raise AssertionError("banded_gotoh_batch differs from the kernel")
+    rec["scores_host"] = dict(shape=[1, T, m_q, n, 64],
+                              host_ms=sorted(host_ms)[1])
+    if cycles_per_s is not None:
+        qp, tp = bd.pad16(qs), bd.pad16(ts)
+        tl32 = tl.int().contiguous()
+        res = torch.empty((1, T), dtype=torch.int32, device=card)
+        rec["scores_host"]["kernel_ms"] = cuda_ms(
+            lambda: bd.launch_scores(False, qp, tp, tl32, m_q, n, dlo, 64,
+                                     params, res), 5, 10, cycles_per_s)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def msa_bytes_on_demand(m, device) -> dict:
+    """``msa_bytes`` through the writers' on-demand refine on ``device``
+    (the first writer refines; the rest find it refined)."""
+    out = {}
+    for kind, fn in (("ace", m.write_ace), ("info", m.write_info),
+                     ("cons", m.write_cons)):
+        buf = io.StringIO()
+        fn(buf, "contig", remove_cons_gaps=False, device=device)
+        out[kind] = buf.getvalue()
+    return out
+
+
 def run_shard_library(pile, main_inputs, long_inputs) -> list:
     """Phase 12's library checks on meshes of 4 and 8 entries that all
     name cuda:0: each sharded call against its unsharded call on the
@@ -3970,7 +4344,15 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="serve", nvidia_smi=smi, **serve))
     serve_launches = serve["launches"]
 
-    # 18. the kernels line, the card, the verdict
+    # 18. the MSA engine's library surface on the card: the clip
+    # transaction and the refine, counts, provenance and column
+    # mismatches, the writers' on-demand refine, banded_score, and the
+    # single-core host baselines beside the kernels
+    library = run_msa_library(work, paf, fa, pile, main_check["ms"],
+                              cycles_per_s)
+    emit(dict(phase="msa-library", nvidia_smi=smi, **library))
+
+    # 19. the kernels line, the card, the verdict
     re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
@@ -4004,6 +4386,10 @@ def main(argv: list[str]) -> int:
         faulted_launches=faulted_launches["consensus"],
         follow_launches=follow_launches["consensus"],
         serve_launches=serve_launches["consensus"],
+        library_launches=dict(refine=library["refine_launches"],
+                              build_msa=library["build_msa_launches"],
+                              on_demand=library["on_demand_launches"]),
+        host_ms=library["consensus_host"]["host_ms"],
         max_abs_err=max(c["max_abs_err"] for c in checks),
         ms=main_check["ms"], plain_ms=main_check["plain_ms"],
         bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
@@ -4071,7 +4457,9 @@ def main(argv: list[str]) -> int:
         name="scores", route="cuda",
         source="pwasm_tpu_torch/csrc/banded_dp.cu",
         replaces="pwasm_tpu/ops/banded_dp.py:310",
-        launches=m2m_launches["scores"], max_abs_err=sc_err,
+        launches=m2m_launches["scores"],
+        library_launches=library["score_launches"].get("scores", 0),
+        host_1core=library["scores_host"], max_abs_err=sc_err,
         ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
         bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
         library_ms=None, library=no_scores_library, shape=main_sc["shape"],

@@ -49,10 +49,18 @@ class GapSeq:
         self.msa = None
         self.msaidx = -1
         self.delops: list[tuple[int, bool]] = []  # (pos, revcompl) pairs
+        # per-base overlap coverage, opt-in (the reference's compile-time
+        # ALIGN_COVERAGE_DATA capability, GapAssem.h:42-46)
+        self.cov: np.ndarray | None = None
 
     # ---- flags ----------------------------------------------------------
     def set_flag(self, bit: int) -> None:
         self.flags |= 1 << bit
+
+    def clear_flag(self, bit: int) -> None:
+        """Toggles ``bit`` (``flags ^= 1 << bit``), as the reference's
+        does: a bit that is not set becomes set."""
+        self.flags ^= 1 << bit
 
     def has_flag(self, bit: int) -> bool:
         return (self.flags >> bit) & 1 != 0
@@ -65,6 +73,9 @@ class GapSeq:
     def reverse_complement_bases(self) -> None:
         """RC the base string only (FastaSeq::reverseComplement)."""
         self.seq = bytearray(revcomp(bytes(self.seq)))
+
+    def allupper(self) -> None:
+        self.seq = bytearray(bytes(self.seq).upper())
 
     def end_offset(self) -> int:
         return self.offset + self.seqlen + self.numgaps
@@ -128,6 +139,29 @@ class GapSeq:
         if self.seqlen > 1:
             self.gaps[1:] = self.gaps[1:][::-1]
 
+    # ---- coverage tracking (opt-in; the reference's compile-time
+    # ALIGN_COVERAGE_DATA capability, GapAssem.h:42-46,131-133) ---------
+    def enable_coverage(self) -> None:
+        """Allocate the per-base coverage array (zeros), like the
+        GCALLOC in the reference ctors (GapAssem.cpp:36-79)."""
+        if self.cov is None:
+            self.cov = np.zeros(self.seqlen, dtype=np.int32)
+
+    def add_coverage(self, other: "GapSeq") -> None:
+        """Merge another instance's coverage of the SAME sequence,
+        flipping when orientations differ (GASeq::addCoverage,
+        GapAssem.cpp:394-410)."""
+        if self.seqlen != other.seqlen:
+            raise ValueError(
+                f"invalid addCoverage {self.name}(len {self.seqlen}) vs "
+                f"{other.name}(len {other.seqlen})")
+        if self.cov is None or other.cov is None:
+            return
+        if self.revcompl != other.revcompl:
+            self.cov += other.cov[::-1]
+        else:
+            self.cov += other.cov
+
     def rev_complement(self, alignlen: int = 0) -> None:
         """Reverse-complement within an alignment layout
         (GASeq::revComplement, GapAssem.cpp:366-392)."""
@@ -143,6 +177,8 @@ class GapSeq:
         if len(self.seq) == self.seqlen:
             self.reverse_complement_bases()
         self.reverse_gaps()
+        if self.cov is not None:  # GapAssem.cpp:383-391
+            self.cov = self.cov[::-1].copy()
 
     def prep_seq(self) -> None:
         """Apply deferred deletions, then RC if needed; once per sequence
@@ -179,11 +215,161 @@ class GapSeq:
         self.numgaps -= delgaps_l + delgaps_r
         return delgaps_l + delgaps_r
 
-    # ---- X-drop end re-alignment constants (refine_clipping_batch) ----
+    # ---- X-drop end re-alignment ---------------------------------------
     XDROP = -16
     MATCH_SC = 1
     MISMATCH_SC = -3
 
+    def refine_clipping(self, cons: bytes, cpos: int, device,
+                        skip_dels: bool = False) -> None:
+        """Re-align the clipped ends against the consensus with an X-drop
+        extension, updating clp5/clp3 (GASeq::refineClipping,
+        GapAssem.cpp:182-349).  ``cpos`` is this sequence's start column
+        on the consensus.  Runs ``refine_clipping_batch`` with this one
+        member on ``device`` (a ``torch.device``): one program serves
+        the member and the whole MSA."""
+        refine_clipping_batch([self], cons, [cpos], device,
+                              skip_dels=skip_dels)
+
+    def refine_clipping_scalar(self, cons: bytes, cpos: int,
+                               skip_dels: bool = False) -> None:
+        """Direct transliteration of the reference walk
+        (GapAssem.cpp:182-349), one character at a time on the host:
+        the oracle that ``refine_clipping`` and ``refine_clipping_batch``
+        are held to.  No product path calls it."""
+        if self.clp3 == 0 and self.clp5 == 0:
+            return
+        cons_len = len(cons)
+        rev = self.revcompl != 0
+        clipL, clipR = self.clip_lr()
+        glen = self.seqlen + self.numgaps
+        allocsize = glen
+        gclipR = clipR
+        gclipL = clipL
+        if skip_dels:
+            for i in range(1, clipR + 1):
+                if self.gaps[self.seqlen - i] < 0:
+                    allocsize += 1
+                else:
+                    gclipR += int(self.gaps[self.seqlen - i])
+            for i in range(clipL):
+                if self.gaps[i] < 0:
+                    allocsize += 1
+                else:
+                    gclipL += int(self.gaps[i])
+        else:
+            for i in range(1, clipR + 1):
+                gclipR += int(self.gaps[self.seqlen - i])
+            for i in range(clipL):
+                gclipL += int(self.gaps[i])
+        gseq = bytearray()
+        gxpos: list[int] = []
+        for i in range(self.seqlen):
+            g = int(self.gaps[i])
+            if g < 0:
+                if not skip_dels:
+                    continue
+                if clipL <= i < self.seqlen - clipR:
+                    continue
+                glen += 1
+            for _ in range(max(g, 0)):
+                gseq.append(ord("*"))
+                gxpos.append(-1)
+            gseq.append(self.seq[i])
+            gxpos.append(i)
+        if glen != allocsize:
+            raise PwasmError(
+                f"Length mismatch (allocsize {allocsize} vs. glen {glen}) "
+                f"while refineClipping for seq {self.name} !\n")
+        star = ord("*")
+
+        def write_back():
+            # the reference's clipL/clipR are int& aliases of clp5/clp3, so
+            # every increment persists even on early returns — mirror that
+            if rev:
+                self.clp3, self.clp5 = clipL, clipR
+            else:
+                self.clp5, self.clp3 = clipL, clipR
+
+        if clipR > 0:
+            cp = cpos + glen - gclipR - 1
+            sp = glen - gclipR - 1
+            ok = True
+            while (sp < 0 or cp < 0 or cp >= cons_len
+                   or gseq[sp] != cons[cp] or gseq[sp] == star):
+                if sp >= 0 and gseq[sp] != star:
+                    clipR += 1
+                sp -= 1
+                cp -= 1
+                if sp < gclipL:
+                    print(f"Warning: reached clipL trying to find an "
+                          f"initial match on {self.name}!", file=sys.stderr)
+                    ok = False
+                    break
+            if not ok:
+                write_back()
+                return
+            score = self.MATCH_SC
+            maxscore = self.MATCH_SC
+            startpos = sp
+            bestpos = sp
+            while score > self.XDROP:
+                cp += 1
+                sp += 1
+                if cp >= cons_len or sp >= glen:
+                    break
+                if gseq[sp] == cons[cp]:
+                    if gseq[sp] != star:
+                        score += self.MATCH_SC
+                        if score > maxscore:
+                            bestpos = sp
+                            maxscore = score
+                else:
+                    if gseq[sp] != star:
+                        score += self.MISMATCH_SC
+            if bestpos > startpos:
+                clipR = self.seqlen - gxpos[bestpos] - 1
+        if clipL > 0:
+            cp = cpos + gclipL
+            sp = gclipL
+            ok = True
+            while (sp >= glen or cp >= cons_len or cp < 0
+                   or gseq[sp] != cons[cp] or gseq[sp] == star):
+                if sp < glen and gseq[sp] != star:
+                    clipL += 1
+                sp += 1
+                cp += 1
+                if sp >= glen - gclipR:
+                    print(f"Warning: reached clipR trying to find an "
+                          f"initial match on {self.name}!", file=sys.stderr)
+                    ok = False
+                    break
+            if not ok:
+                write_back()
+                return
+            score = self.MATCH_SC
+            maxscore = self.MATCH_SC
+            startpos = sp
+            bestpos = sp
+            while score > self.XDROP:
+                cp -= 1
+                sp -= 1
+                if cp < 0 or sp < 0:
+                    break
+                if gseq[sp] == cons[cp]:
+                    if gseq[sp] != star:
+                        score += self.MATCH_SC
+                        if score > maxscore:
+                            bestpos = sp
+                            maxscore = score
+                else:
+                    if gseq[sp] != star:
+                        score += self.MISMATCH_SC
+            if bestpos < startpos:
+                clipL = gxpos[bestpos]
+        write_back()
+
+    # ---- printers -------------------------------------------------------
     def _check_loaded(self, what: str) -> None:
         if len(self.seq) == 0 or len(self.seq) != self.seqlen:
             raise PwasmError(

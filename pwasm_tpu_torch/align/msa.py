@@ -46,6 +46,29 @@ def _rank_by_column(cols: np.ndarray, codes: np.ndarray):
     return sc, codes[order], occ
 
 
+def best_char_from_counts(counts, layers: int) -> int:
+    """The consensus vote for one column.
+
+    Reference bestChar (GapAssem.cpp:1048-1069): stable-sort the six
+    buckets by count descending (initial order A,C,G,T,N,-), then while the
+    best is '-' or 'N' and tied with the next, yield to the next.  Closed
+    form: if any of A/C/G/T reaches the max count, the first of them wins;
+    else if N and '-' tie at the max, '-' wins; else whichever of N/'-' has
+    the max.  Returns the winning character code (int), or 0 if the column
+    has no layers."""
+    if layers == 0:
+        return 0
+    a, c, g, t, n, gap = (int(x) for x in counts)
+    m = max(a, c, g, t, n, gap)
+    for val, ch in ((a, ord("A")), (c, ord("C")), (g, ord("G")),
+                    (t, ord("T"))):
+        if val == m:
+            return ch
+    if n == m and gap == m:
+        return ord("-")
+    return ord("N") if n == m else ord("-")
+
+
 def device_counts_votes(pile: np.ndarray, device):
     """Counts + votes for a (rows, cols) int8 code pileup (codes 0..6)
     on ``device``, a ``torch.device`` or a mesh of them
@@ -94,11 +117,15 @@ class MsaColumns:
     def len(self) -> int:
         return self.maxcol - self.mincol + 1
 
+    def best_char(self, col: int) -> int:
+        return best_char_from_counts(self.counts[col], int(self.layers[col]))
+
 
 class Msa:
     """A multiple sequence alignment (reference GSeqAlign)."""
 
-    def __init__(self, s1: GapSeq | None = None, s2: GapSeq | None = None):
+    def __init__(self, s1: GapSeq | None = None, s2: GapSeq | None = None,
+                 cov_spans: tuple | None = None):
         self.seqs: list[GapSeq] = []
         self.length = 0
         self.minoffset = 0
@@ -119,6 +146,32 @@ class Msa:
             self.length = max(s1.end_offset(), s2.end_offset()) - self.minoffset
             self.ng_len = max(s1.end_ng_offset(), s2.end_ng_offset()) \
                 - self.ng_minofs
+            if cov_spans is not None:
+                self._init_coverage(s1, s2, cov_spans)
+
+    @staticmethod
+    def _init_coverage(s1: GapSeq, s2: GapSeq, cov_spans: tuple) -> None:
+        """Opt-in coverage bookkeeping of the pairwise seed — the
+        reference's ALIGN_COVERAGE_DATA ctor (GapAssem.cpp:599-639):
+        +1 over each aligned span (half-open [l, r)), -1 per base of the
+        shorter mismatched overhang at each end.  (The reference's
+        compiled-out loop decrements a single boundary cell msml/msmr
+        times and mixes inclusive/exclusive ends, GapAssem.cpp:627-639 —
+        index slips in dead code; this implements the symmetric per-base
+        intent.)"""
+        (l1, r1), (l2, r2) = cov_spans
+        s1.enable_coverage()
+        s2.enable_coverage()
+        s1.cov[l1:r1] += 1
+        s2.cov[l2:r2] += 1
+        msml = min(l1, l2)
+        if msml > 0:
+            s1.cov[l1 - msml:l1] -= 1
+            s2.cov[l2 - msml:l2] -= 1
+        msmr = min(s1.seqlen - r1, s2.seqlen - r2)
+        if msmr > 0:
+            s1.cov[r1:r1 + msmr] -= 1
+            s2.cov[r2:r2 + msmr] -= 1
 
     def count(self) -> int:
         return len(self.seqs)
@@ -178,6 +231,22 @@ class Msa:
             s.remove_base(spos)
         self.length -= 1
 
+    def remove_base(self, seq: GapSeq, pos: int) -> None:
+        """(GSeqAlign::removeBase, GapAssem.cpp:781-812)"""
+        alpos = self._alpos_of(seq, pos)
+        for s in self.seqs:
+            if s is seq:
+                spos = pos
+            else:
+                if s.offset >= alpos:
+                    s.offset -= 1
+                    continue
+                spos = s.find_walk_pos(alpos)
+                if spos >= s.seqlen:
+                    continue
+            s.remove_base(spos)
+        self.length -= 1
+
     # ---- merging --------------------------------------------------------
     def add_align(self, seq: GapSeq, omsa: "Msa", oseq: GapSeq) -> bool:
         """Merge ``omsa`` into this MSA through the shared sequence
@@ -189,6 +258,7 @@ class Msa:
                 f"(len {seq.seqlen}) vs {oseq.name}(len {oseq.seqlen})\n")
         if seq.revcompl != oseq.revcompl:
             omsa.rev_complement()
+        seq.add_coverage(oseq)  # no-op unless coverage tracking is on
         for i in range(seq.seqlen):
             d = seq.gap(i) - oseq.gap(i)
             if d > 0:
@@ -246,13 +316,12 @@ class Msa:
                      + np.arange(s.seqlen, dtype=np.int64) + np.cumsum(gaps))
         idx = np.arange(s.seqlen)
         unclipped = ~((idx < clipL) | (idx >= s.seqlen - clipR))
-        gmask = unclipped & (gaps > 0)
-        if gmask.any():
-            gcols = np.concatenate(
-                [np.arange(base_cols[i] - gaps[i], base_cols[i])
-                 for i in np.nonzero(gmask)[0]])
-        else:
-            gcols = np.empty(0, dtype=np.int64)
+        # the gap run before each unclipped base i: columns
+        # base_cols[i] - gaps[i] .. base_cols[i] - 1, runs in base order
+        runs = gaps[unclipped & (gaps > 0)]
+        starts = base_cols[unclipped & (gaps > 0)] - runs
+        gcols = np.repeat(starts - (np.cumsum(runs) - runs), runs) \
+            + np.arange(int(runs.sum()), dtype=np.int64)
         # a deleted base can collapse its neighbors' columns off the left
         # edge of the layout (library-level remove_base on the leftmost
         # member).  Counting such a layout is meaningless on BOTH the
@@ -342,6 +411,79 @@ class Msa:
             rows[occ, sc] = scd
             mat = np.concatenate([mat, rows], axis=0)
         return mat
+
+    def provenance_matrix(self) -> np.ndarray:
+        """(depth, length) int32 companion of ``pileup_matrix``: the
+        1-based source position of each member's base at each layout
+        column, 0 where the member contributes no base (outside its
+        span, clipped, deleted, or a gap column).
+
+        This is the tensor re-design of the reference's per-column
+        ``NucOri`` provenance list (GapAssem.h:142-161, nucs in
+        GAlnColumn GapAssem.h:255-342): instead of a linked list of
+        (seq, pos) per column, one dense index tensor aligned with the
+        pileup codes, so "which read put which base here" is a gather.
+        Pre-refine MSAs only (enforced below): rows map 1:1 to members,
+        and a deleted base would collide two source positions onto one
+        cell — unlike pileup_matrix, whose counts are row-order-free and
+        so can spill collisions onto extra rows, provenance has no such
+        escape."""
+        for s in self.seqs:
+            if (s.gaps < 0).any():
+                raise PwasmError(
+                    f"provenance_matrix: sequence {s.name} has deleted "
+                    "bases (post-refine MSA); provenance is only exact "
+                    "pre-refine\n")
+        prov = np.zeros((len(self.seqs), self.length), dtype=np.int32)
+        for k, s in enumerate(self.seqs):
+            base_cols, unclipped, _g = self._column_geometry(s)
+            live = unclipped & (s.gaps >= 0)
+            prov[k, base_cols[live]] = np.nonzero(live)[0] + 1
+        return prov
+
+    def column_contributors(self, col: int) -> list[tuple]:
+        """Who contributes what at layout column ``col``: a list of
+        ``(member_index, base_pos, symbol, clipped)`` where symbol is
+        the member's base character at that column, '-' for a gap
+        column inside its span, and base_pos is the 0-based position in
+        the member's sequence (for '-', the base the gap run precedes).
+        Members whose span does not cover the column are absent.
+        The queryable surface of the reference's NucOri/GAlnColumn
+        provenance (clipped contributors mirror the stored clip
+        witness, GapAssem.h:295-337)."""
+        out = []
+        for k, s in enumerate(self.seqs):
+            base_cols, unclipped, _g = self._column_geometry(s)
+            gaps = s.gaps.astype(np.int64)
+            j = int(np.searchsorted(base_cols, col, side="left"))
+            if j >= s.seqlen:
+                continue
+            if base_cols[j] == col:
+                if gaps[j] < 0:
+                    continue  # deleted base: no contribution
+                out.append((k, j, chr(s.seq[j]), not bool(unclipped[j])))
+            elif base_cols[j] - max(int(gaps[j]), 0) <= col < base_cols[j]:
+                if unclipped[j]:
+                    out.append((k, j, "-", False))
+        return out
+
+    def column_mismatches(self, col: int) -> list[tuple]:
+        """Contributors at ``col`` that disagree with the column's
+        consensus vote — the SNP-attribution query the reference's
+        provenance list exists for.  Requires ``build_msa(device)``: the
+        counts it filled (on a CUDA device, the consensus kernel's).
+        Returns ``(member_index, base_pos, symbol)`` for every unclipped
+        contributor whose symbol differs from the vote."""
+        if self.msacolumns is None:
+            raise PwasmError(
+                "column_mismatches requires build_msa() first\n")
+        vote = best_char_from_counts(
+            self.msacolumns.counts[col],
+            int(self.msacolumns.layers[col]))
+        want = chr(vote) if vote else ""
+        return [(k, pos, sym) for k, pos, sym, clipped
+                in self.column_contributors(col)
+                if not clipped and sym.upper() != want]
 
     def build_msa(self, device, supervisor=None) -> None:
         """(GSeqAlign::buildMSA, GapAssem.cpp:1088-1106).  The column
@@ -451,10 +593,98 @@ class Msa:
             times["refine"] = times.get("refine", 0.0) \
                 + time.perf_counter() - t1
 
+    # ---- clipping transaction (library capability) ---------------------
+    def eval_clipping(self, seq: GapSeq, c5: int, c3: int, clipmax: float,
+                      clipops: "AlnClipOps") -> bool:
+        """Propagate a proposed end-trim of ``seq`` to every member,
+        refusing if any member would be over-clipped
+        (GSeqAlign::evalClipping, GapAssem.cpp:823-996)."""
+        if c5 >= 0:
+            pos = seq.seqlen - c5 - 1 if seq.revcompl != 0 else c5
+            alpos = self._alpos_of(seq, pos)
+            for s in self.seqs:
+                if s is seq:
+                    if not clipops.add5(s, c5, clipmax):
+                        return False
+                    continue
+                if s.offset >= alpos:
+                    if seq.revcompl != 0:
+                        return False  # s would be clipped entirely
+                    continue
+                spos = s.find_walk_pos(alpos)
+                if spos >= s.seqlen:
+                    if seq.revcompl == 0:
+                        return False
+                    continue
+                if seq.revcompl != 0:  # trimming the right side of the msa
+                    if s.revcompl != 0:
+                        if not clipops.add5(s, s.seqlen - spos - 1, clipmax):
+                            return False
+                    else:
+                        if not clipops.add3(s, s.seqlen - spos - 1, clipmax):
+                            return False
+                else:  # trimming the left side
+                    if s.revcompl != 0:
+                        if not clipops.add3(s, spos, clipmax):
+                            return False
+                    else:
+                        if not clipops.add5(s, spos, clipmax):
+                            return False
+        if c3 >= 0:
+            pos = c3 if seq.revcompl != 0 else seq.seqlen - c3 - 1
+            alpos = self._alpos_of(seq, pos)
+            for s in self.seqs:
+                if s is seq:
+                    if not clipops.add3(s, c3, clipmax):
+                        return False
+                    continue
+                if s.offset >= alpos:
+                    if seq.revcompl == 0:
+                        return False
+                    continue
+                spos = s.find_walk_pos(alpos)
+                if spos >= s.seqlen:
+                    if seq.revcompl != 0:
+                        return False
+                    continue
+                if seq.revcompl != 0:  # trim left side
+                    if s.revcompl != 0:
+                        if not clipops.add3(s, spos, clipmax):
+                            return False
+                    else:
+                        if not clipops.add5(s, spos, clipmax):
+                            return False
+                else:  # trim right side
+                    if s.revcompl != 0:
+                        if not clipops.add5(s, s.seqlen - spos - 1, clipmax):
+                            return False
+                    else:
+                        if not clipops.add3(s, s.seqlen - spos - 1, clipmax):
+                            return False
+        return True
+
+    def apply_clipping(self, clipops: "AlnClipOps") -> None:
+        """(GSeqAlign::applyClipping, GapAssem.cpp:814-822)"""
+        for s, clp5, clp3 in clipops.ops:
+            if clp5 >= 0:
+                s.clp5 = clp5
+            if clp3 >= 0:
+                s.clp3 = clp3
+
     # ---- output ---------------------------------------------------------
-    def _need_refined(self, what: str) -> None:
-        if not self.refined:
-            raise PwasmError(f"{what} requires refine_msa() first\n")
+    def _refine_on_demand(self, device, remove_cons_gaps: bool,
+                          refine_clipping: bool) -> None:
+        """The writers' ``refine_msa`` when the MSA is not refined yet:
+        on ``device``, or with None on the CUDA device the entry points
+        resolve (``device.py::resolve_device``, which raises on a box
+        without CUDA).  A refined MSA needs no device."""
+        if self.refined:
+            return
+        if device is None:
+            from pwasm_tpu_torch.device import resolve_device
+
+            device = resolve_device("cuda")
+        self.refine_msa(device, remove_cons_gaps, refine_clipping)
 
     def print_layout(self, f: IO[str], sep: str = "") -> None:
         """Debug layout view (GSeqAlign::print, GapAssem.cpp:1013-1037)."""
@@ -473,10 +703,12 @@ class Msa:
         for s in self.seqs:
             s.print_mfasta(f, linelen)
 
-    def write_ace(self, f: IO[str], name: str) -> None:
-        """ACE contig output (GSeqAlign::writeACE, GapAssem.cpp:1200-1262)
-        of a refined MSA."""
-        self._need_refined("write_ace")
+    def write_ace(self, f: IO[str], name: str,
+                  remove_cons_gaps: bool = True,
+                  refine_clipping: bool = True, device=None) -> None:
+        """ACE contig output (GSeqAlign::writeACE, GapAssem.cpp:1200-1262),
+        refining first on ``device`` if needed (``_refine_on_demand``)."""
+        self._refine_on_demand(device, remove_cons_gaps, refine_clipping)
         fwd = sum(1 for s in self.seqs if s.revcompl == 0)
         rvs = self.count() - fwd
         cons_dir = "C" if rvs > fwd else "U"
@@ -510,18 +742,24 @@ class Msa:
                 seqr = seql + 1
             f.write(f"\nQA {seql} {seqr} {seql} {seqr}\nDS \n\n")
 
-    def write_cons(self, f: IO[str], name: str, linelen: int = 60) -> None:
-        """Consensus sequence of a refined MSA as FASTA ('*' marks kept
-        all-gap columns)."""
-        self._need_refined("write_cons")
+    def write_cons(self, f: IO[str], name: str,
+                   remove_cons_gaps: bool = True,
+                   refine_clipping: bool = True, device=None,
+                   linelen: int = 60) -> None:
+        """Consensus sequence as FASTA ('*' marks kept all-gap columns),
+        refining first on ``device`` if needed (``_refine_on_demand``)."""
+        self._refine_on_demand(device, remove_cons_gaps, refine_clipping)
         cons = self.consensus.decode("ascii", "replace")
         f.write(f">{name}_cons {self.count()} seqs\n")
         for i in range(0, len(cons), linelen):
             f.write(cons[i:i + linelen] + "\n")
 
-    def write_info(self, f: IO[str], name: str) -> None:
-        """Contig-info output of a refined MSA, with per-seq pid and
-        run-length alndata (GSeqAlign::writeInfo, GapAssem.cpp:1264-1367).
+    def write_info(self, f: IO[str], name: str,
+                   remove_cons_gaps: bool = True,
+                   refine_clipping: bool = True, device=None) -> None:
+        """Contig-info output with per-seq pid and run-length alndata
+        (GSeqAlign::writeInfo, GapAssem.cpp:1264-1367), refining first on
+        ``device`` if needed (``_refine_on_demand``).
 
         Parity notes (we mirror the code, not the comments):
         - the reference's comment documents alndata as '5g4d2g2-30d12g'
@@ -532,7 +770,7 @@ class Msa:
           so the pid comparison reads the consensus shifted one column
           right of the sequence — pid is systematically understated
           (usually 0 for perfect alignments)."""
-        self._need_refined("write_info")
+        self._refine_on_demand(device, remove_cons_gaps, refine_clipping)
         cons = self.consensus.decode("ascii", "replace")
         f.write(f">{name} {self.count()} {cons}\n")
         mincol = self.msacolumns.mincol
@@ -581,3 +819,65 @@ class Msa:
             f.write(f"{s.name} {len(s.seq)} {seqoffset} {asml} {asmr} "
                     f"{seql} {seqr} {pid:4.2f} {''.join(alndata)}\n")
 
+
+class AlnClipOps:
+    """Staged clipping transaction (reference AlnClipOps,
+    GapAssem.h:183-253): collect per-seq clip updates, refusing any that
+    exceed ``clipmax`` or leave a read under 25% of its length."""
+
+    def __init__(self):
+        self.ops: list[tuple[GapSeq, int, int]] = []
+        self.total = 0
+        self.d5 = 0
+        self.d3 = 0
+        self.q_rev = False
+
+    @staticmethod
+    def _maxovh(s: GapSeq, clipmax: float) -> int:
+        return int(clipmax) if clipmax > 1 else int(round(
+            clipmax * float(s.seqlen)))
+
+    def add5(self, s: GapSeq, clp: int, clipmax: float) -> bool:
+        if s.clp5 < clp:
+            if clipmax > 0 and clp > self._maxovh(s, clipmax):
+                return False
+            if s.seqlen - s.clp3 - clp < (s.seqlen >> 2):
+                return False
+            self.total += 10000 + clp - s.clp5
+            self.ops.append((s, clp, -1))
+        return True
+
+    def add3(self, s: GapSeq, clp: int, clipmax: float) -> bool:
+        if s.clp3 < clp:
+            if clipmax > 0 and clp > self._maxovh(s, clipmax):
+                return False
+            if s.seqlen - s.clp5 - clp < (s.seqlen >> 2):
+                return False
+            self.total += 10000 + clp - s.clp3
+            self.ops.append((s, -1, clp))
+        return True
+
+    def add(self, s: GapSeq, clp5: int, clp3: int, clipmax: float) -> bool:
+        newclp5 = -1
+        newclp3 = -1
+        addsc = 0
+        if s.clp5 < clp5:
+            if clipmax > 0 and clp5 > self._maxovh(s, clipmax):
+                return False
+            if s.seqlen - s.clp3 - clp5 < (s.seqlen >> 2):
+                return False
+            addsc += 10000 + clp5 - s.clp5
+            newclp5 = clp5
+        else:
+            clp5 = s.clp5
+        if s.clp3 < clp3:
+            if clipmax > 0 and clp3 > self._maxovh(s, clipmax):
+                return False
+            if s.seqlen - clp5 - clp3 < (s.seqlen >> 2):
+                return False
+            addsc += 10000 + clp3 - s.clp3
+            newclp3 = clp3
+        if addsc > 0:
+            self.total += addsc
+            self.ops.append((s, newclp5, newclp3))
+        return True

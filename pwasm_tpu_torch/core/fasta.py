@@ -280,3 +280,14 @@ class FastaFile:
         size*, not sequence length; we preserve that contract.
         """
         return os.path.getsize(self.path)
+
+
+def write_fasta(path: str, records: list[tuple[str, bytes]],
+                width: int = 60) -> None:
+    """Write ``(name, seq)`` records as FASTA, ``width`` bases a line."""
+    with open(path, "w") as f:
+        for name, seq in records:
+            f.write(f">{name}\n")
+            s = seq.decode() if isinstance(seq, (bytes, bytearray)) else seq
+            for i in range(0, len(s), width):
+                f.write(s[i:i + width] + "\n")

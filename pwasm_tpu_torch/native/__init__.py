@@ -71,7 +71,14 @@ _SIGS = {
         _P, _I64, _P,        # gaps
         _P, _P,              # sizes, err_info
         _P]),                # done_out
+    "pw_banded_gotoh_batch": (None, [
+        _P, _I32, _P, _P, _I32, _I32,   # q, m, ts, t_lens, T, n_pad
+        _I32, _I32, _I32, _I32, _I32, _I32, _P]),
+    "pw_consensus_vote": (None, [_P, _I32, _I32, _P]),
     "pw_consensus_vote_counts": (None, [_P, _P, _I32, _P]),
+    "pw_encode_codes": (None, [_P, _I64, _P]),
+    "pw_pack_2bit": (None, [_P, _I64, _P]),
+    "pw_unpack_2bit": (None, [_P, _I64, _P]),
     "pw_fasta_index": (_I64, [_S, _P, _I64, _P, _I64]),
     "pw_fasta_fetch": (_I64, [_S, _I64, _I64, _P]),
     "pw_gotoh_traceback": (_I64, [
@@ -80,6 +87,12 @@ _SIGS = {
     "pw_msa_free": (None, [_P]),
     "pw_msa_reset": (None, [_P]),
     "pw_msa_count": (_I64, [_P]),
+    "pw_msa_add": (ctypes.c_int, [
+        _P, _S, _P, _I64, _I64, _I32,   # h, tlabel, tseq(+len), t_offset,
+        #                                 reverse
+        _S, _P, _I64, _I64,             # rid, refseq(+len), r_len
+        _P, _I64, _P, _I64,             # rgaps, tgaps (pairs)
+        _I64, _S, _I32]),               # ord_num, errbuf
     "pw_msa_add_batch": (ctypes.c_int, [
         _P, _I64, _I64,
         _S, _P,              # labels + offsets
@@ -480,6 +493,47 @@ def extract_batch_native(recs, ref_alns):
     return alns, err
 
 
+def banded_gotoh_batch(q_codes: np.ndarray, ts_codes: np.ndarray,
+                       t_lens: np.ndarray, band: int, dlo: int,
+                       match: int, mismatch: int, gap_open: int,
+                       gap_extend: int) -> np.ndarray:
+    """Single-core C++ banded Gotoh scores of one query against a (T,
+    n_pad) batch of padded targets: (T,) int32, NEG where a target's end
+    cell lies outside the band.  The host baseline of the scores
+    kernel."""
+    lib = get_lib()
+    q = np.ascontiguousarray(q_codes, dtype=np.int8)
+    ts = np.ascontiguousarray(ts_codes, dtype=np.int8)
+    tl = np.ascontiguousarray(t_lens, dtype=np.int32)
+    if ts.ndim != 2 or tl.shape != (ts.shape[0],) \
+            or (len(tl) and (tl.min() < 0 or tl.max() > ts.shape[1])):
+        raise ValueError(f"targets {ts.shape} and lengths {tl.shape} do "
+                         "not match")
+    T, n_pad = ts.shape
+    out = np.empty(T, dtype=np.int32)
+    lib.pw_banded_gotoh_batch(
+        q.ctypes.data_as(ctypes.c_void_p), len(q),
+        ts.ctypes.data_as(ctypes.c_void_p),
+        tl.ctypes.data_as(ctypes.c_void_p), T, n_pad,
+        band, dlo, match, mismatch, gap_open, gap_extend,
+        out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def consensus_vote_pileup(pileup: np.ndarray) -> np.ndarray:
+    """Single-core C++ consensus vote over a (depth, cols) int8 pileup
+    (codes 0..5 counted, any other code not): (cols,) uint8 consensus
+    characters, ``'-'`` for a gap column and 0 for zero coverage.  The
+    host baseline of the consensus kernel."""
+    lib = get_lib()
+    p = np.ascontiguousarray(pileup, dtype=np.int8)
+    depth, cols = p.shape
+    out = np.empty(cols, dtype=np.uint8)
+    lib.pw_consensus_vote(p.ctypes.data_as(ctypes.c_void_p), depth, cols,
+                          out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
 def consensus_vote_counts(counts: np.ndarray,
                           layers: np.ndarray) -> np.ndarray:
     """The column vote over a (cols, 6) int32 count tensor and its
@@ -565,6 +619,40 @@ def gotoh_traceback(q: np.ndarray, t: np.ndarray, match: int,
     return int(score.value), ops[:k].copy()
 
 
+def encode_codes(seq: bytes) -> np.ndarray:
+    """Byte sequence -> int8 base codes (the C++ twin of
+    ``core.dna.encode``)."""
+    lib = get_lib()
+    s = np.frombuffer(bytes(seq), dtype=np.uint8)
+    out = np.empty(len(s), dtype=np.int8)
+    lib.pw_encode_codes(s.ctypes.data_as(ctypes.c_void_p), len(s),
+                        out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    """Pack int8 base codes (0..3) into 2-bit form, 4 per byte
+    (little-endian within the byte)."""
+    lib = get_lib()
+    c = np.ascontiguousarray(codes, dtype=np.int8)
+    out = np.empty((len(c) + 3) // 4, dtype=np.uint8)
+    lib.pw_pack_2bit(c.ctypes.data_as(ctypes.c_void_p), len(c),
+                     out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+def unpack_2bit(packed: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of ``pack_2bit``: the first ``n`` codes."""
+    lib = get_lib()
+    p = np.ascontiguousarray(packed, dtype=np.uint8)
+    if n < 0 or (n + 3) // 4 > len(p):
+        raise ValueError(f"{len(p)} packed bytes hold no {n} codes")
+    out = np.empty(n, dtype=np.int8)
+    lib.pw_unpack_2bit(p.ctypes.data_as(ctypes.c_void_p), n,
+                       out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The progressive MSA engine
 # ---------------------------------------------------------------------------
@@ -572,11 +660,11 @@ _MSA_WRITE_KINDS = {"mfa": 0, "ace": 1, "info": 2, "cons": 3, "layout": 4}
 
 
 class NativeMsa:
-    """ctypes handle to the native progressive-MSA engine: ``add_batch``
-    a flush of alignments of one query, ``reset`` on a query change,
-    then ``write``, ``refine`` or the device consensus
-    (``prepare_device``, ``render_pileup``, ``refine_external``) at the
-    end of input.  The engine writes its warnings to a file; each call
+    """ctypes handle to the native progressive-MSA engine: ``add`` one
+    alignment or ``add_batch`` a flush of alignments of one query,
+    ``reset`` on a query change, then ``write``, ``refine`` or the device
+    consensus (``prepare_device``, ``render_pileup``,
+    ``refine_external``) at the end of input.  The engine writes its warnings to a file; each call
     replays them to ``stream`` (``sys.stderr`` at replay time when
     None), so they land where the Python engine's would."""
 
@@ -631,6 +719,31 @@ class NativeMsa:
         if rc == 5:
             raise ZeroCoverageError(msg)
         raise PwasmError(msg or f"native MSA engine failed (code {rc})\n")
+
+    def add(self, tlabel: str, tseq: bytes, t_offset: int, reverse: int,
+            rid: str, refseq: bytes, r_len: int,
+            rgaps, tgaps, ord_num: int) -> bool:
+        """Insert one alignment.  Returns False when its gap structure
+        does not fit the layout (nothing was merged; ``gap_err`` holds
+        the engine's message); raises on other engine errors."""
+        rg = np.asarray([(g.pos, g.len) for g in rgaps],
+                        dtype=np.int32).reshape(-1)
+        tg = np.asarray([(g.pos, g.len) for g in tgaps],
+                        dtype=np.int32).reshape(-1)
+        tseq = bytes(tseq)
+        refseq = bytes(refseq)
+        rc = self._lib.pw_msa_add(
+            self._h, tlabel.encode(), tseq, len(tseq), t_offset,
+            int(reverse), rid.encode(), refseq, len(refseq), r_len,
+            rg.ctypes.data_as(ctypes.c_void_p), len(rg) // 2,
+            tg.ctypes.data_as(ctypes.c_void_p), len(tg) // 2,
+            ord_num, self._err, len(self._err))
+        if rc == 1:
+            self.gap_err = self._err.value.decode("utf-8", "replace")
+            return False
+        if rc != 0:
+            self._raise(rc)
+        return True
 
     def add_batch(self, rid: str, refseq: bytes, r_len: int, items,
                   on_drop) -> None:

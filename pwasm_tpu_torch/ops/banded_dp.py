@@ -471,3 +471,16 @@ def banded_scores(q: torch.Tensor, ts: torch.Tensor, t_lens: torch.Tensor,
     """One query against a target batch: (m,) codes, (T, n) padded
     targets -> (T,) int32 scores (``banded_scores_matrix`` with Q = 1)."""
     return banded_scores_matrix(q[None], ts, t_lens, band, params)[0]
+
+
+def banded_score(q: torch.Tensor, t: torch.Tensor, t_len,
+                 band: int = 64,
+                 params: ScoreParams = ScoreParams()) -> torch.Tensor:
+    """Banded global alignment score of one query against one padded
+    target: q (m,) and t (n,) int8 codes, ``t_len`` the true target
+    length (<= n, an int or a 0-d tensor).  Returns a 0-d int32 tensor
+    on the inputs' device, NEG where (m, t_len) falls outside the band
+    (``banded_scores`` with T = 1: the scores kernel for a CUDA tensor,
+    the plain version for a CPU one)."""
+    tl = torch.as_tensor(t_len, dtype=torch.int32, device=q.device)
+    return banded_scores(q, t[None], tl.reshape(1), band, params)[0]

@@ -2,8 +2,11 @@
 
 Counterpart of ``pwasm_tpu/ops/ctx_scan.py`` (an XLA program in the
 reference, with no hand kernel): the formulas of ``ops/ctx_scan_impl.py``
-run as plain torch ops on the device the inputs live on.  The transfer
-shape is the reference's:
+run as plain torch ops on the device the inputs live on: ``ctx_scan``
+returns the fields as a dict, and the five stage functions
+(``ref_context_windows``, ``hpoly_flags``, ``motif_hits``,
+``sub_impact``, ``indel_stop_scan``) are its parts.  The transfer shape
+of the packed form is the reference's:
 
 - ``pack_events`` ships the event batch as TWO tensors, the int32
   vectors as one (4, E) tensor and the int8 code planes as one
@@ -24,10 +27,10 @@ from collections import Counter
 import numpy as np
 import torch
 
-from pwasm_tpu_torch.ops.ctx_scan_impl import (ctx_scan_calc,
-                                               ctx_scan_layout,
-                                               pack_events_np,
-                                               pack_motifs_np)
+from pwasm_tpu_torch.ops.ctx_scan_impl import (  # noqa: F401
+    ctx_scan_calc, ctx_scan_layout, hpoly_flags, indel_stop_scan,
+    motif_hits, pack_events_np, pack_motifs_np, ref_context_windows,
+    sub_impact)
 
 FLUSHES: Counter = Counter()
 
@@ -59,6 +62,17 @@ def pack_motifs(motifs, device: torch.device):
             torch.from_numpy(lens).to(device))
 
 
+def ctx_scan(ref: torch.Tensor, ref_len: int, ev: dict, mot_codes,
+             mot_lens, max_codons: int = 8, max_len: int = 4096,
+             skip_codan: bool = False) -> dict:
+    """The fused event analysis on ``ref``'s device: a dict of tensors
+    there, one per ``ctx_scan_layout`` field (``ev`` as ``pack_events``
+    gives it)."""
+    return ctx_scan_calc(ref, ref_len, ev, mot_codes, mot_lens,
+                         max_codons=max_codons, max_len=max_len,
+                         skip_codan=skip_codan)
+
+
 def ctx_scan_packed(ref: torch.Tensor, ref_len: int, ev: dict, mot_codes,
                     mot_lens, max_codons: int = 8, max_len: int = 4096,
                     skip_codan: bool = False) -> torch.Tensor:
@@ -67,9 +81,8 @@ def ctx_scan_packed(ref: torch.Tensor, ref_len: int, ev: dict, mot_codes,
     device, in the fixed ``ctx_scan_layout`` order
     (``ctx_scan_impl.unpack_ctx_scan`` splits it back)."""
     FLUSHES[ref.device.type] += 1
-    out = ctx_scan_calc(ref, ref_len, ev, mot_codes, mot_lens,
-                        max_codons=max_codons, max_len=max_len,
-                        skip_codan=skip_codan)
+    out = ctx_scan(ref, ref_len, ev, mot_codes, mot_lens, max_codons,
+                   max_len, skip_codan)
     E = ev["rloc"].shape[0]
     return torch.cat([out[name].to(torch.int32).reshape(E, width)
                       for name, width in ctx_scan_layout(max_codons,

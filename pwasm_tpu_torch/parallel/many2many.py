@@ -113,7 +113,7 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
     t_len = np.array([len(t) for t in ts_enc], dtype=np.int64)
     Q, T = sum(len(qb.idx) for qb in qbs), len(ts_enc)
     width = max([qb.width for qb in qbs], default=0) + max(band - 2, 0)
-    tall = pad_to_width(ts_enc, width)
+    tall = pad_to_width(ts_enc, width, truncate=True)
     t_all = torch.from_numpy(tall.data).to(device)
     lens_all = torch.from_numpy(tall.lens).to(device)
     out = np.full((Q, T), NEG, dtype=np.int32)

@@ -189,6 +189,18 @@ def submit_events_device(refseq: bytes, events, device,
     return finish
 
 
+def analyze_events_device(refseq: bytes, events, device,
+                          skip_codan: bool = False,
+                          motifs=DEFAULT_MOTIFS,
+                          max_ev: int = MAX_EV) -> list[tuple]:
+    """Synchronous submit and finish on ``device``: a list of (aa, aapos,
+    rctx, status, impact) tuples in event order, the contract of
+    ``analyze_event_host`` (which, like this, upper-cases each event's
+    ``evtbases`` in place, as printDiffInfo does)."""
+    return submit_events_device(refseq, events, device, skip_codan,
+                                motifs, max_ev)()
+
+
 def submit_diff_info_batch(batch, f, device,
                            skip_codan: bool = False,
                            motifs=DEFAULT_MOTIFS, summary=None,
@@ -222,3 +234,11 @@ def submit_diff_info_batch(batch, f, device,
         emit_batch_rows(batch, analyzed, f, summary)
 
     return finish
+
+
+def print_diff_info_batch(batch, f, device, skip_codan: bool = False,
+                          motifs=DEFAULT_MOTIFS, summary=None,
+                          max_ev: int = MAX_EV) -> None:
+    """Synchronous submit and finish of one report batch on ``device``."""
+    submit_diff_info_batch(batch, f, device, skip_codan, motifs, summary,
+                           max_ev)()

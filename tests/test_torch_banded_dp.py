@@ -228,6 +228,29 @@ def test_matrix_equals_reference_many2many():
         want[0])
 
 
+@pytest.mark.parametrize("band", [3, 16, 64])
+def test_banded_score_one_pair_equals_reference(band):
+    """``banded_score`` scores one pair as the reference's does: every
+    target of a batch on its own, ``t_len`` an int or a 0-d tensor, NEG
+    outside the band."""
+    q, ts, t_lens = make_batch(band + 7, band, T=6)
+    for t, tl in zip(ts, t_lens):
+        want = int(ref.banded_score(jnp.asarray(q), jnp.asarray(t),
+                                    jnp.int32(tl), band))
+        for given in (int(tl), torch.tensor(int(tl))):
+            got = banded_dp.banded_score(torch.from_numpy(q),
+                                         torch.from_numpy(t), given, band)
+            assert got.dtype == torch.int32 and got.dim() == 0
+            assert int(got) == want
+    short = int(t_lens[0]) - len(q) - band    # the end cell left of it
+    got = banded_dp.banded_score(torch.from_numpy(q),
+                                 torch.from_numpy(ts[0]), max(short, 1),
+                                 band)
+    assert int(got) == NEG == int(ref.banded_score(
+        jnp.asarray(q), jnp.asarray(ts[0]), jnp.int32(max(short, 1)),
+        band))
+
+
 def test_cpu_tensors_never_reach_the_build(monkeypatch):
     def no_build(name):
         raise AssertionError(f"a CPU call tried to build {name}")

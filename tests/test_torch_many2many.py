@@ -121,10 +121,10 @@ def test_bucket_queries_equals_reference(extra):
 
 @pytest.mark.parametrize("width", [40, 12, 5, 0])
 def test_pad_to_width_equals_reference(width):
-    """The port always clips, as the reference does with truncate=True;
+    """With truncate=True the port clips, as the reference does;
     ``lens`` keeps the true lengths."""
     seqs = _seqs(3)
-    got = bucketing.pad_to_width(seqs, width)
+    got = bucketing.pad_to_width(seqs, width, truncate=True)
     _assert_buckets_equal(
         [got], [ref_bucketing.pad_to_width(seqs, width, truncate=True)])
     assert got.lens.tolist() == [len(s) for s in
@@ -141,8 +141,8 @@ def test_ragged_clips_a_long_target(monkeypatch):
     widths = []
     real = many2many.pad_to_width
 
-    def recording(seqs, width):
-        b = real(seqs, width)
+    def recording(seqs, width, **kw):
+        b = real(seqs, width, **kw)
         widths.append(b.data.shape)
         return b
 

@@ -16,7 +16,7 @@ from pwasm_tpu.core.fasta import FastaFile as RefFastaFile
 from pwasm_tpu_torch import native
 from pwasm_tpu_torch.core.dna import revcomp
 from pwasm_tpu_torch.core.errors import PwasmError
-from pwasm_tpu_torch.core.events import extract_alignment
+from pwasm_tpu_torch.core.events import GapData, extract_alignment
 from pwasm_tpu_torch.core.fasta import FastaFile
 from pwasm_tpu_torch.core.paf import parse_paf_line
 from pwasm_tpu_torch.ops.banded_dp import ScoreParams
@@ -243,6 +243,147 @@ def test_consensus_vote_counts_equals_reference():
     assert ((got == 0) == (layers == 0)).all() and got.dtype == np.uint8
     with pytest.raises(ValueError):
         native.consensus_vote_counts(counts[:-1], layers)
+
+
+@pytest.mark.parametrize("band", [1, 7, 64, 200])
+def test_banded_gotoh_batch_equals_reference_and_plain(band):
+    """The scores kernel's single-core host baseline equals the
+    reference's binding and the kernel's plain version, NEG outside the
+    band included."""
+    import torch
+
+    from pwasm_tpu_torch.ops.banded_dp import (band_dlo,
+                                               banded_scores_plain)
+
+    rng = np.random.default_rng(band)
+    m = int(rng.integers(60, 150))
+    n_pad = m + (band - 1) // 2          # the widest the band places
+    lens = np.clip(m + rng.integers(-(band // 2) - 2, band // 2 + 3, 12),
+                   1, n_pad).astype(np.int32)
+    lens[0] = m
+    q = rng.integers(0, 5, m).astype(np.int8)
+    ts = np.full((len(lens), n_pad), 127, dtype=np.int8)
+    for k, n in enumerate(lens):
+        ts[k, :n] = rng.integers(0, 5, n)
+    p = ScoreParams()
+    dlo = band_dlo(m, n_pad, band)
+    args = (q, ts, lens, band, dlo, p.match, p.mismatch, p.gap_open,
+            p.gap_extend)
+    got = native.banded_gotoh_batch(*args)
+    np.testing.assert_array_equal(got, ref_native.banded_gotoh_batch(*args))
+    plain = banded_scores_plain(torch.from_numpy(q)[None],
+                                torch.from_numpy(ts),
+                                torch.from_numpy(lens), band, p)[0]
+    np.testing.assert_array_equal(got, plain.numpy())
+    assert (got > -(2 ** 29)).any()
+    with pytest.raises(ValueError, match="do not match"):
+        native.banded_gotoh_batch(q, ts, lens[:-1], *args[3:])
+
+
+def test_consensus_vote_pileup_equals_reference_and_plain():
+    """The consensus kernel's single-core host baseline equals the
+    reference's binding and the kernel's plain version (codes outside
+    0..5 uncounted, zero coverage 0, N/gap ties to '-')."""
+    import torch
+
+    from pwasm_tpu_torch.ops.consensus import consensus_counts_votes_plain
+
+    rng = np.random.default_rng(11)
+    pile = rng.integers(0, 6, size=(41, 777)).astype(np.int8)
+    noise = rng.random(pile.shape)
+    pile[noise < 0.1] = -1
+    pile[(noise >= 0.1) & (noise < 0.15)] = 6
+    pile[:, 4::17] = np.where(np.arange(41) % 2, 4, 5)[:, None]
+    pile[:, ::9] = 100                           # no counted code
+    got = native.consensus_vote_pileup(pile)
+    np.testing.assert_array_equal(got, ref_native.consensus_vote_pileup(pile))
+    votes, _counts = consensus_counts_votes_plain(torch.from_numpy(pile))
+    v = votes.numpy().astype(np.int64)
+    want = np.where(v >= 0, np.frombuffer(b"ACGTN-", np.uint8)[v], 0)
+    np.testing.assert_array_equal(got, want)
+    assert (got[::9] == 0).all() and (got[4::17] == ord("-")).any()
+
+
+def test_encode_codes_and_2bit_round_trip_equal_reference():
+    from pwasm_tpu_torch.core.dna import encode
+
+    rng = np.random.default_rng(2)
+    seq = bytes(rng.choice(np.frombuffer(b"ACGTNacgtnRYx-*", np.uint8),
+                           1001))
+    got = native.encode_codes(seq)
+    np.testing.assert_array_equal(got, ref_native.encode_codes(seq))
+    np.testing.assert_array_equal(got, encode(seq))
+    for n in (0, 1, 3, 4, 5, 1001):
+        codes = rng.integers(0, 4, n).astype(np.int8)
+        packed = native.pack_2bit(codes)
+        assert packed.dtype == np.uint8 and len(packed) == (n + 3) // 4
+        np.testing.assert_array_equal(packed, ref_native.pack_2bit(codes))
+        np.testing.assert_array_equal(native.unpack_2bit(packed, n), codes)
+        np.testing.assert_array_equal(ref_native.unpack_2bit(packed, n),
+                                      codes)
+    with pytest.raises(ValueError, match="hold no 9 codes"):
+        native.unpack_2bit(np.zeros(2, np.uint8), 9)
+
+
+def test_native_msa_add_equals_reference(tmp_path):
+    """``NativeMsa.add``, one alignment a call, merges the MSA that the
+    reference's ``add`` and the port's ``add_batch`` merge: the written
+    MSA, ACE, info and consensus are byte-equal."""
+    from test_torch_native_msa import _corpus
+
+    paf, fa = _corpus(tmp_path, seed=9, n_queries=1, n_per_query=12)
+    q = FastaFile(fa).fetch("cds0").upper()
+    items, seen = [], set()
+    for line in open(paf):
+        rec = parse_paf_line(line.rstrip("\n"))
+        al = rec.alninfo
+        if al.t_id in seen:
+            continue
+        seen.add(al.t_id)
+        aln = native.extract_native(rec, revcomp(q) if al.reverse else q)
+        items.append((f"{al.t_id}+", aln.tseq, al.r_alnstart, aln.reverse,
+                      aln.rgaps, aln.tgaps, len(items) + 1))
+    written = {}
+    for way in ("port_add", "ref_add", "port_batch"):
+        if way == "port_batch":
+            nm = native.native_msa()
+            nm.add_batch("cds0", q, len(q), items,
+                         lambda _i, msg: pytest.fail(msg))
+        else:
+            nm = (native if way == "port_add" else ref_native).native_msa()
+            for it in items:
+                assert nm.add(it[0], it[1], it[2], it[3], "cds0", q, len(q),
+                              it[4], it[5], it[6])
+        assert nm.count() == len(items) + 1
+        for kind in ("mfa", "ace", "info", "cons"):
+            path = str(tmp_path / f"{way}.{kind}")
+            nm.write(kind, path, "cds0", False, True)
+            written[way, kind] = open(path, "rb").read()
+        nm.close()
+    for kind in ("mfa", "ace", "info", "cons"):
+        assert written["port_add", kind] == written["ref_add", kind] \
+            == written["port_batch", kind], kind
+    # a gap the layout cannot hold: False, the message kept, nothing merged
+    nm = native.native_msa()
+    assert nm.add(*items[0][:4], "cds0", q, len(q), *items[0][4:])
+    assert not nm.add("tbad", b"AC", 0, 0, "cds0", q, len(q),
+                      [GapData(len(q) + 5, 2)], [], 99)
+    assert "invalid gap position" in nm.gap_err and nm.count() == 2
+    nm.close()
+
+
+def test_write_fasta_equals_reference(tmp_path):
+    from pwasm_tpu.core.fasta import write_fasta as ref_write_fasta
+    from pwasm_tpu_torch.core.fasta import write_fasta
+
+    recs = [("a", b"ACGT" * 40), ("b desc", "acgtn" * 13), ("c", b""),
+            ("d", bytearray(b"A" * 60))]
+    for width in (60, 7):
+        write_fasta(str(tmp_path / "p.fa"), recs, width)
+        ref_write_fasta(str(tmp_path / "r.fa"), recs, width)
+        got = (tmp_path / "p.fa").read_bytes()
+        assert got == (tmp_path / "r.fa").read_bytes()
+    assert FastaFile(str(tmp_path / "p.fa")).fetch("a") == b"ACGT" * 40
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,10 @@ The counterpart of the reference's tests/test_native_cli.py.  The
 binary's test hooks are held to the port's Python engine: the X-drop
 clip refinement (``--refine-selftest``) to
 ``align/gapseq.py::refine_clipping_batch`` on the CPU, the clip-bearing
-ACE/info writers (``--clip-selftest`` WRITE) to ``align/msa.py``.  The
-port's Python engine has no clip transaction (the CLI never evaluates
-one), so ``--clip-selftest`` EVAL is held to the reference's Python
-engine.  On the randomized fixtures the port's binary is also held to
+ACE/info writers (``--clip-selftest`` WRITE) and the clip transaction
+(``--clip-selftest`` EVAL) to ``align/msa.py``
+(``tests/test_torch_msa_library.py`` holds that transaction to the
+reference's).  On the randomized fixtures the port's binary is also held to
 the reference's binary, byte for byte.  Then the build itself: its key,
 ``PWASM_NATIVE=0``, a missing g++, concurrent builds, and the
 ``Makefile``'s ASan/UBSan gate, ``make memcheck``.
@@ -793,11 +793,12 @@ def _build_python_msa(specs, gapseq_cls, msa_cls):
 
 def test_clip_transaction_parity_fuzz(tmp_path):
     """Clip-transaction fuzz (--clip-selftest EVAL): the engine's
-    eval_clipping/apply_clipping accept, reject and apply as the
-    reference's Python engine and its binary do, on random MSAs and
-    random proposed end trims, across strands and clipmax forms."""
-    from pwasm_tpu.align.gapseq import GapSeq as RefGapSeq
-    from pwasm_tpu.align.msa import AlnClipOps, Msa as RefMsa
+    eval_clipping/apply_clipping accept, reject and apply as the port's
+    Python engine (``align/msa.py``) and the reference's binary do, on
+    random MSAs and random proposed end trims, across strands and
+    clipmax forms."""
+    from pwasm_tpu_torch.align.gapseq import GapSeq
+    from pwasm_tpu_torch.align.msa import AlnClipOps, Msa
 
     rng = random.Random(20260805)
     for case in range(40):
@@ -834,7 +835,7 @@ def test_clip_transaction_parity_fuzz(tmp_path):
         for line in lines[len(evals):]:
             name, c5, c3 = line.split("\t")
             got_clips[name] = (int(c5), int(c3))
-        msa, pseqs = _build_python_msa(seqs_spec, RefGapSeq, RefMsa)
+        msa, pseqs = _build_python_msa(seqs_spec, GapSeq, Msa)
         want = []
         for idx, c5, c3 in evals:
             ops = AlnClipOps()
