@@ -49,8 +49,9 @@ Phases, one JSON line each; any failure exits non-zero:
               edges (FWD_EDGES);
 8. long-read — four ~118 kb pairs through ``realign_pairs``: the budget
               picks the streamed kernel; the streamed kernel and the
-              walk equal their plain versions (run on the host CPU) on
-              that dispatch's inputs, and every path re-scores to its
+              walk, at full length, equal their plain versions (run on
+              the host CPU in a child process beside phases 12-19, read
+              before the kernels line), and every path re-scores to its
               DP score; both kernels' times and times a row, the
               forward pass's bound, the walk's bound and chain bound;
 9. many2many — BASELINE.md config 3 (``make_m2m_corpus``: 500 CDS of
@@ -69,8 +70,10 @@ Phases, one JSON line each; any failure exits non-zero:
               timed on the inputs of the cuda run's largest dispatch;
 10. m2m long-read — a ``many2many_scores_ragged`` dispatch of 2 queries x
               4 targets of ~116 kb: the streamed scores kernel runs (its
-              sub-warp body), and its scores equal the plain version's on
-              the host CPU; its device time and time a row;
+              sub-warp body), and the whole 2 x 4 score matrix equals
+              the same call's on the host CPU (the plain version, in a
+              child process as in phase 8); its device time and time a
+              row;
 11. config 5 — BASELINE.md config 5 (256 targets of ~50 kb against one
               50,000-base query, band 64, as the reference's bench makes
               them) through ``banded_scores_long`` on the card: one
@@ -201,14 +204,32 @@ Phases, one JSON line each; any failure exits non-zero:
               (``consensus_vote_pileup`` on the engine's pileup,
               ``banded_gotoh_batch`` at config 2's first 1,024 targets)
               beside the kernels;
-19. the ``kernels`` line (with each main-path kernel's
+19. cache   — the result cache (``run_cache``): the realistic corpus
+              through ``--result-cache`` (a miss with one consensus
+              launch; the repeat served with no kernel launch and no
+              ctx_scan flush; report-only, a delta over 20 appended
+              alignments equal to a cold run of the grown file);
+              ``--realign --batch=16`` then ``--realign``, the second a
+              miss (the key holds ``--batch`` under ``--realign``); two
+              ``--build-child`` processes on one fresh
+              ``--compile-cache-dir``, the first building the three
+              kernel libraries and the engine there, the second nothing;
+              one daemon (``--result-cache``, ``--compile-cache-dir``,
+              ``--cache-prefetch``) fed by client processes: the
+              realistic job twice (the second answered at admission, no
+              lease, no launch), ``cache-probe``, config 3's
+              ``--many2many`` (phase 9's bytes), again (no scores
+              launch), and a superset of 256 new targets (scores launched
+              only for their pairs; a cold run's bytes); ``svc-stats``;
+20. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
    phase 15's faulted ``--realign`` run, ``follow_launches`` from
    phase 16's ``--follow --realign`` run and ``serve_launches`` from
    phase 17's first daemon, every job of its life; for the consensus
    and scores kernels, ``library_launches`` from phase 18 and the
-   single-core host baseline's time), the card's name
+   single-core host baseline's time; every kernel's
+   ``cache_launches`` in each of phase 19's runs), the card's name
    and power limit as nvidia-smi prints them, and the final
    ``{"ok": true, ...}`` line.
 
@@ -247,6 +268,14 @@ also builds that source and times its consensus kernel in turns with
 this tree's at the realistic pileup, one ten times deeper and 4,096 x
 300, bit-equal (the ``compare-consensus`` line).  The options may be
 combined.
+
+    python3 chip_smoke.py --m2m-turns PARENT
+
+runs only phase 9's config-3 ``--many2many`` on the card, by the
+``pwasm_tpu_torch`` of the checkout PARENT and by this one's in turns
+(parent, this, this, parent; each turn a process running it twice),
+with each run's wall and stage seconds (the ``m2m-turns`` lines), the
+outputs equal.
 
 Outputs are written under ``chip_smoke_out/``.
 """
@@ -365,6 +394,14 @@ SCORE_SHAPES = ((3, 37, 20, 51, 64), (3, 37, 45, 76, 64),
 # the many-lanes shape at band 64 (the largest dispatch before the
 # config-3 run sent only in-band targets), timed beside config 2
 MANY_LANES = (7, 9143, 1725, 1725)
+# the long reads' plain versions (phases 8 and 10) run on the host CPU
+# at full length in child processes started after phase 11, beside the
+# later phases (~0.5 ms a row there; the plain version on the card pays
+# ~20 us an op, 40-70 ops a row: minutes on the script's path); their
+# verdicts are read before the kernels line
+PLAIN_CHILD_LIMIT_S = 600
+
+
 
 
 def emit(obj: dict) -> None:
@@ -1250,6 +1287,102 @@ def m2m_long_inputs(seed: int, m: int = 116_000):
     return qs, ts
 
 
+def plain_child(in_path: str, out_path: str) -> int:
+    """``python3 chip_smoke.py --plain-child IN OUT``: on the host CPU,
+    one thread, the plain version of a long read's kernels at full
+    length, against the kernels' outputs that IN (``torch.save``) holds;
+    writes to OUT whether they are equal, the largest difference and the
+    plain version's seconds.  ``fwd+walk`` (phase 8): the forward pass
+    with pointers and the walk over its planes, on the lanes of that
+    dispatch; ``m2m`` (phase 10): ``many2many_scores_ragged`` on
+    ``m2m_long_inputs`` (each dispatch through the plain version)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(1)
+    job = torch.load(in_path)
+    t0 = time.perf_counter()
+    if job["kind"] == "fwd+walk":
+        from pwasm_tpu_torch.ops import realign as ra
+
+        qs, ts, ql, tl = job["lanes"]
+        plain = ra.forward_plain(qs, ts, ql, tl, job["dlo"], job["band"])
+        walk = ra.walk_plain(plain[0], plain[2], plain[3], ql)
+        got = job["got"]
+        live = torch.arange(qs.shape[1])[None, :] < ql.long()[:, None]
+        cmp = [(got[0][live], plain[0][live]),
+               *zip(got[1:], (*plain[1:], *walk))]
+    else:
+        from pwasm_tpu_torch.parallel.many2many import \
+            many2many_scores_ragged
+
+        qs, ts = m2m_long_inputs(seed=job["seed"], m=job["m"])
+        want = many2many_scores_ragged(qs, ts, band=job["band"],
+                                       device=torch.device("cpu"))
+        cmp = [(torch.as_tensor(job["got"], dtype=torch.int64),
+                torch.as_tensor(want, dtype=torch.int64))]
+    plain_s = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(dict(equal=all(a.shape == b.shape and torch.equal(a, b)
+                                 for a, b in cmp),
+                       max_abs_err=max_err(cmp), plain_host_s=plain_s), f)
+    return 0
+
+
+class HostPlain:
+    """The long reads' plain versions at full length on the host CPU,
+    each in a :func:`plain_child` process: ``save`` writes a job when its
+    phase has the kernels' outputs, ``start`` starts every saved job
+    (after phase 11, so the host stages of phases 8-11 run alone),
+    ``verdict`` waits for one and raises unless the kernels equal the
+    plain version.  Every child is killed when the script exits."""
+
+    def __init__(self, work: str):
+        import atexit
+
+        self.work = work
+        self.jobs: dict = {}
+        atexit.register(self.stop)
+
+    def save(self, tag: str, job: dict) -> None:
+        import torch
+
+        path = os.path.join(self.work, f"plain_{tag}.pt")
+        torch.save(job, path)
+        self.jobs[tag] = dict(path=path, out=path[:-3] + ".json")
+
+    def start(self) -> None:
+        for job in self.jobs.values():
+            job["t0"] = time.perf_counter()
+            job["proc"] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--plain-child", job["path"], job["out"]], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def verdict(self, tag: str) -> dict:
+        job = self.jobs[tag]
+        proc = job["proc"]
+        _out, err = proc.communicate(timeout=PLAIN_CHILD_LIMIT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"the {tag} plain child: rc "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        with open(job["out"]) as f:
+            got = json.load(f)
+        got["process_s"] = time.perf_counter() - job["t0"]
+        if not got["equal"] or got["max_abs_err"]:
+            raise AssertionError(f"{tag}: the kernels differ from the plain "
+                                 f"version at full length (max abs err "
+                                 f"{got['max_abs_err']})")
+        return got
+
+    def stop(self) -> None:
+        for job in self.jobs.values():
+            proc = job.get("proc")
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def run_many2many(work: str, cycles_per_s: float | None,
                   n_q: int = 500, n_t: int = 10_240):
     """Phase 9: the config-3 corpus through ``--many2many`` on cuda, then
@@ -1403,10 +1536,75 @@ def load_parts(path: str) -> dict:
                 read_file_s=t5 - t4)
 
 
-def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
+def m2m_child(out_path: str, root: str, tfa: str, qfa: str) -> int:
+    """``python3 chip_smoke.py --m2m-child OUT ROOT TFA QFA``: phase 9's
+    ``--many2many --device=cuda`` run of config 3 through the CLI of the
+    ``pwasm_tpu_torch`` under ROOT (this checkout's or another's), twice
+    in this process (the first builds or loads the kernels and the
+    engine); writes each run's wall, its stage seconds and its run
+    seconds to OUT."""
+    sys.path.insert(0, os.path.abspath(root))
+    from pwasm_tpu_torch.cli import run
+
+    runs = []
+    for k in range(2):
+        st: dict = {}
+        out = f"{out_path}.{k}"
+        t0 = time.perf_counter()
+        rc = run(["--many2many", tfa, "-r", qfa, "-o", f"{out}.tsv", "-s",
+                  f"{out}.sum", "--device=cuda"], stdout=io.StringIO(),
+                 stderr=io.StringIO(), stats=st)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            return rc
+        runs.append(dict(wall_s=wall, run_s=st["wall_s"],
+                         stage_s=st["times"]))
+    with open(out_path, "w") as f:
+        json.dump(dict(root=root, runs=runs), f)
+    return 0
+
+
+def m2m_turns(parent_root: str) -> int:
+    """``python3 chip_smoke.py --m2m-turns PARENT``: phase 9's config-3
+    ``--many2many`` run on the card by the parent checkout's package and
+    by this one's, in turns (parent, this, this, parent), each turn a
+    :func:`m2m_child` process on one corpus; one line a turn, then the
+    card's name and power limit.  Outputs must be equal."""
+    sys.path.insert(0, ROOT)
+    from pwasm_tpu_torch.corpus import make_m2m_corpus
+
+    work = os.path.join(ROOT, "chip_smoke_out", "m2m_turns")
+    os.makedirs(work, exist_ok=True)
+    qfa, tfa = make_m2m_corpus(n_q=500, n_t=10_240, out_dir=work)
+    bodies = set()
+    for k, root in enumerate((parent_root, ROOT, ROOT, parent_root)):
+        out = os.path.join(work, f"turn{k}.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--m2m-child", out,
+             root, tfa, qfa], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            return fail("m2m-turns", f"turn {k} ({root}): rc "
+                        f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            turn = json.load(f)
+        for r in range(2):
+            with open(f"{out}.{r}.tsv", "rb") as f, \
+                    open(f"{out}.{r}.sum", "rb") as g:
+                bodies.add((f.read(), g.read()))
+        emit(dict(phase="m2m-turns", turn=k,
+                  tree="parent" if root == parent_root else "this", **turn))
+    if len(bodies) != 1:
+        return fail("m2m-turns", "the turns' outputs differ")
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
+def run_m2m_long(cycles_per_s: float | None, plain: HostPlain | None,
+                 m: int = 116_000) -> dict:
     """Phase 10: a many2many dispatch of long reads, where the budget
-    streams; its scores must equal the plain version's on the host CPU.
-    Returns the phase's record.  Raises on a failure."""
+    streams; the score matrix is saved for ``plain`` (the same call on
+    the host CPU, in a child process; None: no check).  Returns the
+    phase's record.  Raises on a failure."""
     import torch
 
     from pwasm_tpu_torch.ops import banded_dp as bd
@@ -1430,20 +1628,20 @@ def run_m2m_long(cycles_per_s: float | None, m: int = 116_000) -> dict:
                                       device=torch.device("cuda"))
     wall = time.perf_counter() - t0
     launches = dict(bd.LAUNCHES)
-    if [d[4] for d in dispatches] != ["streamed", "streamed"]:
-        raise AssertionError(f"long-read dispatches {dispatches}")
-    t0 = time.perf_counter()
-    want = many2many_scores_ragged(qs, ts, band=64,
-                                   device=torch.device("cpu"))
-    plain_s = time.perf_counter() - t0
-    if not (got == want).all() or (got > bd.NEG).sum() < 4:
-        raise AssertionError(f"streamed scores {got.tolist()} != plain "
-                             f"{want.tolist()} (or too few in band)")
-    rec = dict(dispatches=dispatches, wall_s=wall, plain_host_s=plain_s,
-               launches=launches, scores=got.tolist())
+    if [d[4] for d in dispatches] != ["streamed", "streamed"] \
+            or (got > bd.NEG).sum() < 4:
+        raise AssertionError(f"long-read dispatches {dispatches}, scores "
+                             f"{got.tolist()} (too few in band?)")
+    # the whole score matrix against the same call on the host CPU (the
+    # plain version at full length), in a child process after phase 11
+    if plain is not None:
+        plain.save("m2m_long", dict(kind="m2m", seed=13, m=m, band=64,
+                                    got=got.tolist()))
+    qs_t, ts_t, tl_t = largest["inputs"]
+    rec = dict(dispatches=dispatches, wall_s=wall, launches=launches,
+               scores=got.tolist())
     if cycles_per_s is None:
         return rec
-    qs_t, ts_t, tl_t = largest["inputs"]
     (Q, mq), (T, n) = qs_t.shape, ts_t.shape
     out = torch.empty((Q, T), dtype=torch.int32, device=qs_t.device)
     qp, tp, tl32 = bd.pad16(qs_t), bd.pad16(ts_t), tl_t.int().contiguous()
@@ -1879,18 +2077,21 @@ def run_obs(work: str, paf: str, fa: str, outputs: dict,
 def cli_child(counts_path: str, args: list[str]) -> int:
     """``python3 chip_smoke.py --cli COUNTS ARGS...``: run the port's CLI
     on ARGS in this process as ``python -m pwasm_tpu_torch.cli ARGS``
-    does, then write the kernels' launch counts and the ctx_scan flushes
-    by device to COUNTS (phase 14's processes).  Returns the CLI's exit
+    does, then write the kernels' launch counts, the ctx_scan flushes by
+    device and the run's seconds (``run_s``) to COUNTS (phase 14's
+    processes, phase 19's cold superset).  Returns the CLI's exit
     code."""
     import runpy
 
     sys.path.insert(0, ROOT)
+    from pwasm_tpu_torch.ops import banded_dp as bd
     from pwasm_tpu_torch.ops import consensus as cons
     from pwasm_tpu_torch.ops import ctx_scan
     from pwasm_tpu_torch.ops import realign as ra
 
     sys.argv = ["pwasm_tpu_torch.cli", *args]
     rc = 0
+    t0 = time.perf_counter()
     try:
         runpy.run_module("pwasm_tpu_torch.cli", run_name="__main__",
                          alter_sys=True)
@@ -1899,7 +2100,8 @@ def cli_child(counts_path: str, args: list[str]) -> int:
     finally:
         with open(counts_path, "w") as f:
             json.dump(dict(ra.LAUNCHES, consensus=cons.LAUNCHES,
-                           ctx_scan=dict(ctx_scan.FLUSHES)), f)
+                           **bd.LAUNCHES, ctx_scan=dict(ctx_scan.FLUSHES),
+                           run_s=time.perf_counter() - t0), f)
     return rc
 
 
@@ -2825,6 +3027,498 @@ def run_serve(work: str, paf: str, fa: str, outputs: dict,
                       [round(g, 3) for g in gaps], concurrent_s,
                       record["in_turn_s"], stream_s, term_s, resume_wall,
                       smi), flush=True)
+    return record
+
+
+def build_child(out_path: str, bdir: str, args: list[str]) -> int:
+    """``python3 chip_smoke.py --build-child OUT DIR PAF FA QFA TFA
+    [GO]``: in this process (whose kernels and engine are not loaded),
+    once the file GO exists (when named: the process starts beside
+    another's builds and runs after them), run three CLI jobs at once
+    with ``--compile-cache-dir=DIR --device=cuda``: the golden inputs
+    with ``--realign -w --cons`` (the engine, the realign and consensus
+    kernels), with ``-w`` alone (the consensus kernel), and
+    ``--many2many`` on a small corpus (the scores kernels), so their
+    first builds overlap; write to OUT the exit codes, each nvcc and g++
+    build's seconds (``_build.BUILD_S``, ``native.BUILD_S``: empty when
+    the directory already held them), the build directory, its files
+    and the wall from GO (phase 19 c)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, ROOT)
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.cli import run
+    from pwasm_tpu_torch.ops import _build
+
+    paf, fa, qfa, tfa, *go = args
+    t_end = time.monotonic() + 600
+    while go and not os.path.exists(go[0]):
+        if time.monotonic() > t_end:
+            return 1
+        time.sleep(0.05)
+    flag = f"--compile-cache-dir={bdir}"
+    t0 = time.perf_counter()
+    jobs = ([paf, "-r", fa, "-o", f"{out_path}.dfa", "-w",
+             f"{out_path}.mfa", f"--cons={out_path}.cons.fa", "--realign"],
+            [paf, "-r", fa, "-o", f"{out_path}.0.dfa", "-w",
+             f"{out_path}.0.mfa"],
+            ["--many2many", tfa, "-r", qfa, "-o", f"{out_path}.tsv"])
+    errs = [io.StringIO() for _ in jobs]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        rcs = [f.result() for f in [
+            pool.submit(run, [*job, "--device=cuda", flag], stderr=err)
+            for job, err in zip(jobs, errs)]]
+    with open(out_path, "w") as f:
+        json.dump(dict(rcs=rcs, nvcc_s=_build.BUILD_S, gxx_s=native.BUILD_S,
+                       build_dir=_build.BUILD_DIR,
+                       files=sorted(os.listdir(bdir)),
+                       wall_s=time.perf_counter() - t0,
+                       stderr="".join(e.getvalue()[-800:] for e in errs)),
+                  f)
+    return 0 if rcs == [0] * len(jobs) else 1
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count and ctx_scan's flushes by device, as
+    the modules count them (phase 19)."""
+    from pwasm_tpu_torch.ops import banded_dp as bd
+    from pwasm_tpu_torch.ops import consensus as cons
+    from pwasm_tpu_torch.ops import ctx_scan
+    from pwasm_tpu_torch.ops import realign as ra
+
+    return dict(ra.LAUNCHES, consensus=cons.LAUNCHES, **bd.LAUNCHES,
+                ctx_scan=dict(ctx_scan.FLUSHES))
+
+
+def launches_since(before: dict) -> dict:
+    """The launches and flushes made since ``launch_counts()`` gave
+    ``before``."""
+    now = launch_counts()
+    out = {k: now[k] - before[k] for k in now if k != "ctx_scan"}
+    out["ctx_scan"] = {d: n - before["ctx_scan"].get(d, 0)
+                       for d, n in now["ctx_scan"].items()
+                       if n != before["ctx_scan"].get(d, 0)}
+    return out
+
+
+def counted_cli(tag: str, args: list[str]) -> dict:
+    """One in-process CLI run (its args name ``--stats=``): its wall,
+    launches and stats.  Raises unless it exits 0."""
+    before = launch_counts()
+    rc, _st, err, wall = run_cli(args)
+    if rc != 0:
+        raise AssertionError(f"{tag}: rc {rc}: {err[-2000:]}")
+    stj = next(a.split("=", 1)[1] for a in args if a.startswith("--stats="))
+    with open(stj) as f:
+        stats = json.load(f)
+    return dict(wall_s=wall, launches=launches_since(before), stats=stats)
+
+
+def same_outputs(tag: str, got: dict, want: dict, names=OUTPUTS) -> None:
+    differ = [n for n in names if got[n] != want[n]]
+    if differ:
+        raise AssertionError(f"{tag}: outputs differ {differ}")
+
+
+def run_cache(work: str, paf: str, fa: str, outputs: dict,
+              re_outputs: dict, batch16_outputs: dict, m2m_files: tuple,
+              smi: str, dev: str = "cuda", n_q: int = 500,
+              n_t: int = 10_240) -> dict:
+    """Phase 19: the result cache on the card (``service/cache.py``), each
+    output compared byte for byte and each kernel count read from the
+    modules' ``LAUNCHES`` before and after each run:
+
+    - a: the realistic corpus through ``cli.run --device=cuda
+      --result-cache=D --stats``: a miss (one consensus launch, phase 5's
+      bytes); the same job again (no launch of any kernel, no ctx_scan
+      flush, ``cache_hit``); then, report-only (the delta's shape), the
+      corpus, and the corpus with 20 more alignments appended: a delta
+      (``cache_delta``, 199 of 220 records served, the resume past them)
+      equal to a cold run of the grown file;
+    - b: ``--realign --batch=16`` then ``--realign`` (batch 256) on the
+      same cache: the second is a miss with phase 7's bytes and the
+      realign kernels launched (the key holds ``--batch`` under
+      ``--realign``);
+    - c: two child processes (``build_child``) on one fresh
+      ``--compile-cache-dir``, both started beside a, b and d: the
+      first builds the three kernel libraries (its three CLI jobs at
+      once, so the builds overlap) and the engine there, the second,
+      whose jobs wait for the first process's end, builds nothing;
+    - d: one in-process daemon with ``--result-cache``,
+      ``--compile-cache-dir`` (c's) and ``--cache-prefetch``, fed by
+      client processes: the realistic job twice (the second answered at
+      admission: no lease, no launch), ``cache-probe`` of its key,
+      config 3's ``--many2many`` (phase 9's corpus: its bytes), served
+      again (no scores launch), the targets plus 256 new ones (scores
+      launched only for the new targets' pairs; the bytes of a cold run
+      of the grown set, made by a ``cli_child`` process that starts
+      before a), and ``svc-stats`` with its cache and ``m2m`` blocks.
+
+    ``dev="cpu"`` (with ``n_q``, ``n_t`` those of ``m2m_files``) rehearses
+    the phase on the CPU: every check but the kernel counts, and no c.
+    Returns the phase's record (every wall); raises on a failure."""
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.corpus import make_m2m_corpus
+    from pwasm_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    on_card = dev == "cuda"
+    cd = os.path.join(work, "c19_cache")
+    shutil.rmtree(cd, ignore_errors=True)
+
+    record: dict = {}
+    bdir = os.path.join(work, "c19_builds")
+    shutil.rmtree(bdir, ignore_errors=True)
+    tiny = os.path.join(work, "c19_tiny")
+    os.makedirs(tiny, exist_ok=True)
+    tq, tt = make_m2m_corpus(n_q=2, n_t=8, out_dir=tiny)
+    gold = os.path.join(ROOT, "tests", "golden")
+    for name in ("in.paf", "q.fa"):
+        shutil.copy(os.path.join(gold, name), tiny)
+
+    def child(k: int, *go: str):
+        out = os.path.join(work, f"c19_child{k}.json")
+        return out, time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--build-child",
+             out, bdir, os.path.join(tiny, "in.paf"),
+             os.path.join(tiny, "q.fa"), tq, tt, *go], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def child_done(k: int, started) -> dict:
+        out, t0, proc = started
+        try:
+            _out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"build child {k}: rc {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        with open(out) as f:
+            got = json.load(f)
+        got["process_s"] = time.perf_counter() - t0
+        return got
+
+    # d's superset: config 3's targets and 256 new ones; its cold run is
+    # a process of its own, started now and running beside a, b and d
+    qfa, tfa = m2m_files
+    sup_dir = os.path.join(work, "c19_super")
+    os.makedirs(sup_dir, exist_ok=True)
+    sq, st_fa = make_m2m_corpus(n_q=n_q, n_t=n_t + 256, out_dir=sup_dir)
+    with open(sq, "rb") as f, open(qfa, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the superset's queries differ")
+    with open(st_fa, "rb") as f, open(tfa, "rb") as g:
+        old = g.read()
+        if f.read(len(old)) != old:
+            raise AssertionError("the superset does not extend phase 9's "
+                                 "targets")
+    cold = CliProcess(os.path.join(work, "c19_super_cold"), [
+        "--many2many", st_fa, "-r", qfa, "-o",
+        f"{work}/c19_super_cold.tsv", "-s", f"{work}/c19_super_cold.sum",
+        f"--device={dev}"])
+    # c: both processes start now, beside a, b and d; the second runs
+    # its jobs once the first has ended (the file ``go``)
+    go = os.path.join(work, "c19_go")
+    with contextlib.suppress(FileNotFoundError):
+        os.unlink(go)
+    started = []
+
+    def c_chain() -> list:
+        started.extend([child(1), child(2, go)])
+        got = [child_done(1, started[0])]
+        with open(go, "w"):
+            pass
+        return got + [child_done(2, started[1])]
+
+    from concurrent.futures import ThreadPoolExecutor
+    chain = ThreadPoolExecutor(1)
+    try:
+        c_run = chain.submit(c_chain) if on_card else None
+        record.update(_cache_abd(work, paf, fa, outputs, re_outputs,
+                                 batch16_outputs, m2m_files, dev, n_q,
+                                 st_fa, cold, cd, bdir))
+        children = c_run.result() if on_card else []
+    finally:
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            cold.finish(1.0)
+        chain.shutdown(wait=False)
+        for _out, _t0, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # c: the two processes on the one fresh build directory
+    libs = sorted(os.path.basename(_build.lib_path(n))
+                  for n in _build.sources())
+    engine = os.path.basename(native.lib_path())
+    first, second = children or ({"nvcc_s": {}, "gxx_s": {}, "files": [],
+                                  "process_s": 0.0},) * 2
+    if on_card and (sorted(first["nvcc_s"]) != sorted(_build.sources())
+                    or list(first["gxx_s"]) != [engine]
+                    or not set(libs) | {engine} <= set(first["files"])
+                    or first["build_dir"] != bdir):
+        raise AssertionError(f"c: the first process built {first}")
+    if second["nvcc_s"] or second["gxx_s"] \
+            or second["files"] != first["files"]:
+        raise AssertionError(f"c: the second process built "
+                             f"{second['nvcc_s']} {second['gxx_s']}")
+    record["c"] = dict(
+        files=first["files"], nvcc_s=first["nvcc_s"],
+        gxx_s=first["gxx_s"],
+        process_s=[c["process_s"] for c in children],
+        jobs_s=[c["wall_s"] for c in children],
+        build_s=[sum(c["nvcc_s"].values()) + sum(c["gxx_s"].values())
+                 for c in children])
+    record["wall_s"] = time.perf_counter() - t_phase
+    w = record["d"]["walls"]
+    a, b = record["a"], record["b"]
+    print("cache walls, s: a miss {:.3f} hit {:.3f}, report-only {:.3f} "
+          "delta {:.3f} (cold grown {:.3f}); b --batch=16 {:.3f} then "
+          "256 {:.3f} (a miss); c build processes {}, their jobs {} "
+          "(build s {}); d "
+          "served miss {:.3f} hit {:.3f}, cache-probe {:.3f}, "
+          "--many2many miss {:.3f} hit {:.3f} superset {:.3f} (cold "
+          "superset {:.3f}); phase {:.3f}; {}".format(
+              a["miss_s"], a["hit_s"], a["report_only_s"], a["delta_s"],
+              a["cold_grown_s"], b["batch16_s"], b["batch256_s"],
+              [round(c["process_s"], 3) for c in children],
+              [round(c["wall_s"], 3) for c in children],
+              [round(s, 3) for s in record["c"]["build_s"]],
+              w["c19_sv1"], w["c19_sv2"], record["d"]["probe_s"],
+              w["c19_m2m"], w["c19_m2m_hit"], w["c19_m2m_super"],
+              record["d"]["cold_super_s"], record["wall_s"], smi),
+          flush=True)
+    return record
+
+
+def _cache_abd(work, paf, fa, outputs, re_outputs, batch16_outputs,
+               m2m_files, dev, n_q, st_fa, cold, cd, bdir) -> dict:
+    """Phase 19's a, b and d (``run_cache``; ``st_fa`` the superset's
+    targets, ``cold`` its cold run's process); returns their records."""
+    import threading
+
+    from pwasm_tpu_torch.corpus import make_corpus
+    from pwasm_tpu_torch.ops import _build
+    from pwasm_tpu_torch.service.cache import classify_argv, derive_keys
+    from pwasm_tpu_torch.service.client import wait_for_socket
+    from pwasm_tpu_torch.service.daemon import Daemon
+
+    qfa, tfa = m2m_files
+    on_card = dev == "cuda"
+    record: dict = {}
+    # a: miss, hit, then the report-only delta
+    runs = {}
+    for tag in ("c19_miss", "c19_hit"):
+        runs[tag] = counted_cli(tag, [paf, "-r", fa, *out_args(work, tag),
+                              f"--device={dev}", f"--result-cache={cd}",
+                              f"--stats={work}/{tag}.json"])
+        same_outputs(tag, read_outputs(work, tag), outputs)
+    miss, hit = runs["c19_miss"], runs["c19_hit"]
+    if miss["launches"]["consensus"] != int(on_card) \
+            or "cache_hit" in miss["stats"]:
+        raise AssertionError(f"a miss: {miss['launches']}")
+    if any(v for k, v in hit["launches"].items() if k != "ctx_scan") \
+            or hit["launches"]["ctx_scan"] \
+            or hit["stats"].get("cache_hit") is not True \
+            or hit["stats"]["backend"] != {"probes": 0, "warm_hits": 0}:
+        raise AssertionError(f"a hit: launches {hit['launches']}, "
+                             f"stats {hit['stats'].get('cache_hit')}")
+    _q, lines = make_corpus(n_aln=220)
+    with open(paf) as f:
+        if f.read() != "".join(ln + "\n" for ln in lines[:200]):
+            raise AssertionError("make_corpus(n_aln=220) does not extend "
+                                 "phase 5's corpus")
+    grown = os.path.join(work, "in220.paf")
+    with open(grown, "w") as f:
+        f.write("".join(ln + "\n" for ln in lines))
+    for tag, inp, cache in (("c19_o200", paf, True),
+                            ("c19_delta", grown, True),
+                            ("c19_cold220", grown, False)):
+        runs[tag] = counted_cli(tag, [inp, "-r", fa, "-o",
+                              f"{work}/{tag}.report.dfa", f"--device={dev}",
+                              f"--stats={work}/{tag}.json"]
+                        + ([f"--result-cache={cd}"] if cache else []))
+    delta, cold220 = runs["c19_delta"], runs["c19_cold220"]
+    with open(f"{work}/c19_delta.report.dfa", "rb") as f:
+        dbytes = f.read()
+    with open(f"{work}/c19_cold220.report.dfa", "rb") as f:
+        if f.read() != dbytes:
+            raise AssertionError("the delta's report differs from a cold "
+                                 "run of the grown file")
+    st = delta["stats"]
+    if (st.get("cache_delta"), st.get("cache_records_served"),
+            st.get("cache_records_total"), st.get("resumed_past")) \
+            != (True, 199, 220, 199):
+        raise AssertionError(f"the delta's stats: {st.get('cache_delta')}"
+                             f", {st.get('cache_records_served')} of "
+                             f"{st.get('cache_records_total')}, resumed "
+                             f"past {st.get('resumed_past')}")
+    if delta["launches"]["ctx_scan"].get(dev, 0) < 1:
+        raise AssertionError(f"the delta's flushes "
+                             f"{delta['launches']['ctx_scan']}")
+    record["a"] = dict(
+        miss_s=miss["wall_s"], hit_s=hit["wall_s"],
+        miss_launches=miss["launches"], hit_launches=hit["launches"],
+        report_only_s=runs["c19_o200"]["wall_s"],
+        delta_s=delta["wall_s"], cold_grown_s=cold220["wall_s"],
+        delta_flushes=delta["launches"]["ctx_scan"],
+        cold_grown_flushes=cold220["launches"]["ctx_scan"],
+        delta_served=[st["cache_records_served"],
+                      st["cache_records_total"]])
+
+    # b: --realign --batch=16, then --realign at the default batch
+    for tag, extra, want in (("c19_re16", ["--batch=16"], batch16_outputs),
+                             ("c19_re256", [], re_outputs)):
+        runs[tag] = counted_cli(tag, [paf, "-r", fa, *out_args(work, tag),
+                              "--realign", f"--device={dev}",
+                              f"--result-cache={cd}",
+                              f"--stats={work}/{tag}.json", *extra])
+        same_outputs(tag, read_outputs(work, tag), want)
+    re256 = runs["c19_re256"]
+    if "cache_hit" in re256["stats"] or on_card and (
+            re256["launches"]["fwdptr"] < 1
+            or re256["launches"]["walk"] < 1):
+        raise AssertionError(f"b: the --realign batch-256 run after "
+                             f"--batch=16 was not a miss: "
+                             f"{re256['launches']}")
+    record["b"] = dict(batch16_s=runs["c19_re16"]["wall_s"],
+                       batch256_s=re256["wall_s"],
+                       batch256_launches=re256["launches"])
+
+    # d: the daemon
+    dcd = os.path.join(work, "c19_daemon_cache")
+    shutil.rmtree(dcd, ignore_errors=True)
+    os.makedirs(dcd)
+    for name in os.listdir(cd):
+        # a's report-only entries: what the prefetch warms
+        key = name.split(".")[0]
+        if os.path.exists(os.path.join(cd, key + ".dx")):
+            shutil.copy(os.path.join(cd, name), dcd)
+    sock = os.path.join(work, "c19.sock")
+    derr = io.StringIO()
+    daemon = Daemon(sock, stderr=derr, journal_path=None,
+                    result_cache=dcd, compile_cache_dir=bdir,
+                    cache_prefetch=64)
+    box: list = []
+    th = threading.Thread(target=lambda: box.append(daemon.serve()),
+                          daemon=True)
+    th.start()
+    served: dict = {}
+    try:
+        if not wait_for_socket(sock, 60):
+            raise AssertionError(f"d: no daemon: {derr.getvalue()}")
+
+        def submit(tag: str, argv: list[str], log=None) -> dict:
+            before = launch_counts()
+            grants = daemon.leases.grants
+            rc, out, err, wall = run_client(sock, "submit", "--", *argv,
+                                            limit_s=600)
+            if rc != 0:
+                raise AssertionError(f"d {tag}: rc {rc}: {err[-2000:]}")
+            v = json.loads(out.splitlines()[-1])
+            return dict(wall_s=wall, launches=launches_since(before),
+                        leases=daemon.leases.grants - grants,
+                        detail=v.get("detail"))
+
+        job = [paf, "-r", fa, f"--device={dev}"]
+        for tag in ("c19_sv1", "c19_sv2"):
+            served[tag] = submit(tag, job + out_args(work, tag)
+                                 + [f"--stats={work}/{tag}.json"])
+            same_outputs(tag, read_outputs(work, tag), outputs)
+        sv1, sv2 = served["c19_sv1"], served["c19_sv2"]
+        if sv1["launches"]["consensus"] != int(on_card) \
+                or sv1["leases"] != 1:
+            raise AssertionError(f"d: the served miss {sv1}")
+        if any(v for k, v in sv2["launches"].items() if k != "ctx_scan") \
+                or sv2["launches"]["ctx_scan"] or sv2["leases"] \
+                or "result cache" not in (sv2["detail"] or ""):
+            raise AssertionError(f"d: the served hit {sv2}")
+        probe_argv = job + out_args(work, "c19_probe")
+        key = derive_keys(classify_argv(probe_argv))[0]
+        rc, out, err, probe_s = run_client(sock, "cache-probe", "--",
+                                           *probe_argv)
+        probe = json.loads(out) if out.strip() else {}
+        if rc != 0 or probe.get("hit") is not True \
+                or probe.get("key") != key:
+            raise AssertionError(f"d: cache-probe rc {rc}: {out} {err}")
+        with open(os.path.join(work, "m2m_cuda.tsv"), "rb") as f:
+            m2m_tsv = f.read()
+        with open(os.path.join(work, "m2m_cuda.sum"), "rb") as f:
+            m2m_sum = f.read()
+
+        def m2m(tag: str, targets: str) -> dict:
+            got = submit(tag, ["--many2many", targets, "-r", qfa, "-o",
+                               f"{work}/{tag}.tsv", "-s",
+                               f"{work}/{tag}.sum", f"--device={dev}",
+                               f"--stats={work}/{tag}.json"])
+            with open(f"{work}/{tag}.json") as f:
+                got["alignments"] = json.load(f)["alignments"]
+            with open(f"{work}/{tag}.tsv", "rb") as f:
+                got["tsv"] = f.read()
+            with open(f"{work}/{tag}.sum", "rb") as f:
+                got["sum"] = f.read()
+            return got
+
+        served["c19_m2m"] = mm = m2m("c19_m2m", tfa)
+        served["c19_m2m_hit"] = mh = m2m("c19_m2m_hit", tfa)
+        for tag, r in (("miss", mm), ("hit", mh)):
+            if (r["tsv"], r["sum"]) != (m2m_tsv, m2m_sum):
+                raise AssertionError(f"d: the served --many2many {tag} "
+                                     "differs from phase 9's run")
+        if mm["launches"]["scores"] < int(on_card) \
+                or any(v for k, v in mh["launches"].items()
+                       if k != "ctx_scan") or mh["leases"]:
+            raise AssertionError(f"d: --many2many launches: miss "
+                                 f"{mm['launches']}, hit {mh['launches']}")
+        # the superset: config 3's targets and 256 new ones
+        with logged_scores() as (dispatches, _largest):
+            served["c19_m2m_super"] = ms = m2m("c19_m2m_super", st_fa)
+        new_pairs = n_q * 256
+        if ms["alignments"] != new_pairs \
+                or any(d[1] > 256 for d in dispatches) \
+                or sum(d[0] * d[1] for d in dispatches) > new_pairs \
+                or ms["launches"]["scores"] != len(dispatches) * on_card \
+                or not dispatches:
+            raise AssertionError(f"d: the superset scored "
+                                 f"{ms['alignments']} pairs in "
+                                 f"{dispatches[:8]} ({ms['launches']})")
+        rc = cold.finish(600)
+        if rc != 0:
+            raise AssertionError(f"d: the cold superset rc {rc}: "
+                                 f"{cold.stderr()[-2000:]}")
+        cold_launches = cold.counts()
+        cold_s = cold_launches.pop("run_s")
+        if cold_launches["scores"] < int(on_card):
+            raise AssertionError(f"d: the cold superset launched "
+                                 f"{cold_launches}")
+        for ext in ("tsv", "sum"):
+            with open(f"{work}/c19_super_cold.{ext}", "rb") as f:
+                if f.read() != ms[ext]:
+                    raise AssertionError(f"d: the superset's {ext} differs "
+                                         "from a cold run of the grown "
+                                         "target set")
+        rc, out, err, _w = run_client(sock, "svc-stats")
+        svc = json.loads(out) if rc == 0 else {}
+        if rc != 0 or not svc.get("cache", {}).get("enabled") \
+                or "m2m" not in svc or svc["cache"]["hits"] < 2 \
+                or svc["cache"]["prefetched"] < 1:
+            raise AssertionError(f"d: svc-stats rc {rc}: {out[:800]}")
+    finally:
+        daemon.drain.request("phase 19 done")
+        th.join(60)
+        _build.use_build_dir(None)
+    if box != [75]:
+        raise AssertionError(f"d: the daemon exited {box}: "
+                             f"{derr.getvalue()[-2000:]}")
+    record["d"] = dict(
+        walls={k: v["wall_s"] for k, v in served.items()},
+        launches={k: v["launches"] for k, v in served.items()},
+        probe_s=probe_s, m2m_pairs=[mm["alignments"], mh["alignments"],
+                                    ms["alignments"]],
+        super_dispatches=len(dispatches), cold_super_s=cold_s,
+        cold_super_launches=cold_launches, cache=svc["cache"],
+        m2m=svc["m2m"])
     return record
 
 
@@ -3862,6 +4556,14 @@ def main(argv: list[str]) -> int:
         return cli_child(argv[1], argv[2:])
     if argv[:1] == ["--serve"] and len(argv) >= 2:
         return serve_child(argv[1], argv[2:])
+    if argv[:1] == ["--build-child"] and len(argv) in (7, 8):
+        return build_child(argv[1], argv[2], argv[3:])
+    if argv[:1] == ["--plain-child"] and len(argv) == 3:
+        return plain_child(argv[1], argv[2])
+    if argv[:1] == ["--m2m-child"] and len(argv) == 5:
+        return m2m_child(*argv[1:])
+    if argv[:1] == ["--m2m-turns"] and len(argv) == 2:
+        return m2m_turns(os.path.abspath(argv[1]))
     opts = {"--compare": None, "--compare-realign": None,
             "--compare-consensus": None}
     args = list(argv)
@@ -4198,27 +4900,17 @@ def main(argv: list[str]) -> int:
         if ra.ops_score(r[1], encode(qb), encode(tb)) != r[0]:
             return fail("long-read", f"pair {k}: the path does not "
                         f"re-score to {r[0]}")
-    # the streamed kernel and the walk against their plain versions on
-    # host copies of that dispatch's inputs, then timed on the card
+    # the streamed kernel and the walk at full length; their plain
+    # versions run on host copies of that dispatch's inputs in a child
+    # process after phase 11 (``HostPlain``)
     lanes, band_l, dlo_l = long_inputs[0]
     (T_l, m_l), n_l = lanes[0].shape, lanes[1].shape[1]
     fouts = ra.forward_kernel(*lanes, dlo_l, band_l, streamed=True)
     wouts = ra.walk_kernel(fouts[0], fouts[2], fouts[3], lanes[2])
-    host = [x.cpu() for x in lanes]
-    t0 = time.perf_counter()
-    plain = ra.forward_plain(*host, dlo_l, band_l)
-    plain_walk = ra.walk_plain(plain[0], plain[2], plain[3], host[2])
-    long_plain_s = time.perf_counter() - t0
-    live = torch.arange(m_l)[None, :] < host[2].long()[:, None]
-    got = [x.cpu() for x in (*fouts, *wouts)]
-    cmp = [(got[0][live], plain[0][live]),
-           *zip(got[1:], (*plain[1:], *plain_walk))]
-    long_err = max_err(cmp)
-    if long_err or not all(torch.equal(a, b) for a, b in cmp):
-        return fail("long-read", f"streamed forward or walk != plain at "
-                    f"{T_l} x {m_l} x {n_l}, band {band_l} (max abs err "
-                    f"{long_err})")
-    del host, plain, plain_walk, live, got, cmp
+    plain = HostPlain(work)
+    plain.save("long_read", dict(
+        kind="fwd+walk", lanes=[x.cpu() for x in lanes], dlo=dlo_l,
+        band=band_l, got=[x.cpu() for x in (*fouts, *wouts)]))
     long_ms = cuda_ms(lambda: ra.launch_forward(
         True, ra.pad16(lanes[0]), ra.pad16(lanes[1]), lanes[2],
         lanes[3], m_l, n_l, dlo_l, band_l, ScoreParams(), *fouts),
@@ -4237,7 +4929,6 @@ def main(argv: list[str]) -> int:
         WALK_OPS_PER_ROW * int(long_rows.sum()) + WALK_OPS_PER_CELL * scanned)
     chain_l = max(int(long_rows.max()), 1)
     long_read = dict(shape=[T_l, m_l, n_l, band_l], wall_s=long_wall,
-                     max_abs_err=long_err, plain_host_s=long_plain_s,
                      ms=long_ms, us_per_row=long_ms * 1e3 / m_l,
                      walk_ms=long_walk_ms,
                      walk_us_per_row=long_walk_ms * 1e3 / chain_l,
@@ -4271,7 +4962,7 @@ def main(argv: list[str]) -> int:
     # 9. many2many at config 3's scale; 10. a long-read dispatch
     m2m_launches, main_sc = run_many2many(work, cycles_per_s)
     sc_checks.append(main_sc)
-    m2m_long = run_m2m_long(cycles_per_s)
+    m2m_long = run_m2m_long(cycles_per_s, plain)
     lr_inputs = m2m_long.pop("inputs")
 
     # 11. config 5 through banded_scores_long; with --compare, other
@@ -4290,6 +4981,9 @@ def main(argv: list[str]) -> int:
                   **compare_builds(compare, shapes, cycles_per_s)))
         del shapes
     del lr_inputs, cfg5_inputs
+    # the long reads' plain versions at full length, on the host CPU
+    # beside phases 12-19
+    plain.start()
 
     # 12. the multi-device layer: --shard through the CLI, then the
     # sharded library calls on meshes of cuda:0 entries
@@ -4352,8 +5046,39 @@ def main(argv: list[str]) -> int:
                               cycles_per_s)
     emit(dict(phase="msa-library", nvidia_smi=smi, **library))
 
-    # 19. the kernels line, the card, the verdict
-    re_err = max(long_err, *(c["max_abs_err"] for c in re_checks))
+    # 19. the result cache: CLI hits, a delta and a --realign --batch
+    # miss; one --compile-cache-dir shared by two processes; a daemon
+    # answering repeats at admission and serving --many2many, its
+    # repeat and a superset of its targets
+    cache = run_cache(work, paf, fa, runs["cuda"]["outputs"],
+                      re_runs["cuda"]["outputs"],
+                      read_outputs(work, "res_whole"),
+                      (os.path.join(work, "m2m_cds.fa"),
+                       os.path.join(work, "m2m_targets.fa")), smi)
+    emit(dict(phase="cache", nvidia_smi=smi, **cache))
+    cl = cache["d"]["launches"]
+
+    def cache_runs(kernel: str) -> dict:
+        """A kernel's launches in each of phase 19's runs."""
+        return dict(cli_miss=cache["a"]["miss_launches"][kernel],
+                    cli_hit=cache["a"]["hit_launches"][kernel],
+                    realign_miss=cache["b"]["batch256_launches"][kernel],
+                    **{k[4:]: v[kernel] for k, v in cl.items()})
+
+    # the long reads' verdicts (phases 8 and 10, full length)
+    for tag, phase, rec in (("long_read", "long-read", long_read),
+                            ("m2m_long", "m2m long-read", m2m_long)):
+        try:
+            rec.update(plain.verdict(tag))
+        except (AssertionError, subprocess.TimeoutExpired) as e:
+            return fail(phase, str(e))
+        emit(dict(phase=phase, plain=tag, **{
+            k: rec[k] for k in ("equal", "max_abs_err", "plain_host_s",
+                                "process_s")}))
+
+    # 20. the kernels line, the card, the verdict
+    re_err = max(long_read["max_abs_err"],
+                 *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
                       ms_streamed=c["ms_streamed"],
                       us_per_row=c["us_per_row_resident"],
@@ -4381,6 +5106,7 @@ def main(argv: list[str]) -> int:
         source="pwasm_tpu_torch/csrc/consensus.cu",
         replaces="pwasm_tpu/ops/consensus.py:92",
         launches=main_launches,
+        cache_launches=cache_runs("consensus"),
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
@@ -4402,6 +5128,7 @@ def main(argv: list[str]) -> int:
         source="pwasm_tpu_torch/csrc/realign.cu",
         replaces="pwasm_tpu/ops/realign.py:383",
         launches=re_launches["fwdptr"],
+        cache_launches=cache_runs("fwdptr"),
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
@@ -4419,8 +5146,10 @@ def main(argv: list[str]) -> int:
         # its path is the long-read dispatch (phase 8); its times are
         # taken at the main path's shape, forced, beside the resident
         # kernel's, and at the long-read shape; its plain version there
-        # ran on the host CPU (plain_host_s, forward and walk)
+        # ran on the host CPU at full length (plain_host_s, forward and
+        # walk)
         launches=long_launches["fwdptr_long"],
+        cache_launches=cache_runs("fwdptr_long"),
         follow_launches=follow_launches["fwdptr_long"],
         serve_launches=serve_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
@@ -4434,6 +5163,7 @@ def main(argv: list[str]) -> int:
         source="pwasm_tpu_torch/csrc/realign.cu",
         replaces="pwasm_tpu/ops/realign.py:515",
         launches=re_launches["walk"],
+        cache_launches=cache_runs("walk"),
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
@@ -4458,6 +5188,7 @@ def main(argv: list[str]) -> int:
         source="pwasm_tpu_torch/csrc/banded_dp.cu",
         replaces="pwasm_tpu/ops/banded_dp.py:310",
         launches=m2m_launches["scores"],
+        cache_launches=cache_runs("scores"),
         library_launches=library["score_launches"].get("scores", 0),
         host_1core=library["scores_host"], max_abs_err=sc_err,
         ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
@@ -4472,10 +5203,13 @@ def main(argv: list[str]) -> int:
         # `launches`) and config 5 (phase 11); its times are taken at the
         # main path's largest dispatch, forced, beside the resident
         # kernel's, and at both long shapes (the long read's plain
-        # version ran on the host CPU, config 5's on the card)
+        # version ran on the host CPU at full length, config 5's on the
+        # card)
         launches=m2m_long["launches"]["scores_long"],
+        cache_launches=cache_runs("scores_long"),
         config5_launches=cfg5["launches"]["scores_long"],
-        max_abs_err=max(sc_err, cfg5["max_abs_err"]),
+        max_abs_err=max(sc_err, cfg5["max_abs_err"],
+                        m2m_long["max_abs_err"]),
         ms=main_sc["ms_streamed"], plain_ms=main_sc["plain_ms"],
         bound_ms=main_sc["bound_ms"], bound_by=main_sc["bound_by"],
         library_ms=None, library=no_scores_library, shape=main_sc["shape"],

@@ -36,11 +36,17 @@ supervisor's state under ``resilience``), from which ``--resume``
 continues a killed run; SIGTERM/SIGINT and ``--deadline-s`` drain the
 run at the next batch boundary and exit 75, resumable
 (``resilience/lifecycle.py``).
+``--result-cache=DIR`` serves a job whose inputs and result-affecting
+flags were run before from its stored output bytes, launching nothing,
+serves an appended input's cached prefix and runs only its tail, and
+stores a clean run's outputs (``service/cache.py``);
+``--compile-cache-dir=DIR`` is where nvcc's kernel libraries and the
+C++ engine are built (``ops/_build.py::use_build_dir``).
 Outputs are byte-identical to the reference's, with these flags on or
 off.  ``serve`` starts the warm-pool daemon (``service/daemon.py``),
 which runs each job through :func:`run` with its ``warm`` hook;
-``submit``, ``stream``, ``svc-stats``, ``metrics`` and ``inspect`` are
-its client verbs (``service/client.py``).
+``submit``, ``stream``, ``svc-stats``, ``metrics``, ``inspect`` and
+``cache-probe`` are its client verbs (``service/client.py``).
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
@@ -53,15 +59,18 @@ Usage:
       [--log-json-max-bytes=N] [--metrics-textfile=PATH] [--resume]
       [--deadline-s=S] [--max-retries=N] [--device-deadline=S]
       [--inject-faults=SPEC] [--fallback=fail] [--recover=off]
-      [--follow[=IDLE_S]]
+      [--follow[=IDLE_S]] [--result-cache=DIR|off]
+      [--result-cache-max-bytes=N] [--compile-cache-dir=DIR]
   python -m pwasm_tpu_torch.cli --many2many <targets.fa> -r <cds_multi.fa>
       [-o <scores.tsv>] [-s <summary.txt>] [--band=N] [--device=cuda|cpu]
       [--stats=FILE] [--deadline-s=S] [--max-retries=N] [--fallback=fail]
+      [--result-cache=DIR|off] [--result-cache-max-bytes=N]
+      [--compile-cache-dir=DIR]
   python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
       [-o OUT.json]
   python -m pwasm_tpu_torch.cli serve --socket=PATH [options]
-  python -m pwasm_tpu_torch.cli submit|stream|svc-stats|metrics|inspect
-      --socket=PATH [options] [--] [job args]
+  python -m pwasm_tpu_torch.cli submit|stream|svc-stats|metrics|inspect|
+      cache-probe --socket=PATH [options] [--] [job args]
 """
 
 from __future__ import annotations
@@ -187,12 +196,32 @@ USAGE = """Usage:
                call N), a simulated memory ceiling oom=N, or a kill at
                supervised attempt K, kill=K
                (see pwasm_tpu_torch/resilience/faults.py for the spec)
+   --result-cache=DIR|off  content-addressed result cache: a completed
+               run's output files are stored under sha256(ref-FASTA
+               digest, input digest, result-affecting flags, output
+               kinds), and an identical later run (argv order and
+               output paths aside) is served the stored bytes instead
+               of re-running, with no kernel launched.  CRC-verified on
+               every serve (rot = miss); an appended input serves the
+               cached prefix and runs only the tail.  --batch is keyed
+               under --realign (one band a dispatch).
+               --resume/--follow/--inject-faults and unknown flags
+               bypass it
+   --result-cache-max-bytes=N  evict least-recently-used cache
+               entries past N total bytes
+   --compile-cache-dir=DIR  where the CUDA kernels (nvcc) and the C++
+               engine (g++) are built and found: a later process on the
+               same DIR builds nothing (default pwasm_tpu_torch/_build;
+               a served job builds in its daemon's)
 
  pafreport --many2many <targets.fa> -r <cds_multi.fa> [-o <scores.tsv>]
     [-s <summary.txt>] [--band=N] [--device=cuda|cpu] [--stats=FILE] [-v]
     [--deadline-s=S] [--max-retries=N] [--fallback=fail]
+    [--result-cache=DIR|off] [--result-cache-max-bytes=N]
+    [--compile-cache-dir=DIR]
    score every query of the -r FASTA against every target of
-   <targets.fa> (banded affine-gap DP); one report section per query
+   <targets.fa> (banded affine-gap DP); one report section per query,
+   cached a section at a time under --result-cache
 
  pafreport trace-merge FILE.json [FILE.json ...] [-o OUT.json]
    merge --trace-json documents onto one wall-anchored timeline
@@ -200,7 +229,8 @@ USAGE = """Usage:
  pafreport serve --socket=PATH [options]
    the warm-pool daemon: jobs run through this same CLI in one resident
    process (serve -h lists its options)
- pafreport submit|stream|svc-stats|metrics|inspect --socket=PATH ...
+ pafreport submit|stream|svc-stats|metrics|inspect|cache-probe
+    --socket=PATH ...
    its client verbs (submit -h lists them)
 """
 
@@ -214,23 +244,22 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "trace-max-events", "log-json", "log-json-max-bytes",
                "metrics-textfile", "resume", "deadline-s", "max-retries",
                "device-deadline", "inject-faults", "fallback", "recover",
-               "reprobe-interval", "reprobe-max", "follow")
+               "reprobe-interval", "reprobe-max", "follow",
+               "result-cache", "result-cache-max-bytes",
+               "compile-cache-dir")
 
 # options and subcommands of the reference that later slices of the
 # port bring, each naming its slice (ROADMAP.md queue A)
-_A9B = "slice A9b of the service (the result cache and the build directory)"
 _A9C = ("slice A9c of the service (security, the SLO engine, the canary "
         "and the operator verbs)")
-_LATER_OPTS = {"result-cache": _A9B, "result-cache-max-bytes": _A9B,
-               "compile-cache-dir": _A9B,
-               "m2m-stream": "slice A10 (surveil)"}
+_LATER_OPTS = {"m2m-stream": "slice A10 (surveil)"}
 _LATER_CMDS = {"top": _A9C, "health": _A9C, "logs": _A9C,
                "route": "slice A11 (fleet)"}
 # the reference's subcommands, dispatched on the first argv token (a
 # served job may name none of them)
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
                  "inspect", "top", "trace-merge", "route", "health",
-                 "logs")
+                 "logs", "cache-probe")
 
 
 class CliError(PwasmError):
@@ -566,7 +595,8 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
         # the multi-CDS job: every query of the -r FASTA against every
         # target of the positional FASTA (stream/multicds.py)
         from pwasm_tpu_torch.stream.multicds import many2many_main
-        return many2many_main(opts, positional, stdout, stderr, stats)
+        return many2many_main(opts, positional, stdout, stderr, stats,
+                              warm=warm)
     for k in opts:
         if len(k) > 1 and k not in _LONG_FLAGS:
             raise CliError(later_option(k) or f"Error: --{k} is not an "
@@ -611,8 +641,6 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
                          "--device=cuda!\n")
             return EXIT_USAGE
     _parse_resilience_opts(cfg, opts)
-    run_stats = RunStats()
-    device = resolve_device(cfg.device, run_stats)
     cfg.realign = bool(opts.get("realign"))
     if cfg.realign and "w" not in opts \
             and not any(k in opts for k in ("ace", "info", "cons")):
@@ -624,6 +652,31 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
     if infile == "-":
         infile = None     # the conventional stdin marker
     follow_idle = _follow_idle(opts, infile)
+    if "c" in opts:
+        cfg.clipmax = _parse_clipmax(str(opts["c"]), cfg.verbose, stderr)
+    if "deadline-s" in opts:
+        cfg.deadline_s = deadline_seconds(opts["deadline-s"])
+        if cfg.deadline_s is None:
+            raise CliError(f"{USAGE}\nInvalid --deadline-s value: "
+                           f"{opts['deadline-s']}\n")
+    _parse_obs_opts(cfg, opts)
+    if cfg.device not in ("cuda", "cpu"):
+        resolve_device(cfg.device)      # the usage error
+    # the result cache (service/cache.py): an exact hit writes the
+    # stored outputs and returns here, before the device is probed or
+    # a kernel built; an appended input re-arms this run as a --resume
+    # over its cached prefix
+    cache = _cache_open(opts, positional, stderr,
+                        input_stream is not None)
+    if cache.hit is not None:
+        return _serve_cache_hit(cache.hit, opts, stderr,
+                                verbose=bool(opts.get("v")))
+    run_stats = RunStats()
+    device = resolve_device(cfg.device, run_stats)
+    # nvcc's libraries and the C++ engine build in the flag's
+    # directory, else the package's; a served job in its daemon's
+    from pwasm_tpu_torch.ops._build import job_build_dir
+    job_build_dir(cfg.compile_cache_dir, warm, stderr)
     inf = sys.stdin
     if input_stream is not None:
         # a served stream job: its records arrive over the socket
@@ -633,15 +686,21 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
                 "stream — drop the positional PAF path!\n")
         inf = input_stream
     elif infile:
+        import hashlib
+
         from pwasm_tpu_torch.stream.pafstream import (BlockLineReader,
                                                       FollowReader)
+        # with the cache armed, the ingest pass also feeds the content
+        # hasher: the insert's key costs no second read of the input
+        hasher = hashlib.sha256() if cache.store is not None else None
         if "follow" in opts:
             # --follow[=IDLE_S]: tail the growing file (it may not exist
             # yet: the reader waits for it, as tail -F does)
-            inf = FollowReader(infile, idle_timeout_s=follow_idle)
+            inf = FollowReader(infile, idle_timeout_s=follow_idle,
+                               hasher=hasher)
         else:
             try:
-                inf = BlockLineReader(infile)
+                inf = BlockLineReader(infile, hasher=hasher)
             except OSError:
                 raise PwasmError(f"Cannot open input file {infile}!\n")
         opened.append(inf)
@@ -650,15 +709,7 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
             cfg.motifs = load_motifs(str(opts["motifs"]))
         except (OSError, UnicodeDecodeError):
             raise PwasmError(f"Cannot open motif file {opts['motifs']}!\n")
-    if "c" in opts:
-        cfg.clipmax = _parse_clipmax(str(opts["c"]), cfg.verbose, stderr)
     cfg.resume = bool(opts.get("resume"))
-    if "deadline-s" in opts:
-        cfg.deadline_s = deadline_seconds(opts["deadline-s"])
-        if cfg.deadline_s is None:
-            raise CliError(f"{USAGE}\nInvalid --deadline-s value: "
-                           f"{opts['deadline-s']}\n")
-    _parse_obs_opts(cfg, opts)
     resume_skip, resume_state = 0, None
     if cfg.resume:
         if "o" not in opts:
@@ -762,12 +813,17 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
     try:
         with device_trace(cfg.profile_dir, stderr, device=device.type), \
                 drain_cm as drain, obs.span("run", device=cfg.device):
-            return _main_loop(cfg, mesh, inf, freport, fmsa, fsummary,
-                              qfasta, stderr, cons_outs, nmsa,
-                              stats if stats is not None else {}, obs,
-                              str(opts["o"]) if "o" in opts else None,
-                              resume_skip, resume_state, drain, run_stats,
-                              warm)
+            rc = _main_loop(cfg, mesh, inf, freport, fmsa, fsummary,
+                            qfasta, stderr, cons_outs, nmsa,
+                            stats if stats is not None else {}, obs,
+                            str(opts["o"]) if "o" in opts else None,
+                            resume_skip, resume_state, drain, run_stats,
+                            warm)
+        if rc == 0 and cache.store is not None:
+            for fo in opened:
+                fo.close()   # every output whole on disk before it is read
+            _cache_finish(cache, cfg.stats_path, inf, stderr)
+        return rc
     except PwasmError as e:
         stderr.write(str(e))
         if obs.enabled:
@@ -781,6 +837,227 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
         drain_cm.obs = NULL_OBS   # a late timer must not write to the
         #                           event log obs.close is closing
         obs.close(stderr)
+
+
+def _cache_open(opts: dict, positional: list, stderr, streamed: bool):
+    """``--result-cache=DIR|off`` and ``--result-cache-max-bytes=N``
+    with the reference's usage errors, and the cache lookup of a run
+    (reference cli.py:601-702).  Returns a namespace: ``store`` (the
+    ``CacheStore``, None when caching is off, bypassed or the
+    directory is unusable), ``key`` and ``cls`` (the exact key and the
+    classified argv), ``follow_cls`` (a ``--follow`` run classified
+    without the flag), ``hit`` (the manifest of an exact hit whose
+    outputs are written) and ``delta`` ((records served, records
+    total) when the run was re-armed as a ``--resume`` over a cached
+    prefix).  An unusable directory warns and runs uncached; a socket
+    stream job is never cached."""
+    from types import SimpleNamespace
+
+    cache = SimpleNamespace(store=None, key=None, cls=None,
+                            follow_cls=None, hit=None, delta=None)
+    rc_dir = opts.get("result-cache")
+    if rc_dir is True:
+        raise CliError(f"{USAGE}\n--result-cache requires a "
+                       "directory (or off)\n")
+    rc_max = None
+    if "result-cache-max-bytes" in opts:
+        val = opts["result-cache-max-bytes"]
+        if val is True or not str(val).isascii() \
+                or not str(val).isdigit() or int(val) < 1:
+            raise CliError(
+                f"{USAGE}\nInvalid --result-cache-max-bytes value: "
+                f"{val}\n")
+        rc_max = int(val)
+    if not isinstance(rc_dir, str) or not rc_dir or rc_dir == "off" \
+            or streamed:
+        return cache
+    from pwasm_tpu_torch.service.cache import (CacheStore, classify,
+                                               derive_key, serve_outputs)
+    follow = "follow" in opts
+    cache.cls = classify(opts, positional)
+    if cache.cls is None and follow:
+        # a --follow job bypasses the exact cache (its input is still
+        # growing) but re-enters through the DELTA path: classified
+        # without the flag, the grown file's prefix may be a cached
+        # entry, and a cleanly idle-ended run populates
+        cache.follow_cls = classify(
+            {k: v for k, v in opts.items() if k != "follow"}, positional)
+    if cache.cls is not None:
+        cache.key = derive_key(cache.cls)
+    if cache.key is None and cache.follow_cls is None:
+        return cache
+    try:
+        cache.store = CacheStore(rc_dir, max_bytes=rc_max)
+    except OSError as e:
+        print(f"Warning: --result-cache dir {rc_dir} unusable ({e}); "
+              "caching disabled", file=stderr)
+        return cache
+    if cache.key is not None:
+        got = cache.store.get(cache.key)
+        if got is not None:
+            try:
+                if serve_outputs(got[1], cache.cls.output_paths):
+                    cache.hit = got[0]
+                    return cache
+            except OSError:
+                pass    # unwritable output: the real run reports the
+                #         canonical "Cannot open file ..."
+    # exact miss: a same-family entry whose input is a per-line PREFIX
+    # of ours serves its cached report and re-arms this run as a
+    # --resume over it: only the last cached record and the appended
+    # tail recompute
+    cache.delta = _cache_delta_serve(cache.store,
+                                     cache.follow_cls or cache.cls,
+                                     allow_equal=follow)
+    if cache.delta is not None:
+        opts["resume"] = True
+        if opts.get("v"):
+            served, total = cache.delta
+            print(f"pwasm: cache delta hit — {served + 1} of {total} "
+                  "input records served from a cached prefix; computing "
+                  "the tail", file=stderr)
+    return cache
+
+
+def _cache_finish(cache, stats_path: str, inf, stderr) -> None:
+    """A clean run's end with the cache armed (reference cli.py:
+    1050-1083): a delta run stamps its ``--stats`` and is accounted
+    fractionally; then the outputs are inserted, a ``--follow`` run's
+    under its follow-less key once it idle-ended cleanly (a rotation
+    voids the ride-along digest and blocks the insert)."""
+    if cache.delta is not None:
+        _cache_delta_finish(cache.store, stats_path, cache.delta)
+    if cache.follow_cls is not None:
+        if getattr(inf, "consumed", False) \
+                and inf.hexdigest() is not None:
+            from pwasm_tpu_torch.service.cache import derive_key
+            fkey = derive_key(cache.follow_cls,
+                              input_digest=inf.hexdigest())
+            if fkey is not None:
+                _cache_populate(cache.store, fkey, cache.follow_cls, inf,
+                                stats_path, stderr)
+    else:
+        _cache_populate(cache.store, cache.key, cache.cls, inf,
+                        stats_path, stderr)
+
+
+def _serve_cache_hit(manifest: dict, opts: dict, stderr,
+                     verbose: bool = False) -> int:
+    """Finish a cache hit: the output files are already written from
+    the verified blobs; emit the hit-shaped ``--stats`` (the original
+    run's numbers, ``cache_hit: true``, backend zeroed: this serve
+    paid no probe) and return 0."""
+    from pwasm_tpu_torch.service.cache import write_hit_stats
+    if "stats" in opts and opts["stats"] is not True:
+        try:
+            write_hit_stats(manifest, str(opts["stats"]), strict=True)
+        except OSError:
+            raise PwasmError(
+                f"Cannot open file {opts['stats']} for writing!\n")
+    if verbose:
+        print("pwasm: result served from cache (byte-identical to a "
+              "full run of these inputs+flags)", file=stderr)
+    return 0
+
+
+def _cache_delta_serve(store, cls, allow_equal: bool = False
+                       ) -> tuple[int, int] | None:
+    """Near-miss delta serve (the CLI's and the daemon's admission):
+    on an exact-key miss, look for a same-FAMILY entry whose recorded
+    input is a per-line prefix (strict, unless ``allow_equal``) of this
+    job's input.  When one exists, its CRC-verified report bytes are
+    written to this job's report path, for the caller to re-arm the run
+    as a ``--resume`` over them: the resume drops the last cached record
+    and skips the rest parse-only, so only that record and the appended
+    tail are computed.  Returns ``(records_served, records_total)`` or
+    None (a plain miss)."""
+    from pwasm_tpu_torch.service.cache import (delta_eligible,
+                                               derive_keys,
+                                               paf_line_digests)
+    if cls is None or not delta_eligible(cls):
+        return None
+    digests, _fdig = paf_line_digests(cls.input_path)
+    if not digests or len(digests) < 2:
+        return None
+    derived = derive_keys(cls)
+    if derived is None:
+        return None
+    hit = store.delta_lookup(derived[1], digests, allow_equal=allow_equal)
+    if hit is None:
+        return None
+    _key, _manifest, blobs, nl = hit
+    report_path = cls.output_paths["o"]
+    try:
+        with open(report_path, "wb") as f:
+            f.write(blobs["o"])
+    except OSError:
+        return None     # unwritable output: the real run reports the
+        #                 canonical "Cannot open file ..." diagnostic
+    # a stale checkpoint of an unrelated earlier run on this report
+    # path would hijack the checkpoint-first resume
+    _unlink_checkpoint(report_path)
+    # the resume's header scan re-pays the LAST cached record (nl >= 2)
+    return nl - 1, len(digests)
+
+
+def _cache_delta_finish(store, stats_path: str | None,
+                        served_total: tuple[int, int]) -> None:
+    """Close out a completed delta run: fold the fractional outcome into
+    the store's accounting and stamp the ``--stats`` file
+    ``cache_delta: true`` with the served and total record counts
+    (never ``cache_hit``: this run probed and computed its tail)."""
+    import json
+
+    served, total = served_total
+    store.note_delta(served, total)
+    if not stats_path:
+        return
+    try:
+        with open(stats_path) as f:
+            st = json.load(f)
+    except (OSError, ValueError):
+        return
+    if not isinstance(st, dict):
+        return
+    st["cache_delta"] = True
+    st["cache_records_served"] = int(served)
+    st["cache_records_total"] = int(total)
+    try:
+        with open(stats_path, "w") as f:
+            json.dump(st, f, indent=1)
+            f.write("\n")
+    except OSError:
+        pass
+
+
+def _cache_populate(store, key_hex: str | None, cls, inf,
+                    stats_path: str | None, stderr) -> None:
+    """Insert a completed run's outputs into the result cache, best
+    effort: a failed insert costs the cache, never the job.  The shared
+    ``insert_from_paths`` re-derives the key with the ingest reader's
+    ride-along digest when there is one (else a fresh digest pass) and
+    skips on drift."""
+    import json
+
+    from pwasm_tpu_torch.service.cache import insert_from_paths
+    if key_hex is None or cls is None:
+        return
+    input_digest = inf.hexdigest() if getattr(inf, "consumed", False) \
+        else None
+    stats = None
+    if stats_path:
+        try:
+            with open(stats_path) as f:
+                stats = json.load(f)
+        except (OSError, ValueError):
+            stats = None
+    if isinstance(stats, dict):
+        # the entry's stats describe the RESULT, not how this run got it
+        for k in ("cache_delta", "cache_records_served",
+                  "cache_records_total"):
+            stats.pop(k, None)
+    insert_from_paths(store, key_hex, cls, input_digest=input_digest,
+                      stats=stats)
 
 
 def _resume_point(report_path: str, stderr) -> tuple[int, dict | None]:
@@ -877,13 +1154,15 @@ def _follow_idle(opts: dict, infile: str | None) -> float | None:
 
 
 def _parse_obs_opts(cfg: Config, opts: dict) -> None:
-    """``--skip-bad-lines``, ``--profile``, ``--stats`` and the obs
-    options (reference cli.py:729, :808-836)."""
+    """``--skip-bad-lines``, ``--profile``, ``--stats``, the obs
+    options and ``--compile-cache-dir`` (reference cli.py:729,
+    :808-836)."""
     cfg.skip_bad_lines = bool(opts.get("skip-bad-lines"))
     for kind in ("profile", "stats", "trace-json", "log-json",
-                 "metrics-textfile"):
+                 "metrics-textfile", "compile-cache-dir"):
         if opts.get(kind) is True:
             raise CliError(f"{USAGE}\n--{kind} requires a file argument\n")
+    cfg.compile_cache_dir = str(opts.get("compile-cache-dir", ""))
     cfg.profile_dir = str(opts.get("profile", ""))
     cfg.stats_path = str(opts.get("stats", ""))
     cfg.trace_json = str(opts.get("trace-json", ""))

@@ -49,6 +49,8 @@ class Config:
     #                                 cap (0 = the recorder's default)
     log_json_max_bytes: int = 0     # --log-json-max-bytes: size-capped
     #                                 event-log rotation (0 = never)
+    compile_cache_dir: str = ""     # --compile-cache-dir: where nvcc's
+    #                                 kernels and the C++ engine build
     deadline_s: float = 0.0         # --deadline-s: end-to-end wall
     #                                 budget (0 = unbounded); expiry
     #                                 drains at the next batch boundary:

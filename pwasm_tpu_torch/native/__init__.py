@@ -6,9 +6,11 @@ holds the host loops of the default path: the per-alignment cs/CIGAR
 extraction, the FASTA index and fetch, the full-matrix Gotoh traceback
 (the re-aligner's oracle for lanes no band covered), the consensus vote
 over counts, and the progressive MSA engine with its writers.  The first
-call that needs it compiles it with g++ into ``pwasm_tpu_torch/_build/``,
-keyed by a hash of the three sources and the flags, and publishes the
-library atomically, so concurrent processes never load a partial file.
+call that needs it compiles it with g++ into the build directory
+(``pwasm_tpu_torch/_build/``, or the one ``ops/_build.py::use_build_dir``
+names: ``--compile-cache-dir``), keyed by a hash of the three sources
+and the flags, and publishes the library atomically, so concurrent
+processes never load a partial file.
 A failed build raises with g++'s output; nothing falls back quietly.
 
 ``PWASM_NATIVE=0`` sends the callers to the port's Python engines
@@ -39,7 +41,10 @@ import time
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+# the build directory, one with nvcc's (``ops/_build.py::use_build_dir``)
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+BUILD_S: dict[str, float] = {}    # file name -> seconds of this
+#                                   process's g++ build of it
 SOURCES = ("fastparse.cpp", "pafreport_msa.h", "pafreport_util.h")
 GXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 # the standalone binary: its main, then the engine it links
@@ -187,7 +192,8 @@ def _gxx(out: str, flags: tuple, sources: tuple) -> float:
     finally:
         os.close(fd)
     replace_durable(tmp, out)
-    return time.perf_counter() - t0
+    secs = BUILD_S[os.path.basename(out)] = time.perf_counter() - t0
+    return secs
 
 
 def build() -> float:

@@ -2,17 +2,26 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
 with a plain C entry point, loaded with ``ctypes``.  Libraries land in
-``pwasm_tpu_torch/_build/``, keyed by a hash of the source and the
-flags, so an unchanged source is compiled once per checkout.
+the build directory, keyed by a hash of the source and the flags, so an
+unchanged source is compiled once per directory.  The build directory
+is ``pwasm_tpu_torch/_build/`` unless :func:`use_build_dir` names
+another (``--compile-cache-dir`` of a run, or of the serve daemon,
+for every job it serves: :func:`job_build_dir`): it is one
+directory for nvcc's libraries and for the C++ engine's g++ builds
+(``native.BUILD_DIR``).  A library a process has loaded stays loaded;
+the directory decides only where a first build goes and what a later
+process finds there.
 
 Nothing here runs at import: the first CUDA tensor that reaches a
 kernel wrapper builds its library (or ``build_all`` builds every source
 at once, one nvcc process per source, all started together).  A missing
 nvcc raises; there is no download and no prebuilt package.
 
-Loading and binding run under one module lock, so the serve daemon's
-worker threads reaching a wrapper together build a library once, and
-each sees every entry point of it.
+A library's first build runs under its own lock, so the serve daemon's
+worker threads reaching a wrapper together build it once, while two
+jobs that first need two different kernels build them at once; binding
+publishes a module's entry points whole under the module lock, so each
+thread sees every entry point of it.
 """
 
 from __future__ import annotations
@@ -27,13 +36,61 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+DEFAULT_BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOCK = threading.RLock()          # load() and bind(), whole
+_LOCK = threading.RLock()          # _LIBS, the bound caches, BUILD_DIR
+_FIRST: dict[str, threading.Lock] = {}   # name -> its first build's lock
 BUILD_LOG: dict[str, str] = {}     # name -> nvcc's report (ptxas -v)
+BUILD_S: dict[str, float] = {}     # name -> seconds of this process's
+#                                    nvcc build of it
+
+
+def use_build_dir(path: str | None) -> str:
+    """Make ``path`` (None or empty: ``pwasm_tpu_torch/_build/``) the
+    build directory of every later first build, nvcc's and the C++
+    engine's (``native.BUILD_DIR``).  A named directory is created
+    here; the default one when a build first needs it.  Returns the
+    resolved directory.  Raises PwasmError (exit 1) when a named
+    directory cannot be created or written: a build never moves back
+    to the package directory."""
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.core.errors import PwasmError
+
+    global BUILD_DIR
+    if path:
+        path = os.path.abspath(path)
+        try:
+            os.makedirs(path, exist_ok=True)
+            if not os.access(path, os.W_OK | os.X_OK):
+                raise PermissionError(f"[Errno 13] Permission denied: "
+                                      f"'{path}'")
+        except OSError as e:
+            raise PwasmError(f"Error: --compile-cache-dir {path} "
+                             f"unusable ({e})\n")
+    else:
+        path = DEFAULT_BUILD_DIR
+    with _LOCK, native._lock:
+        BUILD_DIR = native.BUILD_DIR = path
+    return path
+
+
+def job_build_dir(flag: str | None, warm, stderr) -> None:
+    """Where a job's first builds go.  A run in a process of its own (no
+    ``warm`` context) makes its ``--compile-cache-dir`` (or the
+    package's directory) the process's.  A served job builds where its
+    daemon does, set once when the daemon starts, and never moves the
+    directory under the daemon's other jobs: a job's own flag is left
+    unused, with a warning."""
+    if warm is None:
+        use_build_dir(flag)
+    elif flag and os.path.abspath(flag) != BUILD_DIR:
+        print(f"Warning: --compile-cache-dir={flag} not used: a served "
+              f"job builds in its daemon's directory ({BUILD_DIR})",
+              file=stderr)
 
 
 def sources() -> list[str]:
@@ -90,7 +147,7 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
                        time.perf_counter())
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
+        secs[name] = BUILD_S[name] = time.perf_counter() - t0
         BUILD_LOG[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
@@ -100,12 +157,22 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use:
+    once, under that source's own lock, so threads needing one library
+    build it once and libraries of different sources build at once."""
     with _LOCK:
         lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        first = _FIRST.setdefault(name, threading.Lock())
+    with first:
+        with _LOCK:
+            lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
-            lib = _LIBS[name] = ctypes.CDLL(lib_path(name))
+            lib = ctypes.CDLL(lib_path(name))
+            with _LOCK:
+                lib = _LIBS.setdefault(name, lib)
         return lib
 
 
@@ -117,8 +184,11 @@ def bind(name: str, sigs: dict, cache: dict) -> dict:
     cache is published whole, under the module lock: no thread sees it
     with an entry point missing."""
     with _LOCK:
+        if cache:
+            return cache
+    lib = load(name)
+    with _LOCK:
         if not cache:
-            lib = load(name)
             fns = {}
             for fn_name, (argtypes, restype) in sigs.items():
                 fn = getattr(lib, fn_name)

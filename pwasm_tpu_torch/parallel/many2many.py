@@ -70,11 +70,15 @@ def make_many2many(mesh: Mesh, band: int = 64,
 
 def many2many_scores_ragged(qs, ts, band: int = 64,
                             params: ScoreParams = ScoreParams(), *,
-                            device: torch.device,
+                            device: torch.device | None = None,
+                            mesh: Mesh | None = None,
                             stats: dict | None = None,
                             supervisor=None) -> np.ndarray:
     """(Q, T) int32 scores for RAGGED query/target sequence lists
-    (bytes/str or int8 code arrays), computed on ``device``.
+    (bytes/str or int8 code arrays), computed on ``device``, or with
+    ``mesh`` (a 2-D (query x target) mesh, ``make_mesh2d``) over its
+    tiles: each dispatch is ``make_many2many(mesh)``'s tiled scorer,
+    each tile on its own device, bit-equal to the unsharded call.
 
     Queries bucket by exact length; for each query bucket the targets
     dispatch in TWO width groups, because the band placement
@@ -107,6 +111,13 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
     block checked by ``check_scores_matrix``) or, with None, a direct
     call; the blocks scatter into the result after each dispatch
     returns, so an attempt writes into no shared array."""
+    if (device is None) == (mesh is None):
+        raise ValueError("many2many_scores_ragged takes a device or a "
+                         "mesh")
+    tiled = None
+    if mesh is not None:
+        tiled = make_many2many(mesh, band, params)
+        device = device_grid(mesh, ("query", "target"))[0, 0]
     t0 = time.perf_counter()
     qbs = bucket_queries(list(qs))
     ts_enc = encode_seqs(ts)
@@ -132,6 +143,9 @@ def many2many_scores_ragged(qs, ts, band: int = 64,
             cols = torch.from_numpy(keep).to(device)
 
             def dispatch(qd=qd, cols=cols, n_eff=n_eff):
+                if tiled is not None:
+                    return tiled(qd, t_all[cols, :n_eff],
+                                 lens_all[cols]).numpy()
                 return banded_scores_matrix(
                     qd, t_all[cols, :n_eff], lens_all[cols], band,
                     params).cpu().numpy()

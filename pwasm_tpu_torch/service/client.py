@@ -1,6 +1,7 @@
 """Client side of the warm-pool service (``pafreport submit``,
-``stream``, ``svc-stats``, ``metrics`` and ``inspect``) and the
-:class:`ServiceClient` library the tests and ``chip_smoke.py`` drive.
+``stream``, ``svc-stats``, ``metrics``, ``inspect`` and
+``cache-probe``) and the :class:`ServiceClient` library the tests and
+``chip_smoke.py`` drive.
 
 Counterpart of ``pwasm_tpu/service/client.py``, with its names.  A
 client is one connection speaking the newline-delimited JSON protocol
@@ -11,7 +12,9 @@ exit code is the job's exit code — so a wrapper can switch between
 cold runs and warm submissions by prefixing ``submit --socket=PATH
 --`` and nothing else changes.  The reference's ``health`` and
 ``logs`` verbs, its TLS options and its delta streams come with later
-slices of the port.
+slices of the port.  ``cache-probe`` is the port's own verb over the
+reference's protocol command: the client derives the job's cache key
+(``service/cache.py``) and asks whether the daemon holds it.
 """
 
 from __future__ import annotations
@@ -80,6 +83,14 @@ _CLIENT_USAGE = """Usage:
      --exemplars, histogram buckets carry the OpenMetrics exemplar
      suffix linking each bucket to a trace_id (strict 0.0.4 parsers
      reject it, so the default stays pure).
+
+ pafreport cache-probe --socket=PATH [--key=HEX] [--family=HEX]
+                       [--] [<cli args...>]
+     ask the daemon's result cache whether it holds a job: the key
+     (and the delta family) are derived here from the job's argv (its
+     inputs are read by digest), or given with --key/--family.  Prints
+     {"key", "family", "enabled", "hit", "family_hit"} and exits 0
+     when the key is held, 1 when not.
 
  pafreport inspect --socket=PATH JOB_ID
      print the job's FLIGHT RECORD as JSON:
@@ -371,6 +382,16 @@ class ServiceClient:
     def stats(self) -> dict:
         return self._req({"cmd": "stats"})
 
+    def cache_probe(self, key: str, family: str | None = None) -> dict:
+        """Would this daemon's result cache answer ``key``?  A manifest
+        check: ``{"hit": bool, "enabled": bool, "family_hit": bool}``,
+        ``family_hit`` whether an entry of the delta ``family`` (when
+        given) is held."""
+        req: dict = {"cmd": "cache-probe", "key": key}
+        if family is not None:
+            req["family"] = family
+        return self._req(req)
+
     def metrics(self, exemplars: bool = False) -> dict:
         """Prometheus text exposition; ``exemplars=True`` opts into
         the OpenMetrics exemplar suffix on histogram buckets (strict
@@ -465,6 +486,9 @@ def _parse_client_argv(argv: list[str],
             opts["later"] = a.split("=", 1)[0]
         elif a == "--exemplars" and cmd == "metrics":
             opts["exemplars"] = True
+        elif a.split("=", 1)[0] in ("--key", "--family") \
+                and "=" in a and cmd == "cache-probe":
+            opts[a[2:].split("=", 1)[0]] = a.split("=", 1)[1]
         else:
             break
         i += 1
@@ -507,10 +531,46 @@ def _job_verdict(resp: dict, job_id: str, stdout, stderr,
     return rc if isinstance(rc, int) else EXIT_FATAL
 
 
+def _cache_probe_main(sock: str, opts: dict, job_argv: list[str],
+                      stdout, stderr) -> int:
+    """The ``cache-probe`` verb: the job argv's exact key and delta
+    family (or ``--key``/``--family``), asked of the daemon."""
+    key, family = opts.get("key"), opts.get("family")
+    if job_argv:
+        import os
+
+        from pwasm_tpu_torch.service.cache import (classify_argv,
+                                                   derive_keys)
+        from pwasm_tpu_torch.service.daemon import _absolutize_argv
+        cls = classify_argv(_absolutize_argv(job_argv, os.getcwd()))
+        derived = derive_keys(cls) if cls is not None else None
+        if derived is None:
+            stderr.write("Error: cache-probe: the job bypasses the "
+                         "result cache or its inputs are unreadable\n")
+            return EXIT_USAGE
+        key, family = derived
+    if not key:
+        stderr.write(f"{_CLIENT_USAGE}\nError: cache-probe needs the "
+                     "job's CLI arguments or --key=HEX\n")
+        return EXIT_USAGE
+    with ServiceClient(sock, trace_id=opts.get("trace_id"),
+                       client_token=opts.get("client_token")) as c:
+        resp = c.cache_probe(key, family)
+    if not resp.get("ok"):
+        stderr.write(f"Error: cache-probe failed "
+                     f"({resp.get('error')}): {resp.get('detail', '')}\n")
+        return EXIT_FATAL
+    json.dump({"key": key, "family": family,
+               "enabled": resp.get("enabled"), "hit": resp.get("hit"),
+               "family_hit": resp.get("family_hit")}, stdout)
+    stdout.write("\n")
+    return 0 if resp.get("hit") else 1
+
+
 def client_main(cmd: str, argv: list[str], stdout=None,
                 stderr=None) -> int:
     """The ``pafreport submit`` / ``stream`` / ``svc-stats`` /
-    ``metrics`` / ``inspect`` entry point."""
+    ``metrics`` / ``inspect`` / ``cache-probe`` entry point."""
     stdout = stdout if stdout is not None else sys.stdout
     stderr = stderr if stderr is not None else sys.stderr
     opts, job_argv = _parse_client_argv(argv, cmd)
@@ -604,6 +664,9 @@ def client_main(cmd: str, argv: list[str], stdout=None,
                       stdout, indent=2)
             stdout.write("\n")
             return 0
+        if cmd == "cache-probe":
+            return _cache_probe_main(sock, opts, job_argv, stdout,
+                                     stderr)
         if cmd == "svc-stats":
             with ServiceClient(
                     sock, trace_id=opts.get("trace_id"),

@@ -28,13 +28,25 @@ Worker threads can never install signal handlers
 daemon's OWN drain, installed on the main thread, is the one signal
 surface, fanned out to per-job drain flags.
 
+- **one result cache** (``--result-cache=DIR``, ``service/cache.py``):
+  a job whose inputs and result-affecting flags were served before is
+  answered AT ADMISSION from the stored bytes, landing DONE with no
+  queue, lease, probe or kernel (journaled admit + cache_hit +
+  finish); an appended input is served its cached prefix and queued
+  as a ``--resume`` of the tail; a finished job's outputs are
+  inserted.  ``--cache-prefetch`` pages the hottest entries before the
+  socket exists; the ``cache-probe`` verb answers whether a key (or
+  its family) is held.  Served ``--many2many`` jobs cache their
+  sections in the same directory;
+- **one build directory** (``--compile-cache-dir=DIR``): where every
+  job builds and finds the kernels and the C++ engine; set once for
+  the process, so a job's own ``--compile-cache-dir`` is not used.
+
 What the reference's daemon also does and the port's does not yet:
-the result cache (``--result-cache``, ``--cache-prefetch``, the
-``cache-probe`` verb), ``--compile-cache-dir``, served ``--many2many``
-and the ``m2m`` stats block come with one later slice; the SLO engine
-(``--slo-rules=FILE``, the ``health`` verb), the canary, the ``logs``
-verb, TLS, ``--auth-tokens`` and ``--rate-limit`` with another.  Until
-then the daemon behaves as the reference's does under
+delta streams (``stream`` with ``"delta": true``) come with slice
+A9d; the SLO engine (``--slo-rules=FILE``, the ``health`` verb), the
+canary, the ``logs`` verb, TLS, ``--auth-tokens`` and ``--rate-limit``
+with A9c.  Until then the daemon behaves as the reference's does under
 ``--slo-rules=off``, and a submitted argv that needs a later slice is
 answered at admission, before anything queues.
 """
@@ -56,9 +68,10 @@ from pwasm_tpu_torch.resilience.lifecycle import SignalDrain
 from pwasm_tpu_torch.service import protocol
 from pwasm_tpu_torch.service.cache import ByteLedger
 from pwasm_tpu_torch.service.journal import (JOURNAL_VERSION, REC_ADMIT,
-                                             REC_CANCEL, REC_EVICT,
-                                             REC_FINISH, REC_START,
-                                             JobJournal, fold_records)
+                                             REC_CACHE_HIT, REC_CANCEL,
+                                             REC_EVICT, REC_FINISH,
+                                             REC_START, JobJournal,
+                                             fold_records)
 from pwasm_tpu_torch.service.leases import LeaseManager
 from pwasm_tpu_torch.service.queue import (JOB_CANCELLED, JOB_DONE,
                                            JOB_FAILED, JOB_PREEMPTED,
@@ -81,7 +94,10 @@ _SERVE_USAGE = """Usage:
                  [--log-json=FILE] [--log-json-max-bytes=N]
                  [--trace-json=FILE]
                  [--result-ttl-s=S] [--max-results=N]
-                 [--slo-rules=off]
+                 [--slo-rules=off] [--compile-cache-dir=DIR]
+                 [--result-cache=DIR|off]
+                 [--result-cache-max-bytes=N]
+                 [--cache-prefetch[=N]]
 
    --socket=PATH        unix socket to listen on (required)
    --listen=HOST:PORT   ALSO serve the same protocol over plain TCP
@@ -182,6 +198,24 @@ _SERVE_USAGE = """Usage:
                         recently-accessed evicted first)
    --slo-rules=off      the only setting until the SLO engine is
                         ported (no rule is evaluated)
+   --compile-cache-dir=DIR  build directory of every job (a job's own
+                        flag is not used): nvcc's kernel libraries
+                        and the C++ engine are built there once and
+                        found there by later processes
+   --result-cache=DIR   content-addressed result cache: a job whose
+                        inputs (by digest) and result-affecting flags
+                        match a finished one is answered AT ADMISSION
+                        from the cached bytes: zero queue, lease,
+                        probe or kernel; journaled admit + cache_hit +
+                        finish.  A served --many2many job caches its
+                        sections there.  "off" disables
+   --result-cache-max-bytes=N  evict least-recently-used cache
+                        entries past N total bytes
+   --cache-prefetch[=N] before taking traffic, page the N hottest
+                        (most-recently-served) --result-cache entries
+                        through a verified read (bare: 64), so a
+                        daemon restarted on a populated directory
+                        serves its first repeat job from a warm cache
 
  SIGTERM/SIGINT (or the `drain` protocol command) drains gracefully:
  in-flight jobs finish at their next batch boundary and checkpoint,
@@ -191,19 +225,19 @@ _SERVE_USAGE = """Usage:
 
 # the reference's serve options that later slices of the port bring,
 # each naming its slice (ROADMAP.md queue A)
-_LATER_SERVE = {
-    **dict.fromkeys(("compile-cache-dir", "result-cache",
-                     "result-cache-max-bytes", "cache-prefetch"),
-                    "A9b (the result cache and the build directory)"),
-    **dict.fromkeys(("canary-interval", "tls-cert", "tls-key",
-                     "tls-client-ca", "auth-tokens", "rate-limit"),
-                    "A9c (security, the SLO engine and the canary)"),
-}
+_LATER_SERVE = dict.fromkeys(
+    ("canary-interval", "tls-cert", "tls-key", "tls-client-ca",
+     "auth-tokens", "rate-limit"),
+    "A9c (security, the SLO engine and the canary)")
 
 # the reference's protocol verbs that later slices bring
-_LATER_CMDS = {"cache-probe": "A9b (the result cache)",
-               "health": "A9c (the SLO engine)",
+_LATER_CMDS = {"health": "A9c (the SLO engine)",
                "logs": "A9c (the log query)"}
+
+# the reference's delta streams (``stream`` with ``"delta": true``)
+DELTA_STREAMS_LATER = ("delta streams are not ported to pwasm_tpu_torch "
+                       "yet; they come with slice A9d (the result cache's "
+                       "delta streams)")
 
 
 # fair-share client identities double as metric label values and
@@ -237,6 +271,15 @@ class WarmContext:
                             port has no re-probing health monitor, so
                             ``monitor`` stays None.
 
+    - ``compile_cache_dir`` the build directory of every job (serve
+                            ``--compile-cache-dir``; a job's own flag
+                            is not used);
+    - ``result_cache_dir``  the result cache's directory (serve
+                            ``--result-cache``): a served
+                            ``--many2many`` job caches its sections
+                            there; the daemon's whole-job lookup
+                            happens at admission.
+
     The reference's ``host_executor()`` (a host report-pipeline worker
     shared across jobs) has no counterpart: the port's main loop has no
     host pipeline worker to share.
@@ -246,6 +289,8 @@ class WarmContext:
         self.drain = None
         self.monitor = None
         self.supervisor_state: dict | None = None
+        self.compile_cache_dir: str | None = None
+        self.result_cache_dir: str | None = None
 
 
 class _JobWarm:
@@ -265,7 +310,9 @@ class _JobWarm:
 
     def __init__(self, drain: SignalDrain, lease,
                  expose_devices: bool = False,
-                 trace_id: str | None = None, flight=None):
+                 trace_id: str | None = None, flight=None,
+                 shared: WarmContext | None = None):
+        self._shared = shared if shared is not None else WarmContext()
         self.drain = drain
         self.lease = lease
         self.lease_devices = lease.devices if expose_devices else None
@@ -274,6 +321,14 @@ class _JobWarm:
         # feeds its spans into the flight recorder
         self.trace_id = trace_id
         self.flight = flight
+
+    @property
+    def compile_cache_dir(self):
+        return self._shared.compile_cache_dir
+
+    @property
+    def result_cache_dir(self):
+        return self._shared.result_cache_dir
 
     @property
     def supervisor_state(self):
@@ -306,7 +361,12 @@ class Daemon:
                  trace_json: str | None = None,
                  listen: str | None = None,
                  journal_dir: str | None = None,
-                 warmup: str | None = None):
+                 warmup: str | None = None,
+                 compile_cache_dir: str | None = None,
+                 result_cache: str | None = None,
+                 result_cache_max_bytes: int | None = None,
+                 result_cache_ttl_s: float | None = None,
+                 cache_prefetch: int | None = None):
         self.socket_path = socket_path
         # an optional plain-TCP listener joining the unix socket — same
         # protocol, token-based client identity (no SO_PEERCRED on
@@ -372,8 +432,20 @@ class Daemon:
         # results are still served from RAM.  Warn ONCE per condition;
         # the counters carry the ongoing truth
         self._spool_warned = False
-        # the byte ledger the spool is charged to (service/cache.py)
+        self._cache_insert_warned = False
+        # the byte ledger the spool and the result cache are charged to
+        # (service/cache.py): the two gauges read one synchronized
+        # source
         self.ledger = ByteLedger()
+        # the state every job's warm view shares: the build directory
+        # and the result cache's directory
+        self.warm = WarmContext()
+        if compile_cache_dir is not None:
+            # the build directory is the process's: set once here, and
+            # no job moves it (ops/_build.py::job_build_dir)
+            from pwasm_tpu_torch.ops._build import use_build_dir
+            compile_cache_dir = use_build_dir(compile_cache_dir)
+        self.warm.compile_cache_dir = compile_cache_dir
         # ---- streaming ingestion: per-stream buffer quotas +
         # fair-share arbitration; stream jobs are otherwise ordinary
         # queue citizens (DRR over clients, leases, journal)
@@ -394,6 +466,12 @@ class Daemon:
         self.epoch_lease = EpochLease()
         self._lock = threading.Lock()
         self._running: dict[str, Job] = {}
+        # the finished m2m-stream sessions' flow counters (the svc-stats
+        # "m2m" block); they stay 0 until --m2m-stream is ported
+        self._m2m_done = {"sessions": 0, "targets_in": 0,
+                          "targets_scored": 0, "targets_reused": 0,
+                          "pairs_dispatched": 0, "pairs_reused": 0,
+                          "batches": 0, "sections_emitted": 0}
         self._draining = False
         self._closing = threading.Event()
         self._next_id = 0
@@ -424,6 +502,25 @@ class Daemon:
         self.stream_metrics = build_stream_metrics(self.registry)
         self.m2m_metrics = build_m2m_metrics(self.registry)
         self.cache_metrics = build_cache_metrics(self.registry)
+        # the result cache: looked up at admission, inserted at job
+        # finish.  An unusable directory runs the daemon uncached with
+        # a warning
+        self.cache = None
+        if result_cache and result_cache != "off":
+            from pwasm_tpu_torch.service.cache import CacheStore
+            try:
+                self.cache = CacheStore(
+                    result_cache, max_bytes=result_cache_max_bytes,
+                    ttl_s=result_cache_ttl_s,
+                    metrics=self.cache_metrics, ledger=self.ledger)
+            except OSError as e:
+                self._say(f"warning: --result-cache dir {result_cache} "
+                          f"unusable ({e}); result caching disabled")
+        self.warm.result_cache_dir = result_cache \
+            if self.cache is not None else None
+        self.cache_prefetch = cache_prefetch   # entries warmed before
+        #                                        the socket exists
+        self._cache_evict_at = 0.0    # next TTL/budget sweep (mono)
         # foldable counters only: the live run instruments (attempt
         # histogram, run breaker gauge) belong to each run's own obs
         # bundle — the daemon's breaker view is the
@@ -479,6 +576,16 @@ class Daemon:
         if self._runner is None:
             from pwasm_tpu_torch.cli import run as cli_run
             self._runner = cli_run
+        if self.cache is not None and self.cache_prefetch:
+            # page the hottest entries through a CRC-verified read
+            # BEFORE the socket exists: socket readiness then implies a
+            # warm cache, and the first repeat job is an admission hit
+            # served from the page cache
+            warmed = self.cache.prefetch(self.cache_prefetch)
+            self._say(f"result-cache prefetch: warmed {warmed} "
+                      f"entr{'y' if warmed == 1 else 'ies'} from "
+                      f"{self.cache.root}")
+            self.obs.event("cache_prefetch", warmed=warmed)
         from pwasm_tpu_torch.fleet.transport import (make_unix_listener,
                                                      socket_alive)
         if os.path.exists(self.socket_path):
@@ -593,6 +700,12 @@ class Daemon:
                     if self.epoch_lease.expired():
                         self._fence("lease TTL expired: heartbeats "
                                     "from the fleet router stopped")
+                    if self.cache is not None and \
+                            time.monotonic() >= self._cache_evict_at:
+                        # the periodic TTL/budget sweep: an idle cache
+                        # still expires, not only on inserts
+                        self._cache_evict_at = time.monotonic() + 5.0
+                        self.cache.evict_now()
                     if self.drain.requested:
                         self._begin_drain(self.drain.reason
                                           or "drain requested")
@@ -705,9 +818,8 @@ class Daemon:
             m["lane_busy_fraction"].set(
                 round(min(1.0, row["busy_s"] / uptime), 6),
                 lane=str(row["lane"]))
-        # the byte gauges read the ONE ledger (never a bare int a
-        # concurrent eviction could tear); the cache account stays 0
-        # until the result cache is ported
+        # both byte gauges read the ONE ledger (never a bare int a
+        # concurrent eviction could tear)
         m["spool_bytes"].set(self.ledger.value("spool"))
         m["fenced"].set(1 if self.epoch_lease.fenced else 0)
         m["member_epoch"].set(self.epoch_lease.epoch)
@@ -718,10 +830,15 @@ class Daemon:
         for c, age in self.streams.client_lag_age().items():
             self.stream_metrics["lag_age"].set(round(age, 3),
                                                client=c or "default")
-        # no m2m session runs before the surveillance slice: its gauges
-        # read 0, as the reference's do with none live
-        for key in ("active", "live_targets", "reuse_ratio"):
-            self.m2m_metrics[key].set(0)
+        mm = self._m2m_stats()
+        g = self.m2m_metrics
+        g["active"].set(mm.get("active", 0))
+        with self._lock:
+            done_in = self._m2m_done["targets_in"]
+        g["live_targets"].set(max(0, mm["targets_in"] - done_in))
+        pairs = mm["pairs_dispatched"] + mm["pairs_reused"]
+        g["reuse_ratio"].set(
+            round(mm["pairs_reused"] / pairs, 6) if pairs else 0.0)
         depths = self.queue.client_depths()
         for c in clients_seen | set(depths):
             # every client ever admitted keeps a series: a drained
@@ -1248,7 +1365,7 @@ class Daemon:
                     "--batch=8"]
             drain = SignalDrain(stderr=self.stderr,
                                 hard_exit=lambda code: None)
-            warm = _JobWarm(drain, lease,
+            warm = _JobWarm(drain, lease, shared=self.warm,
                             expose_devices=self._expose_devices)
             self.obs.event("warmup_start", device=device,
                            lane=lease.lane)
@@ -1358,7 +1475,7 @@ class Daemon:
         if self.drain.requested and job.drain is not None \
                 and not job.drain.requested:
             job.drain.request(self.drain.reason or "service draining")
-        warm = _JobWarm(job.drain, lease,
+        warm = _JobWarm(job.drain, lease, shared=self.warm,
                         expose_devices=self._expose_devices,
                         trace_id=job.trace_id, flight=job.flight)
         rc: int | None = None
@@ -1396,6 +1513,13 @@ class Daemon:
             job.drain.stderr = self.stderr
         job.errbuf = job.outbuf = None
         job.stats = self._read_job_stats(job)
+        if isinstance(job.stats, dict) \
+                and isinstance(job.stats.get("m2m"), dict):
+            self._m2m_fold(job.stats["m2m"])
+        if rc == 0 and job.delta is not None:
+            # the fractional hit lands at FINISH, not admission: a
+            # failed tail run must not count as served traffic
+            self._cache_delta_finish(job)
         if rc == 0:
             job.state = JOB_DONE
             self.stats.jobs_completed += 1
@@ -1447,6 +1571,11 @@ class Daemon:
             max(0.0, job.started_s - job.submitted_s),
             trace_id=job.trace_id)
         fold_run_stats(self.run_metrics, job.stats)
+        if job.state == JOB_DONE and job.cache is not None \
+                and self.cache is not None:
+            # the outputs this run just wrote become the entry an
+            # identical later submit is answered from at admission
+            self._cache_insert(job)
         # past every RAM consumer of job.stats: big results move to
         # the spool (index-only in RAM), then the terminal verdict —
         # with its spool pointer — lands durably in the journal
@@ -1594,11 +1723,6 @@ class Daemon:
             later = later_option(k)
             if later is not None:
                 raise ValueError(later.strip())
-        if "many2many" in job_opts and not stream:
-            raise ValueError(
-                "a served --many2many job is not ported to "
-                "pwasm_tpu_torch yet; it comes with slice A9b (run it "
-                "as a cold CLI job meanwhile)")
         if stream:
             if _pos:
                 raise ValueError(
@@ -1611,10 +1735,43 @@ class Daemon:
                         f"--{bad} does not apply to a socket stream")
         if self.drain.requested:
             raise Draining("service is draining")
+        # the result cache: looked up HERE, before queue.submit, so a
+        # hit never touches the queue, a lease, the probe or a kernel.
+        # Streams bypass it (their input is not a file); a miss keeps
+        # its key, under which the finished job inserts its outputs
+        cache_row = None
+        delta_served = None
+        if self.cache is not None and not stream:
+            from pwasm_tpu_torch.service.cache import (classify_argv,
+                                                       derive_key,
+                                                       serve_outputs)
+            cls = classify_argv(argv)
+            key = derive_key(cls) if cls is not None else None
+            if key is not None:
+                got = self.cache.get(key)
+                if got is not None:
+                    try:
+                        served = serve_outputs(got[1], cls.output_paths)
+                    except OSError:
+                        served = False   # unwritable output: the real
+                        #   run reports the real diagnostic
+                    if served:
+                        return self._admit_cache_hit(
+                            argv, client, priority, trace_id, got[0])
+                cache_row = (key, cls)
+                # an exact miss whose same-family entry holds a per-line
+                # PREFIX of this input: its report is served now and the
+                # job re-armed as a --resume of the tail.  The journal's
+                # admit keeps the ORIGINAL argv: a crash replay re-runs
+                # the job cold, which is always correct
+                from pwasm_tpu_torch.cli import _cache_delta_serve
+                delta_served = _cache_delta_serve(self.cache, cls)
         base_argv = list(argv)     # what the journal records: the
         #   pre-injection argv (the injected stats tmp lives in a
         #   directory that dies with this process)
         exec_argv = list(argv)
+        if delta_served is not None:
+            exec_argv.append("--resume")
         with self._lock:
             self._next_id += 1
             job = Job(id=f"job-{self._next_id:04d}", argv=exec_argv,
@@ -1622,6 +1779,9 @@ class Daemon:
                       trace_id=trace_id)
         job.deadline_ms = deadline_ms   # the monotonic anchor is
         #   Job.submitted_mono (defaulted at construction, just now)
+        job.cache = cache_row      # (key, classified) of a cacheable
+        #   miss: _run_job inserts the finished outputs under it
+        job.delta = delta_served
         self._arm_job(job)
         if stream:
             from pwasm_tpu_torch.stream.pafstream import StreamFeed
@@ -1651,6 +1811,17 @@ class Daemon:
                              **({"stream": True} if stream else {}),
                              **({"deadline_ms": deadline_ms}
                                 if deadline_ms else {}))
+        if delta_served is not None:
+            # a delta job is not a pure hit: its cache_hit record
+            # carries the served-vs-total split, and the start and
+            # finish records that follow show the tail's real run
+            self._journal_append(REC_CACHE_HIT, job_id=job.id,
+                                 delta=True, served=delta_served[0],
+                                 total=delta_served[1])
+            self.obs.event("cache_delta", job_id=job.id,
+                           trace_id=job.trace_id,
+                           served=delta_served[0],
+                           total=delta_served[1])
         try:
             self.queue.submit(job)
         except (Draining, QueueFull):
@@ -1669,6 +1840,170 @@ class Daemon:
                        trace_id=job.trace_id, stream=stream,
                        queue_depth=self.queue.depth())
         return job
+
+    def _admit_cache_hit(self, argv: list, client: str, priority: str,
+                         trace_id: str, manifest: dict) -> Job:
+        """Admit-and-finish a job answered from the result cache: its
+        output files are already written from the CRC-verified blobs,
+        so the job lands DONE without entering the queue.  Journaled as
+        admit + cache_hit + finish in one durable append, so a replay
+        restores a truthful terminal verdict (a finish with no start,
+        explained by the cache_hit line)."""
+        from pwasm_tpu_torch.service.cache import (argv_stats_path,
+                                                   write_hit_stats)
+        with self._lock:
+            self._next_id += 1
+            job = Job(id=f"job-{self._next_id:04d}", argv=list(argv),
+                      client=client, priority=priority,
+                      trace_id=trace_id)
+        job.state = JOB_DONE
+        job.rc = 0
+        job.detail = ("served from the result cache "
+                      "(byte-identical to a full run)")
+        # a --stats-asking client gets the file a cold-run hit writes
+        job.stats = write_hit_stats(manifest, argv_stats_path(argv))
+        job.started_s = job.submitted_s
+        job.finished_s = time.time()
+        job.errbuf = job.outbuf = None
+        if self.journal is not None:
+            t = round(time.time(), 3)
+            if self.journal.append_many([
+                    (REC_ADMIT, {"job_id": job.id, "t": t,
+                                 "argv": list(argv), "client": client,
+                                 "priority": priority,
+                                 "trace_id": trace_id}),
+                    (REC_CACHE_HIT, {"job_id": job.id, "t": t}),
+                    (REC_FINISH, {"job_id": job.id, "t": t,
+                                  "state": JOB_DONE, "rc": 0,
+                                  "detail": job.detail})]):
+                for rec in (REC_ADMIT, REC_CACHE_HIT, REC_FINISH):
+                    self.svc_metrics["journal_records"].inc(rec=rec)
+            elif not self._journal_warned:
+                self._journal_warned = True
+                self._say(f"warning: job-journal append failed "
+                          f"({self.journal.broken}); continuing "
+                          "WITHOUT crash recovery")
+                self.obs.event("journal_broken",
+                               detail=self.journal.broken)
+        job.done.set()
+        with self._lock:
+            self.jobs[job.id] = job
+            self._clients_seen.add(client)
+        self.stats.jobs_accepted += 1
+        self.stats.jobs_completed += 1
+        self.svc_metrics["jobs"].inc(outcome="accepted")
+        self.svc_metrics["jobs"].inc(outcome=JOB_DONE)
+        wall = max(0.0, job.finished_s - job.submitted_s)
+        # the wall and wait histograms see the SERVED latency
+        self.svc_metrics["job_wall_seconds"].observe(
+            wall, trace_id=job.trace_id)
+        self.svc_metrics["queue_wait_seconds"].observe(
+            0.0, trace_id=job.trace_id)
+        self.obs.event("job_admit", job_id=job.id, client=client,
+                       trace_id=job.trace_id, stream=False,
+                       queue_depth=self.queue.depth())
+        self.obs.event("cache_hit", job_id=job.id, trace_id=job.trace_id)
+        self.obs.event("job_finish", job_id=job.id, state=JOB_DONE,
+                       rc=0, trace_id=job.trace_id,
+                       wall_s=round(wall, 6), detail=job.detail)
+        self._write_textfile()
+        return job
+
+    def _cache_delta_finish(self, job: Job) -> None:
+        """A delta job finished cleanly: account the served fraction and
+        stamp its stats (the result frame's and the client's own
+        ``--stats`` file) ``cache_delta: true`` with the served and
+        total record counts."""
+        if self.cache is not None:
+            self.cache.note_delta(*job.delta)
+        if not isinstance(job.stats, dict):
+            return
+        job.stats["cache_delta"] = True
+        job.stats["cache_records_served"] = job.delta[0]
+        job.stats["cache_records_total"] = job.delta[1]
+        if job.stats_path is not None and not job.stats_injected:
+            try:
+                import json
+                with open(job.stats_path, "w") as f:
+                    json.dump(job.stats, f, indent=1)
+                    f.write("\n")
+            except OSError:
+                pass
+
+    def _cache_insert(self, job: Job) -> None:
+        """Store a cleanly finished job's output files under its
+        admission key (``insert_from_paths``, the cold CLI's populate):
+        the key's re-derivation skips the insert when the input was
+        rewritten meanwhile.  A skipped insert (a full disk, a drifted
+        key, an unreadable output) warns once an outage; the job was
+        served either way."""
+        from pwasm_tpu_torch.service.cache import insert_from_paths
+        key, cls = job.cache
+        if insert_from_paths(self.cache, key, cls, stats=job.stats):
+            self.obs.event("cache_insert", job_id=job.id,
+                           trace_id=job.trace_id)
+            self._cache_insert_warned = False   # writable again: the
+            #                                     next outage warns
+        elif not self._cache_insert_warned:
+            self._cache_insert_warned = True
+            self._say(f"warning: result-cache insert skipped (first on "
+                      f"{job.id}) — serving continues without caching; "
+                      "see cache.insert_errors / "
+                      "pwasm_cache_insert_errors_total")
+
+    def _m2m_fold(self, m: dict) -> None:
+        """Fold a finished m2m-stream session's flow (its ``--stats``
+        ``m2m`` block) into the cumulative svc-stats ``m2m`` block and
+        the ``pwasm_m2m_*`` counters."""
+        with self._lock:
+            self._m2m_done["sessions"] += 1
+            for k in self._m2m_done:
+                if k != "sessions":
+                    try:
+                        self._m2m_done[k] += int(m.get(k, 0) or 0)
+                    except (TypeError, ValueError):
+                        pass
+        self.m2m_metrics["sessions"].inc()
+        for k, fam in (("targets_in", "targets_in"),
+                       ("targets_scored", "targets_scored"),
+                       ("targets_reused", "targets_reused"),
+                       ("pairs_dispatched", "pairs_dispatched"),
+                       ("pairs_reused", "pairs_reused"),
+                       ("batches", "batches"),
+                       ("sections_emitted", "sections")):
+            try:
+                v = int(m.get(k, 0) or 0)
+            except (TypeError, ValueError):
+                continue
+            if v > 0:
+                self.m2m_metrics[fam].inc(v)
+
+    def _m2m_stats(self) -> dict:
+        """The svc-stats ``m2m`` block: live m2m-stream sessions read
+        off their feeds' published progress, finished ones from the
+        cumulative fold (a one-shot ``--many2many`` job is not a
+        session: it counts as a job)."""
+        with self._lock:
+            out = dict(self._m2m_done)
+            jobs = [j for j in self.jobs.values()
+                    if j.stream and j.feed is not None
+                    and j.state not in TERMINAL_STATES]
+        live = 0
+        for j in jobs:
+            prog = getattr(j.feed, "m2m_progress", None)
+            if not isinstance(prog, dict):
+                continue
+            live += 1
+            for k in out:
+                if k == "sessions":
+                    continue
+                try:
+                    out[k] += int(prog.get(k, 0) or 0)
+                except (TypeError, ValueError):
+                    pass
+        out["sessions"] += live
+        out["active"] = live
+        return out
 
     def _retry_after_s(self) -> float:
         """The queue_full backoff hint: roughly one recent job's wall
@@ -1771,6 +2106,9 @@ class Daemon:
             # records will arrive as stream-data frames — the
             # minimap2-pipe-over-the-socket shape.  Admission control
             # is the same per-client fair-share gate as submit.
+            if req.get("delta"):
+                return protocol.err(protocol.ERR_BAD_REQUEST,
+                                    DELTA_STREAMS_LATER)
             client = self._resolve_client(req, peer)
             deadline_ms, dl_err = protocol.parse_deadline_ms(req)
             if dl_err is not None:
@@ -1918,9 +2256,9 @@ class Daemon:
                 "threshold_bytes": self.spool_threshold_bytes,
                 "bytes": self.ledger.value("spool"),
             }
-            # the result cache's block, as the reference's daemon gives
-            # it without one (the cache comes with a later slice)
-            st["cache"] = {"enabled": False}
+            # the result cache: hit/miss flow, bytes on disk, hit ratio
+            st["cache"] = self.cache.stats_dict() \
+                if self.cache is not None else {"enabled": False}
             # additive (stats_version unchanged): streaming ingestion
             # — live streams, record/batch flow, buffer lag
             tot = self.streams.totals()
@@ -1933,8 +2271,10 @@ class Daemon:
                 "max_buffer": self.streams.max_buffer,
                 "max_buffer_total": self.streams.max_total,
             }
-            # the reference's "m2m" and "health" blocks come with the
-            # slices that bring served --many2many and the SLO engine
+            # m2m-stream sessions: arrival and dispatch flow,
+            # incremental reuse, section emission (the reference's
+            # "health" block comes with the SLO engine)
+            st["m2m"] = self._m2m_stats()
             # additive: epoch-lease fencing.  The router's
             # lease heartbeat RIDES the stats poll (req["lease"]), so
             # governance costs zero extra RPCs; the reply always
@@ -1959,6 +2299,22 @@ class Daemon:
                 metrics=self.registry.expose(
                     exemplars=bool(req.get("exemplars"))),
                 content_type="text/plain; version=0.0.4")
+        if cmd == "cache-probe":
+            # could this daemon answer a key from its result cache?  A
+            # manifest check: no blob reads, no admission
+            key = req.get("key")
+            if not isinstance(key, str) or not key:
+                return protocol.err(protocol.ERR_BAD_REQUEST,
+                                    "cache-probe needs a key field")
+            fam = req.get("family")
+            return protocol.ok(
+                enabled=self.cache is not None,
+                hit=self.cache is not None and self.cache.contains(key),
+                # an entry of the job's FAMILY is held: this daemon
+                # could answer the near-repeat as an admission delta
+                family_hit=self.cache is not None
+                and isinstance(fam, str) and bool(fam)
+                and self.cache.contains_family(fam))
         if cmd == "drain":
             self.drain.request("drain requested by client")
             self._begin_drain(self.drain.reason)
@@ -2199,6 +2555,8 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
             opts[k] = v
         elif a == "--warmup":
             opts["warmup"] = "cuda"   # bare form: warm the device path
+        elif a == "--cache-prefetch":
+            opts["cache-prefetch"] = "64"   # bare form: default depth
         elif a in ("-h", "--help"):
             stderr.write(_SERVE_USAGE)
             return EXIT_USAGE
@@ -2225,7 +2583,8 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                        ("max-queue-total", None),
                        ("spool-threshold-bytes", None),
                        ("stream-buffer", 512),
-                       ("log-json-max-bytes", None)):
+                       ("log-json-max-bytes", None),
+                       ("result-cache-max-bytes", None)):
         val = opts.pop(knob, None)
         if val is None:
             nums[knob] = dflt
@@ -2262,6 +2621,20 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                      "(the dir DERIVES the journal path so the "
                      "fleet router can find it)\n")
         return EXIT_USAGE
+    compile_cache_dir = opts.pop("compile-cache-dir", None)
+    if compile_cache_dir is not None and not compile_cache_dir.strip():
+        stderr.write(f"{_SERVE_USAGE}\nInvalid --compile-cache-dir "
+                     "value\n")
+        return EXIT_USAGE
+    if compile_cache_dir is not None:
+        # a build directory that cannot be created ends the daemon
+        # here: no job would build where the operator asked
+        from pwasm_tpu_torch.ops._build import use_build_dir
+        try:
+            compile_cache_dir = use_build_dir(compile_cache_dir)
+        except PwasmError as e:
+            stderr.write(str(e))
+            return e.exit_code
     warmup = None
     if "warmup" in opts:
         warmup = opts.pop("warmup")
@@ -2273,6 +2646,22 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
     if spool_dir is not None and not spool_dir.strip():
         stderr.write(f"{_SERVE_USAGE}\nInvalid --spool-dir value\n")
         return EXIT_USAGE
+    result_cache = opts.pop("result-cache", None)
+    if result_cache is not None and not result_cache.strip():
+        stderr.write(f"{_SERVE_USAGE}\nInvalid --result-cache "
+                     "value\n")
+        return EXIT_USAGE
+    if result_cache == "off":
+        result_cache = None
+    cache_prefetch = None
+    val = opts.pop("cache-prefetch", None)
+    if val is not None:
+        if val.isascii() and val.isdigit() and int(val) >= 1:
+            cache_prefetch = int(val)
+        else:
+            stderr.write(f"{_SERVE_USAGE}\nInvalid --cache-prefetch "
+                         f"value: {val}\n")
+            return EXIT_USAGE
     priority_lanes: tuple[str, ...] | None = None
     val = opts.pop("priority-lanes", None)
     if val is not None:
@@ -2356,7 +2745,12 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                         log_json_max_bytes=nums["log-json-max-bytes"],
                         trace_json=trace_json,
                         listen=listen, journal_dir=journal_dir,
-                        warmup=warmup)
+                        warmup=warmup,
+                        compile_cache_dir=compile_cache_dir,
+                        result_cache=result_cache,
+                        result_cache_max_bytes=nums[
+                            "result-cache-max-bytes"],
+                        cache_prefetch=cache_prefetch)
     except OSError:
         stderr.write(f"Cannot open file {log_json} for writing!\n")
         return EXIT_USAGE

@@ -114,6 +114,12 @@ class Job:
     stats: dict | None = None          # the job's RunStats JSON
     stats_path: str | None = None
     stats_injected: bool = False       # daemon-owned stats tmp file
+    cache: object = field(default=None, repr=False)  # (key,
+    #   classified) of a cacheable job that MISSED at admission: the
+    #   finished outputs insert under it (service/cache.py)
+    delta: tuple | None = field(default=None, repr=False)  # (records
+    #   served, records total) of a job re-armed at admission as a
+    #   --resume over a cached same-family input prefix
     stderr_tail: str = ""
     # per-job drain flag: the daemon's SIGTERM (or a cancel) requests
     # it, and the job's cli.run honors it at the next batch boundary —

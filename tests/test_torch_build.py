@@ -36,6 +36,7 @@ class _FakeLib:
 @pytest.fixture
 def fresh(monkeypatch):
     monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_FIRST", {})
     builds: list = []
 
     def slow_build(names=None):
@@ -76,6 +77,37 @@ def test_threads_binding_one_library_build_it_once(fresh, n_threads):
     assert fresh == [["demo"]]
     assert seen == [sorted(sigs)] * n_threads
     assert len(_build._LIBS) == 1
+
+
+def test_two_libraries_build_at_once(fresh, monkeypatch):
+    """Two jobs that first need two different kernels build them at
+    once: each build waits for the other to start, which passes only
+    when neither holds a lock the other needs."""
+    both = threading.Barrier(2)
+
+    def meeting_build(names=None):
+        fresh.append(list(names))
+        both.wait(5)
+        return {n: 0.0 for n in names}
+
+    monkeypatch.setattr(_build, "build_all", meeting_build)
+    caches = {"a": {}, "b": {}}
+    errors: list = []
+
+    def worker(name):
+        try:
+            _build.bind(name, {"pw_x": ([], None)}, caches[name])
+        except Exception as e:          # a broken barrier: serialized
+            errors.append(e)
+
+    ts = [threading.Thread(target=worker, args=(n,)) for n in caches]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(10)
+    assert not errors
+    assert sorted(map(tuple, fresh)) == [("a",), ("b",)]
+    assert all(list(c) == ["pw_x"] for c in caches.values())
 
 
 def test_build_temporaries_differ_between_threads(monkeypatch, tmp_path):

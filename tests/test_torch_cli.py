@@ -127,18 +127,34 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--compile-cache-dir=cc", "slice A9b"), ("--m2m-stream", "slice A10"),
-    ("--result-cache-max-bytes=1", "slice A9b"),
-    ("--result-cache=rc", "slice A9b"),
-    ("--follow --result-cache=rc", "slice A9b"),
+    ("--compile-cache-dir=DIR", None), ("--m2m-stream", "slice A10"),
+    ("--result-cache-max-bytes=1", None),
+    ("--result-cache=DIR", None),
+    ("--follow=0.2 --result-cache=DIR", None),
     ("--device=tpu", "cuda or cpu")])
-def test_later_slices_are_refused(tmp_path, flag, later):
+def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
+    """An option of a later slice exits 1 naming it; the result cache and
+    the build directory, which an earlier slice refused, run (``later``
+    None) to the flagless outputs."""
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
     paf, fa = _golden_inputs(tmp_path)
     err = io.StringIO()
     dev = [] if flag.startswith("--device") else ["--device=cpu"]
-    assert run([paf, "-r", fa, "-w", str(tmp_path / "m.mfa"),
-                *flag.split(), *dev], stderr=err) == 1
-    assert later in err.getvalue()
+    flags = flag.replace("DIR", str(tmp_path / "dir")).split()
+    rc = run([paf, "-r", fa, "-w", str(tmp_path / "m.mfa"), *flags, *dev],
+             stderr=err)
+    if later is None:
+        assert rc == 0, err.getvalue()
+        assert run([paf, "-r", fa, "-w", str(tmp_path / "n.mfa"), *dev],
+                   stdout=io.StringIO(), stderr=io.StringIO()) == 0
+        assert (tmp_path / "m.mfa").read_bytes() \
+            == (tmp_path / "n.mfa").read_bytes()
+    else:
+        assert rc == 1
+        assert later in err.getvalue()
     err = io.StringIO()
     assert run(["top", "--socket=x"], stderr=err) == 1
     assert "slice A9c" in err.getvalue()

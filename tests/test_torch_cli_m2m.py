@@ -150,22 +150,38 @@ def test_device_tpu_rejected(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    ("--result-cache", "service"), ("--result-cache=off", "service"),
-    ("--compile-cache-dir", "service"),
-    ("--result-cache-max-bytes=1k", "service"),
-    ("--result-cache=rc", "service"),
-    ("--result-cache-max-bytes=100", "service"),
-    ("--compile-cache-dir=cc", "service")])
-def test_later_slice_flags_exit_1_naming_the_slice(tmp_path, flag, slice_):
+    ("--result-cache", "--result-cache requires a directory"),
+    ("--result-cache=off", None),
+    ("--compile-cache-dir", "--compile-cache-dir requires a directory"),
+    ("--result-cache-max-bytes=1k", "invalid --result-cache-max-bytes"),
+    ("--result-cache=rc", None),
+    ("--result-cache-max-bytes=100", None),
+    ("--compile-cache-dir=cc", None)])
+def test_later_slice_flags_exit_1_naming_the_slice(tmp_path, monkeypatch,
+                                                   flag, slice_):
+    """The cache and build-directory options that an earlier slice
+    refused are ported: a malformed one exits 1 with its usage error
+    (``slice_``), a well-formed one runs to the cache-off bytes."""
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
+    monkeypatch.chdir(tmp_path)
     _qs, qfa, tfa = _fixture(tmp_path, n_q=1, n_t=1)
     err = io.StringIO()
     out = str(tmp_path / "o.tsv")
-    assert run(["--many2many", tfa, "-r", qfa, "-o", out, flag,
-                "--device=cpu"], stderr=err) == 1
-    name = flag[2:].split("=")[0]
-    assert err.getvalue().startswith(f"Error: --{name} is not ported")
-    assert slice_ in err.getvalue()
-    assert not os.path.exists(out)
+    rc = run(["--many2many", tfa, "-r", qfa, "-o", out, flag,
+              "--device=cpu"], stderr=err)
+    if slice_ is not None:
+        assert rc == 1
+        assert f"Error: {slice_}" in err.getvalue()
+        assert not os.path.exists(out)
+        return
+    assert rc == 0, err.getvalue()
+    assert run(["--many2many", tfa, "-r", qfa, "-o",
+                str(tmp_path / "ref.tsv"), "--device=cpu"],
+               stderr=io.StringIO()) == 0
+    assert open(out, "rb").read() == (tmp_path / "ref.tsv").read_bytes()
 
 
 def test_band_1_long_target_is_a_clean_error(tmp_path):
@@ -210,3 +226,35 @@ def test_many2many_imports_neither_jax_nor_the_reference(tmp_path):
                          timeout=240)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("summary", [False, True])
+def test_uncached_run_formats_from_the_score_rows(tmp_path, monkeypatch,
+                                                  summary):
+    """Without a result cache each section is formatted straight from
+    its row of the score matrix (no per-target map), the ``-s`` lines
+    only when ``-s`` is given, and the bytes are the reference's."""
+    from pwasm_tpu_torch.stream import multicds
+
+    calls = {"section": [], "summary": 0}
+    real_section, real_summary = multicds.format_section, \
+        multicds.format_summary
+
+    def section(qname, qlen, rows, scores, neg):
+        calls["section"].append(type(scores))
+        return real_section(qname, qlen, rows, scores, neg)
+
+    def summ(*a):
+        calls["summary"] += 1
+        return real_summary(*a)
+
+    monkeypatch.setattr(multicds, "format_section", section)
+    monkeypatch.setattr(multicds, "format_summary", summ)
+    _qs, qfa, tfa = _fixture(tmp_path)
+    args = ["--many2many", tfa, "-r", qfa, "-o", "OUT.tsv",
+            "--device=cpu"] + (["-s", "OUT.sum"] if summary else [])
+    want, got = _both(tmp_path, args)
+    assert got[0] == want[0] == 0
+    assert got[3] == want[3]
+    assert calls["section"] == [np.ndarray] * 4
+    assert calls["summary"] == (4 if summary else 0)

@@ -273,3 +273,38 @@ def test_pack_targets_refuses_non_acgt(code):
         pack.pack_targets(ts)
     with pytest.raises(ValueError, match="outside"):
         ref_pack.pack_targets(ts)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("band", [8, 64])
+def test_ragged_on_a_mesh_equals_the_unsharded_call(band, n_dev):
+    """``many2many_scores_ragged(mesh=)`` over a 2-D mesh of CPU entries
+    (``make_mesh2d``: a served job's lane-span mesh) scores each dispatch
+    through ``make_many2many``'s tiles: bit-equal to the unsharded call
+    (held to the reference above) and, on a 2 x 2 mesh, to the
+    reference's sharded call on its virtual CPU devices."""
+    qs, ts = ragged(band + n_dev, band)
+    want = many2many.many2many_scores_ragged(qs, ts, band=band, device=CPU)
+    mesh = many2many.make_mesh2d(devices=[CPU] * n_dev)
+    stats = {}
+    got = many2many.many2many_scores_ragged(qs, ts, band=band, mesh=mesh,
+                                            stats=stats)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert stats["dispatches"] >= 3
+    if (band, n_dev) == (8, 4):
+        import jax
+        ref_mesh = ref_m2m.make_mesh2d(n_dev, devices=jax.devices("cpu"))
+        np.testing.assert_array_equal(
+            got, ref_m2m.many2many_scores_ragged(qs, ts, band=band,
+                                                 mesh=ref_mesh))
+
+
+def test_ragged_takes_a_device_or_a_mesh():
+    qs, ts = ragged(3, 8)
+    with pytest.raises(ValueError, match="a device or a mesh"):
+        many2many.many2many_scores_ragged(qs, ts, band=8)
+    with pytest.raises(ValueError, match="a device or a mesh"):
+        many2many.many2many_scores_ragged(
+            qs, ts, band=8, device=CPU,
+            mesh=many2many.make_mesh2d(devices=[CPU] * 2))

@@ -319,26 +319,50 @@ def test_unknown_cmd_unknown_job_bad_request():
             assert "-o" in r["detail"]
             r = c.submit(["serve", "--socket=/x", "-o", "r"])
             assert r["error"] == protocol.ERR_BAD_REQUEST
-            # the verbs of later slices name their slice
-            for cmd, later in (("health", "A9c"), ("logs", "A9c"),
-                               ("cache-probe", "A9b")):
+            # the verbs of later slices name their slice; cache-probe
+            # is ported and asks for its key
+            for cmd, later in (("health", "A9c"), ("logs", "A9c")):
                 r = c.request({"cmd": cmd})
                 assert r["error"] == protocol.ERR_UNKNOWN_CMD
                 assert f"slice {later}" in r["detail"]
+            r = c.request({"cmd": "cache-probe"})
+            assert r["error"] == protocol.ERR_BAD_REQUEST
+            assert "key" in r["detail"]
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--many2many", "A9b"), ("--result-cache=rc", "A9b"),
-    ("--compile-cache-dir=cc", "A9b"), ("--m2m-stream", "A10")])
-def test_later_slice_jobs_refused_at_admission(tmp_path, flag, later):
+    ("--many2many", None), ("--result-cache=rc", None),
+    ("--compile-cache-dir=cc", None), ("--m2m-stream", "A10")])
+def test_later_slice_jobs_refused_at_admission(tmp_path, monkeypatch, flag,
+                                               later):
     """A job the port's CLI would refuse for a later slice is answered
     at admission with the reference's error shape; nothing queues,
-    nothing is journaled, nothing runs."""
+    nothing is journaled, nothing runs.  What slice A9b brought is
+    admitted and runs (``later`` None): a served ``--many2many``, a
+    job's own ``--result-cache`` and ``--compile-cache-dir``."""
+    from pwasm_tpu_torch import native
+    from pwasm_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
     paf, fa = _corpus(tmp_path, n=4)
     journal = str(tmp_path / "j.journal")
+    argv = _job_args(tmp_path, "lt", paf, fa, [flag])
+    if flag == "--many2many":
+        (tmp_path / "t.fa").write_text(">t\nACGTACGTAC\n")
+        argv = ["--many2many", str(tmp_path / "t.fa"), "-r", fa, "-o",
+                str(tmp_path / "lt.dfa"), "--device=cpu"]
+    elif later is None:
+        argv = [a if not a.startswith("--" + flag[2:].split("=")[0])
+                else f"{flag.split('=')[0]}={tmp_path / 'x'}"
+                for a in argv]
     with _daemon(journal_path=journal) as h:
         with ServiceClient(h.sock) as c:
-            r = c.submit(_job_args(tmp_path, "lt", paf, fa, [flag]))
+            r = c.submit(argv)
+            if later is None:
+                assert r["ok"] is True, r
+                res = c.result(r["job_id"], timeout=120)
+                assert res["rc"] == 0, res
+                return
             assert r["ok"] is False
             assert r["error"] == protocol.ERR_BAD_REQUEST
             assert f"slice {later}" in r["detail"]
@@ -707,8 +731,8 @@ MASKED = frozenset((
     "submitted_s", "started_s", "finished_s", "uptime_s", "busy_s",
     "wait_s_total", "queue_depth", "expires_in_s", "remaining_s",
     "stats", "rollup", "flight", "metrics", "retry_after_s", "buffered"))
-# the reference's svc-stats blocks that later slices of the port bring
-LATER_BLOCKS = ("m2m", "health")
+# the reference's svc-stats block that a later slice of the port brings
+LATER_BLOCKS = ("health",)
 
 
 def _mask(obj):
@@ -868,9 +892,12 @@ def test_serve_subprocess_sigterm_drains_exit75_resumable(tmp_path):
     (["serve", "--socket=/x", "--max-queue=frog"], "--max-queue"),
     (["serve", "--socket=/x", "--warmup=tpu"], "must be cuda or cpu"),
     (["serve", "--socket=/x", "--slo-rules=rules.json"], "slice A9c"),
-    (["serve", "--socket=/x", "--result-cache=d"], "slice A9b"),
-    (["serve", "--socket=/x", "--compile-cache-dir=d"], "slice A9b"),
-    (["serve", "--socket=/x", "--cache-prefetch"], "slice A9b"),
+    (["serve", "--socket=/x", "--result-cache="],
+     "Invalid --result-cache value"),
+    (["serve", "--socket=/x", "--compile-cache-dir= "],
+     "Invalid --compile-cache-dir value"),
+    (["serve", "--socket=/x", "--cache-prefetch=0"],
+     "Invalid --cache-prefetch value"),
     (["serve", "--socket=/x", "--rate-limit=5"], "slice A9c"),
     (["serve", "--socket=/x", "--tls-cert=c"], "slice A9c"),
     (["submit"], "--socket"), (["svc-stats"], "--socket"),
