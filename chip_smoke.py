@@ -221,7 +221,22 @@ Phases, one JSON line each; any failure exits non-zero:
               ``--many2many`` (phase 9's bytes), again (no scores
               launch), and a superset of 256 new targets (scores launched
               only for their pairs; a cold run's bytes); ``svc-stats``;
-20. the ``kernels`` line (with each main-path kernel's
+20. edge    — the daemon's edge and its delta streams (``run_edge``):
+              one daemon with ``--result-cache``, TLS with client
+              certificates on ``--listen``, ``--auth-tokens`` and
+              ``--rate-limit``: over mTLS as ``cn:alice`` a ``submit``
+              process runs the realistic job with all six outputs (phase
+              5's bytes, one consensus launch); TLS and unix connects
+              timed in turns; a plaintext probe counted as one handshake
+              failure; ``rogue``'s certificate refused; a read-only
+              token's submit ``unauthorized`` with nothing changed; a
+              burst past the rate limit ``overloaded``, then admitted
+              after its ``retry_after_s``; report-only delta streams:
+              the corpus (run cold, inserted), the corpus plus 20
+              alignments (held, promoted to a ``--resume``: 199 of 220
+              served) and a stream whose fifth line differs (cold), each
+              equal to a cold run; ``svc-stats`` over mTLS;
+21. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
    phase 15's faulted ``--realign`` run, ``follow_launches`` from
@@ -229,7 +244,8 @@ Phases, one JSON line each; any failure exits non-zero:
    phase 17's first daemon, every job of its life; for the consensus
    and scores kernels, ``library_launches`` from phase 18 and the
    single-core host baseline's time; every kernel's
-   ``cache_launches`` in each of phase 19's runs), the card's name
+   ``cache_launches`` in each of phase 19's runs and
+   ``edge_launches`` in each of phase 20's), the card's name
    and power limit as nvidia-smi prints them, and the final
    ``{"ok": true, ...}`` line.
 
@@ -3522,6 +3538,337 @@ def _cache_abd(work, paf, fa, outputs, re_outputs, batch16_outputs,
     return record
 
 
+def transport_counter(sock: str, family: str) -> float:
+    """One ``pwasm_transport_*`` counter of the daemon's exposition,
+    read over its unix socket with the phase's admin token."""
+    from pwasm_tpu_torch.service.client import ServiceClient
+
+    with ServiceClient(sock, client_token="boss") as c:
+        body = c.metrics()["metrics"]
+    got = [ln for ln in body.splitlines() if ln.startswith(family)]
+    return float(got[0].split()[-1]) if got else 0.0
+
+
+def run_edge(work: str, paf: str, fa: str, outputs: dict, smi: str,
+             dev: str = "cuda") -> dict:
+    """Phase 20: the daemon's edge and its delta streams on the card.
+    One in-process daemon with ``--result-cache``,
+    ``--listen=127.0.0.1:0`` under TLS with client certificates
+    (``tests/certs``: the server's certificate, the CA that signs
+    ``alice``), an ``--auth-tokens`` file the phase writes and
+    ``--rate-limit=2/s:4``:
+
+    - a: over mTLS as ``cn:alice`` (scopes submit, read), a ``submit``
+      client process runs the realistic job with phase 5's six outputs
+      (``-o -s -w`` and the consensus outputs, without which no
+      consensus runs) on the card: its outputs equal phase 5's, one
+      consensus launch.  TLS and
+      unix connects (each a connection, a ping) timed in turns; a
+      plaintext connection to the TLS port raises
+      ``pwasm_transport_tls_handshake_failures_total`` by one;
+      ``rogue``'s self-signed certificate never completes a handshake;
+      a read-only token's ``submit`` answers ``unauthorized`` with the
+      queue depth, the journal and the lease grants as they were;
+      submits of a's job under one token (each answered from the cache
+      at admission) until one answers ``overloaded`` with a
+      ``retry_after_s``, after which wait the next is admitted;
+    - b: report-only delta streams through ``ServiceClient.stream(...,
+      delta=True)`` in 80 chunks cut inside lines: the corpus (no
+      candidate: resolved at open, run cold, inserted with its delta
+      index), the corpus with 20 more alignments (held, then promoted
+      to a ``--resume`` over the cached report: 199 of 220 records
+      served, the run's ctx_scan flushes for the tail), and a stream
+      whose fifth line differs (held, then cold); each report equal
+      to a cold CLI run of its file; ``svc-stats`` (a client process
+      over mTLS) with the cache's delta counters.
+
+    ``dev="cpu"`` rehearses the phase on the CPU (every check but the
+    kernel counts).  Returns the phase's record; raises on a
+    failure."""
+    import statistics
+    import threading
+
+    from pwasm_tpu_torch.fleet.transport import ClientTLS, ServerTLS
+    from pwasm_tpu_torch.service.authz import write_auth_tokens
+    from pwasm_tpu_torch.service.client import (ServiceClient,
+                                                ServiceError,
+                                                wait_for_socket)
+    from pwasm_tpu_torch.service.daemon import Daemon
+    from pwasm_tpu_torch.service.queue import parse_rate_limit
+
+    t_phase = time.perf_counter()
+    certs = os.path.join(ROOT, "tests", "certs")
+    ca = os.path.join(certs, "ca.pem")
+    alice = [f"--tls-ca={ca}", f"--tls-cert={certs}/alice.pem",
+             f"--tls-key={certs}/alice.key"]
+    alice_tls = ClientTLS(ca, certfile=f"{certs}/alice.pem",
+                          keyfile=f"{certs}/alice.key")
+    tokens = os.path.join(work, "c20_tokens.json")
+    write_auth_tokens(tokens, {"cn:alice": ["submit", "read"],
+                               "reader": ["read"],
+                               "burst": ["submit", "read"],
+                               "streamer": ["submit", "read"],
+                               "boss": ["admin"]})
+    cd = os.path.join(work, "c20_cache")
+    shutil.rmtree(cd, ignore_errors=True)
+    sock = os.path.join(work, "c20.sock")
+    journal = os.path.join(work, "c20.journal")
+    with contextlib.suppress(FileNotFoundError):
+        os.unlink(journal)
+    derr = io.StringIO()
+    daemon = Daemon(sock, stderr=derr, journal_path=journal,
+                    result_cache=cd, listen="127.0.0.1:0",
+                    tls=ServerTLS(f"{certs}/server.pem",
+                                  f"{certs}/server.key", client_ca=ca),
+                    auth_tokens=tokens,
+                    rate_limit=parse_rate_limit("2/s:4"))
+    box: list = []
+    th = threading.Thread(target=lambda: box.append(daemon.serve()),
+                          daemon=True)
+    th.start()
+    record: dict = {}
+    try:
+        if not wait_for_socket(sock, 60):
+            raise AssertionError(f"no daemon: {derr.getvalue()}")
+        tcp = f"127.0.0.1:{daemon.tcp_port}"
+        record["a"] = _edge_a(work, paf, fa, outputs, daemon, sock, tcp,
+                              alice, alice_tls, ca, certs, journal, dev)
+        record["b"] = _edge_b(work, fa, daemon, sock, tcp, alice, dev)
+    finally:
+        with contextlib.suppress(ServiceError, OSError):
+            with ServiceClient(sock, client_token="boss") as c:
+                c.drain()
+        daemon.drain.request("phase 20 done")
+        th.join(60)
+    if box != [75]:
+        raise AssertionError(f"the daemon exited {box}: "
+                             f"{derr.getvalue()[-2000:]}")
+    # the connect walls of a, in turns: TLS with a client certificate
+    # against the unix socket, each a connection and one ping
+    a = record["a"]
+    a["handshake_ms"] = 1e3 * (statistics.median(a["tls_connect_s"])
+                               - statistics.median(a["unix_connect_s"]))
+    record["wall_s"] = time.perf_counter() - t_phase
+    b = record["b"]
+    print("edge walls, s: mTLS-served job {:.3f} (consensus launches "
+          "{}); TLS connect+ping {:.4f} against unix {:.4f} (handshake "
+          "{:.2f} ms); delta streams: cold {:.3f}, held then promoted "
+          "{:.3f} (cold grown run {:.3f}; flushes {} against {}), "
+          "divergent {:.3f}; phase {:.3f}; {}".format(
+              a["served_s"], a["launches"]["consensus"],
+              statistics.median(a["tls_connect_s"]),
+              statistics.median(a["unix_connect_s"]), a["handshake_ms"],
+              b["cold"]["wall_s"], b["promoted"]["wall_s"],
+              b["cold_grown_s"], b["promoted"]["launches"]["ctx_scan"],
+              b["cold_grown_flushes"], b["divergent"]["wall_s"],
+              record["wall_s"], smi), flush=True)
+    return record
+
+
+def _edge_a(work, paf, fa, outputs, daemon, sock, tcp, alice, alice_tls,
+            ca, certs, journal, dev) -> dict:
+    """Phase 20 a (``run_edge``): the secured edge."""
+    from pwasm_tpu_torch.fleet.transport import ClientTLS, connect
+    from pwasm_tpu_torch.service.client import ServiceClient, ServiceError
+
+    on_card = dev == "cuda"
+    rec: dict = {}
+    # the realistic job over mTLS, a client process as cn:alice: phase
+    # 5's six outputs (-o -s -w alone launch no consensus: the vote is
+    # for --ace, --info and --cons)
+    job = [paf, "-r", fa, *out_args(work, "c20_tls"), f"--device={dev}",
+           f"--stats={work}/c20_tls.json"]
+    before = launch_counts()
+    rc, out, err, wall = run_client(tcp, "submit", *alice, "--", *job,
+                                    limit_s=300)
+    if rc != 0:
+        raise AssertionError(f"a: the mTLS job rc {rc}: {err[-2000:]}")
+    verdict = json.loads(out.splitlines()[-1])
+    rec["launches"] = launches_since(before)
+    rec["served_s"] = wall
+    same_outputs("a: the mTLS job", read_outputs(work, "c20_tls"),
+                 outputs)
+    client = daemon.jobs[verdict["job_id"]].client
+    if client != "cn:alice" or verdict["state"] != "done" \
+            or rec["launches"]["consensus"] != int(on_card):
+        raise AssertionError(f"a: the mTLS job ran as {client!r}, "
+                             f"{verdict}, launches {rec['launches']}")
+    # connects in turns: TLS with alice's certificate, then unix
+    rec["tls_connect_s"], rec["unix_connect_s"] = [], []
+    for _ in range(10):
+        for key, target, tls in (("tls_connect_s", tcp, alice_tls),
+                                 ("unix_connect_s", sock, None)):
+            t0 = time.perf_counter()
+            with ServiceClient(target, tls=tls) as c:
+                if not c.ping().get("ok"):
+                    raise AssertionError(f"a: ping over {target}")
+            rec[key].append(time.perf_counter() - t0)
+    # a plaintext connection to the TLS port: a loud close, counted
+    fam = "pwasm_transport_tls_handshake_failures_total"
+    n0 = transport_counter(sock, fam)
+    conn = connect(tcp, timeout=5)
+    try:
+        conn.sendall(b'{"cmd":"ping"}\n')
+        conn.settimeout(5)
+        try:
+            data = conn.recv(1 << 16)
+        except OSError:
+            data = b""
+    finally:
+        conn.close()
+    deadline = time.monotonic() + 5
+    n1 = transport_counter(sock, fam)
+    while n1 < n0 + 1 and time.monotonic() < deadline:
+        time.sleep(0.02)
+        n1 = transport_counter(sock, fam)
+    if b'"ok"' in data or n1 != n0 + 1:
+        raise AssertionError(f"a: the plaintext probe: {data[:200]!r}, "
+                             f"handshake failures {n0} -> {n1}")
+    rec["plaintext_failures"] = n1 - n0
+    # rogue's self-signed certificate: no handshake, the daemon serves on
+    try:
+        with ServiceClient(tcp, timeout=5, tls=ClientTLS(
+                ca, certfile=f"{certs}/rogue.pem",
+                keyfile=f"{certs}/rogue.key")) as c:
+            c.ping()
+        raise AssertionError("a: rogue's certificate was accepted")
+    except (ServiceError, OSError) as e:
+        rec["rogue"] = type(e).__name__
+    with ServiceClient(tcp, tls=alice_tls) as c:
+        if not c.ping().get("ok"):
+            raise AssertionError("a: no ping after the rogue handshake")
+
+    # a read-only token's submit: unauthorized, nothing changed
+    def state():
+        with open(journal, "rb") as f:
+            return (daemon.queue.depth(), len(f.read()),
+                    daemon.leases.grants, len(daemon.jobs))
+    st0 = state()
+    with ServiceClient(sock, client_token="reader") as c:
+        r = c.submit(job)
+    if r.get("error") != "unauthorized" or state() != st0:
+        raise AssertionError(f"a: the read-only submit: {r}, state "
+                             f"{st0} -> {state()}")
+    rec["unauthorized"] = r.get("detail")
+    # submits of a's job under one token, each a hit at admission, until
+    # the bucket (2/s, burst 4) refuses; after its hint, one more
+    hits, refused = [], None
+    before = launch_counts()
+    with ServiceClient(sock, client_token="burst") as c:
+        for k in range(8):
+            r = c.submit(job)
+            if not r.get("ok"):
+                refused = r
+                break
+            hits.append(c.result(r["job_id"], timeout=60))
+        if refused is None or refused.get("error") != "overloaded" \
+                or not refused.get("retry_after_s", 0) > 0:
+            raise AssertionError(f"a: no refusal after {len(hits)} "
+                                 f"submits: {refused}")
+        time.sleep(refused["retry_after_s"])
+        r = c.submit(job)
+        if not r.get("ok"):
+            raise AssertionError(f"a: after the hint: {r}")
+        hits.append(c.result(r["job_id"], timeout=60))
+    burst = launches_since(before)
+    if any(h["job"]["state"] != "done" or "result cache"
+           not in (h["job"]["detail"] or "") for h in hits) \
+            or any(v for k, v in burst.items() if k != "ctx_scan"):
+        raise AssertionError(f"a: the burst's jobs {hits[:2]}, launches "
+                             f"{burst}")
+    rec["burst"] = dict(admitted=len(hits) - 1,
+                        retry_after_s=refused["retry_after_s"],
+                        detail=refused.get("detail"))
+    return rec
+
+
+def _edge_b(work, fa, daemon, sock, tcp, alice, dev) -> dict:
+    """Phase 20 b (``run_edge``): report-only delta streams."""
+    from pwasm_tpu_torch.corpus import make_corpus
+    from pwasm_tpu_torch.service.client import ServiceClient
+
+    _q, lines = make_corpus(n_aln=220)
+    texts = {"cold": lines[:200], "promoted": lines,
+             "divergent": lines[:4] + [lines[210]] + lines[5:200]}
+    rec: dict = {}
+    for tag, ls in texts.items():
+        with open(f"{work}/c20_{tag}.paf", "w") as f:
+            f.write("".join(ln + "\n" for ln in ls))
+        cold = counted_cli(f"c20_{tag}_cold", [
+            f"{work}/c20_{tag}.paf", "-r", fa, "-o",
+            f"{work}/c20_{tag}_cold.report.dfa", f"--device={dev}",
+            f"--stats={work}/c20_{tag}_cold.json"])
+        rec[f"{tag}_cold"] = dict(wall_s=cold["wall_s"],
+                                  flushes=cold["launches"]["ctx_scan"])
+    for tag, ls in texts.items():
+        text = "".join(ln + "\n" for ln in ls)
+        modes: list = []
+
+        def chunks(parts):
+            # the daemon's hold state after each answered frame
+            for i, part in enumerate(parts):
+                if i:
+                    modes.append(daemon.jobs[max(daemon.jobs)]
+                                 .dstate["mode"])
+                yield part
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with ServiceClient(sock, client_token="streamer") as c:
+            r = c.stream(["-r", fa, "-o", f"{work}/c20_{tag}.report.dfa",
+                          f"--device={dev}",
+                          f"--stats={work}/c20_{tag}.json"],
+                         chunks(uneven_chunks(text, 80, 20)), delta=True)
+            if not r.get("ok"):
+                raise AssertionError(f"b {tag}: stream {r}")
+            res = c.result(r["job_id"], timeout=300)
+        wall = time.perf_counter() - t0
+        job = daemon.jobs[r["job_id"]]
+        with open(f"{work}/c20_{tag}.json") as f:
+            st = json.load(f)
+        with open(f"{work}/c20_{tag}.report.dfa", "rb") as f, \
+                open(f"{work}/c20_{tag}_cold.report.dfa", "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"b {tag}: the report differs from "
+                                     "a cold run of its file")
+        rec[tag] = dict(wall_s=wall, launches=launches_since(before),
+                        modes=sorted(set(modes)), first=modes[:1],
+                        state=res["job"]["state"],
+                        delta=[st.get("cache_records_served"),
+                               st.get("cache_records_total")],
+                        resumed_past=st.get("resumed_past"),
+                        resume="--resume" in job.argv)
+    c0, p, d = rec["cold"], rec["promoted"], rec["divergent"]
+    fam = daemon.jobs[max(daemon.jobs)].dstate["family"]
+    index = sorted(nl for nl, _dx in daemon.cache.delta_index(fam))
+    if c0["modes"] != ["resolved"] or c0["resume"] \
+            or c0["delta"] != [None, None]:
+        raise AssertionError(f"b: the first stream {c0}")
+    if p["first"] != ["holding"] or p["modes"] != ["holding",
+                                                    "resolved"] \
+            or not p["resume"] or p["delta"] != [199, 220] \
+            or p["resumed_past"] != 199 \
+            or p["launches"]["ctx_scan"].get(dev, 0) < 1:
+        raise AssertionError(f"b: the grown stream {p}")
+    if d["first"] != ["holding"] or d["resume"] \
+            or d["delta"] != [None, None]:
+        raise AssertionError(f"b: the divergent stream {d}")
+    if index != [200, 200, 220]:
+        raise AssertionError(f"b: the family's delta index {index}")
+    rc, out, err, svc_s = run_client(tcp, "svc-stats", *alice)
+    svc = json.loads(out) if rc == 0 else {}
+    cache = svc.get("cache", {})
+    if (cache.get("delta_hits"), cache.get("delta_records_served"),
+            cache.get("delta_records_total")) != (1, 199, 220):
+        raise AssertionError(f"b: svc-stats rc {rc}: {out[:800]} "
+                             f"{err[-800:]}")
+    rec["cache"] = cache
+    rec["index"] = index
+    rec["svc_stats_s"] = svc_s
+    rec["cold_grown_s"] = rec["promoted_cold"]["wall_s"]
+    rec["cold_grown_flushes"] = rec["promoted_cold"]["flushes"]
+    return rec
+
+
 def abandoned_threads_done(limit_s: float = 30.0) -> int:
     """Wait for the supervisor's abandoned attempt threads (``pwasm-*``,
     left running at their deadline) to end; returns how many there
@@ -5058,6 +5405,18 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="cache", nvidia_smi=smi, **cache))
     cl = cache["d"]["launches"]
 
+    # 20. the daemon's edge and its delta streams: TLS with client
+    # certificates, scoped tokens and the rate limit in front of an
+    # mTLS-served job; delta streams held against the result cache
+    edge = run_edge(work, paf, fa, runs["cuda"]["outputs"], smi)
+    emit(dict(phase="edge", nvidia_smi=smi, **edge))
+
+    def edge_runs(kernel: str) -> dict:
+        """A kernel's launches in each of phase 20's served runs."""
+        return dict(mtls=edge["a"]["launches"][kernel],
+                    **{f"stream_{k}": edge["b"][k]["launches"][kernel]
+                       for k in ("cold", "promoted", "divergent")})
+
     def cache_runs(kernel: str) -> dict:
         """A kernel's launches in each of phase 19's runs."""
         return dict(cli_miss=cache["a"]["miss_launches"][kernel],
@@ -5076,7 +5435,7 @@ def main(argv: list[str]) -> int:
             k: rec[k] for k in ("equal", "max_abs_err", "plain_host_s",
                                 "process_s")}))
 
-    # 20. the kernels line, the card, the verdict
+    # 21. the kernels line, the card, the verdict
     re_err = max(long_read["max_abs_err"],
                  *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
@@ -5107,6 +5466,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/consensus.py:92",
         launches=main_launches,
         cache_launches=cache_runs("consensus"),
+        edge_launches=edge_runs("consensus"),
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
@@ -5129,6 +5489,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/realign.py:383",
         launches=re_launches["fwdptr"],
         cache_launches=cache_runs("fwdptr"),
+        edge_launches=edge_runs("fwdptr"),
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
@@ -5150,6 +5511,7 @@ def main(argv: list[str]) -> int:
         # walk)
         launches=long_launches["fwdptr_long"],
         cache_launches=cache_runs("fwdptr_long"),
+        edge_launches=edge_runs("fwdptr_long"),
         follow_launches=follow_launches["fwdptr_long"],
         serve_launches=serve_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
@@ -5164,6 +5526,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/realign.py:515",
         launches=re_launches["walk"],
         cache_launches=cache_runs("walk"),
+        edge_launches=edge_runs("walk"),
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
@@ -5189,6 +5552,7 @@ def main(argv: list[str]) -> int:
         replaces="pwasm_tpu/ops/banded_dp.py:310",
         launches=m2m_launches["scores"],
         cache_launches=cache_runs("scores"),
+        edge_launches=edge_runs("scores"),
         library_launches=library["score_launches"].get("scores", 0),
         host_1core=library["scores_host"], max_abs_err=sc_err,
         ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
@@ -5207,6 +5571,7 @@ def main(argv: list[str]) -> int:
         # card)
         launches=m2m_long["launches"]["scores_long"],
         cache_launches=cache_runs("scores_long"),
+        edge_launches=edge_runs("scores_long"),
         config5_launches=cfg5["launches"]["scores_long"],
         max_abs_err=max(sc_err, cfg5["max_abs_err"],
                         m2m_long["max_abs_err"]),

@@ -250,8 +250,8 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
 
 # options and subcommands of the reference that later slices of the
 # port bring, each naming its slice (ROADMAP.md queue A)
-_A9C = ("slice A9c of the service (security, the SLO engine, the canary "
-        "and the operator verbs)")
+_A9C = ("slice A9c of the service (self-monitoring: the SLO engine, the "
+        "canary and the operator verbs)")
 _LATER_OPTS = {"m2m-stream": "slice A10 (surveil)"}
 _LATER_CMDS = {"top": _A9C, "health": _A9C, "logs": _A9C,
                "route": "slice A11 (fleet)"}

@@ -2,8 +2,9 @@
 TLS-wrapped) TCP.
 
 Counterpart of ``pwasm_tpu/fleet/transport.py``, copied whole.  The
-port's daemon and client use its unix and plain-TCP halves; the
-``--tls-*`` options that arm its TLS half come with a later slice.
+port's daemon and client use all of it: the unix and TCP listeners,
+and the TLS half that ``serve --tls-*`` and the client's ``--tls-*``
+options arm.
 
 Every service surface (``serve``, ``submit``, ``route``, ``top``,
 ``svc-stats``) names its peer with one *target* string:

@@ -23,8 +23,11 @@ report jobs over a unix socket (and, with ``--listen``, TCP):
                 ``svc-stats``, ``metrics``, ``inspect``) and the
                 :class:`~pwasm_tpu_torch.service.client.ServiceClient`
                 library the tests and ``chip_smoke.py`` drive;
-- ``cache``     the byte ledger the spool is charged to (the result
-                cache itself comes with a later slice).
+- ``cache``     the result cache (keys, digests, the store and its
+                delta index) and the byte ledger the spool and the
+                cache are charged to;
+- ``authz``     the scoped capability tokens of ``serve
+                --auth-tokens`` and the brute-force penalty box.
 
 Jobs execute through the same ``cli.run`` path as a cold run, so
 outputs stay byte-identical to it: the serve process changes wall

@@ -10,11 +10,14 @@ argv after ``--`` (or after the client flags) is exactly what a cold
 ``python -m pwasm_tpu_torch`` invocation would take, and the client's
 exit code is the job's exit code — so a wrapper can switch between
 cold runs and warm submissions by prefixing ``submit --socket=PATH
---`` and nothing else changes.  The reference's ``health`` and
-``logs`` verbs, its TLS options and its delta streams come with later
-slices of the port.  ``cache-probe`` is the port's own verb over the
-reference's protocol command: the client derives the job's cache key
-(``service/cache.py``) and asks whether the daemon holds it.
+--`` and nothing else changes.  On a TCP target, ``--tls-ca`` (and,
+for mTLS, ``--tls-cert``/``--tls-key``) speak TLS to a ``serve
+--tls-cert`` daemon; ``ServiceClient.stream(..., delta=True)`` opens a
+delta stream.  The reference's ``health`` and ``logs`` verbs come
+with a later slice of the port.  ``cache-probe`` is the port's own
+verb over the reference's protocol command: the client derives the
+job's cache key (``service/cache.py``) and asks whether the daemon
+holds it.
 """
 
 from __future__ import annotations
@@ -36,7 +39,10 @@ _CLIENT_USAGE = """Usage:
  --listen` daemon).  On TCP
  there is no kernel peer credential, so pass --client-token=TOK to
  claim a fair-share identity (jobs bucket under tok:TOK); untokened
- TCP submits share the anonymous bucket.
+ TCP submits share the anonymous bucket.  Every verb takes
+ --tls-ca=PEM to speak TLS to a `serve --tls-cert` daemon (the CA that
+ vouches for it), and --tls-cert=PEM --tls-key=PEM with it to present
+ a client certificate (mTLS: the daemon names this peer cn:<CN>).
      submit one report job (the argv a cold CLI run would take; -o is
      required — the socket carries control, not report bytes).  By
      default waits for the job and exits with the JOB's exit code
@@ -143,13 +149,17 @@ class ServiceClient:
                  max_frame_bytes: int = protocol.MAX_FRAME_BYTES,
                  trace_id: str | None = None,
                  client_token: str | None = None,
-                 deadline_s: float | None = None):
+                 deadline_s: float | None = None,
+                 tls=None):
         from pwasm_tpu_torch.fleet.transport import connect
         from pwasm_tpu_torch.obs.events import new_run_id
         self.socket_path = socket_path
         self.max_frame_bytes = max_frame_bytes
         self.trace_id = trace_id or new_run_id()
         self.client_token = client_token
+        # TLS client config (transport.ClientTLS): applies to TCP
+        # targets only — a unix-socket connect ignores it
+        self.tls = tls
         # ---- end-to-end deadline: --deadline-s mints ONE
         # monotonic deadline for this connection's jobs; every frame
         # carries the REMAINING budget as integer deadline_ms, so each
@@ -160,7 +170,8 @@ class ServiceClient:
         self._deadline_mono = (time.monotonic() + deadline_s
                                if deadline_s else None)
         try:
-            self._sock = connect(socket_path, timeout=timeout)
+            self._sock = connect(socket_path, timeout=timeout,
+                                 tls=tls)
         except (OSError, ValueError) as e:
             raise ServiceError(
                 f"cannot connect to service target {socket_path}: "
@@ -270,10 +281,16 @@ class ServiceClient:
     # ---- streaming ingestion -----------------------
     def stream_open(self, argv: list[str], cwd: str | None = None,
                     client: str | None = None,
-                    priority: str | None = None) -> dict:
+                    priority: str | None = None,
+                    delta: bool = False) -> dict:
         """Admit a stream job: ``argv`` is a submit-shaped job argv
         WITHOUT a positional PAF (the records arrive over
-        ``stream_data``)."""
+        ``stream_data``).  ``delta=True`` opts the stream into the
+        cache's delta classification: the daemon holds early frames
+        against its result cache's per-line digest columns, and a
+        stream whose records extend a cached run is served that run's
+        report and re-armed as a --resume — the file-side delta
+        contract, over the socket."""
         import os
         req: dict = {"cmd": "stream", "args": list(argv),
                      "cwd": cwd if cwd is not None else os.getcwd()}
@@ -281,13 +298,22 @@ class ServiceClient:
             req["client"] = client
         if priority is not None:
             req["priority"] = priority
+        if delta:
+            req["delta"] = True
         return self._req(req)
 
-    def stream_data(self, job_id: str, data: str) -> dict:
+    def stream_data(self, job_id: str, data: str,
+                    digests: list[str] | None = None) -> dict:
         """Feed one chunk of PAF text (any byte split — the daemon
-        reassembles records across frames)."""
-        return self._req({"cmd": "stream-data", "job_id": job_id,
-                          "data": data})
+        reassembles records across frames).  ``digests`` (optional,
+        delta streams) carries the 16-hex per-line digests of the
+        lines this chunk completes — advisory: the daemon recomputes
+        its own column and refuses the frame on disagreement."""
+        req: dict = {"cmd": "stream-data", "job_id": job_id,
+                     "data": data}
+        if digests is not None:
+            req["digests"] = digests
+        return self._req(req)
 
     def stream_end(self, job_id: str) -> dict:
         return self._req({"cmd": "stream-end", "job_id": job_id})
@@ -296,7 +322,8 @@ class ServiceClient:
                cwd: str | None = None, client: str | None = None,
                priority: str | None = None, max_retries: int = 8,
                sleep=time.sleep,
-               keepalive_s: float | None = None) -> dict:
+               keepalive_s: float | None = None,
+               delta: bool = False) -> dict:
         """Open a stream job, feed every chunk from ``chunks``, and
         end the stream — with the backpressure dance built in: a
         ``queue_full`` mid-stream (the stream's buffer quota or fair
@@ -321,10 +348,19 @@ class ServiceClient:
         stream activity, so the daemon's ``--stream-idle-s`` reaper
         never mistakes a slow producer for a vanished client."""
         resp = self.stream_open(argv, cwd=cwd, client=client,
-                                priority=priority)
+                                priority=priority, delta=delta)
         if not resp.get("ok"):
             return resp
         job_id = resp["job_id"]
+        masm = None
+        if delta:
+            # mirror the daemon's line assembly so each frame carries
+            # the digests of exactly the lines it completes (the
+            # daemon cross-checks; state advances once per chunk, so
+            # a backpressure resend repeats identical digests)
+            from pwasm_tpu_torch.service.cache import line_digest
+            from pwasm_tpu_torch.stream.pafstream import LineAssembler
+            masm = LineAssembler()
         stop = beat = None
         if keepalive_s:
             import threading
@@ -337,7 +373,8 @@ class ServiceClient:
                 try:
                     with ServiceClient(self.socket_path,
                                        trace_id=self.trace_id,
-                                       client_token=self.client_token) \
+                                       client_token=self.client_token,
+                                       tls=self.tls) \
                             as kc:
                         while not stop.wait(keepalive_s):
                             if not kc.stream_data(job_id,
@@ -352,8 +389,10 @@ class ServiceClient:
         try:
             for chunk in chunks:
                 attempt = 0
+                digs = [line_digest(ln) for ln in masm.push(chunk)] \
+                    if masm is not None else None
                 while True:
-                    r = self.stream_data(job_id, chunk)
+                    r = self.stream_data(job_id, chunk, digests=digs)
                     if r.get("ok"):
                         break
                     if r.get("error") != protocol.ERR_QUEUE_FULL:
@@ -372,9 +411,20 @@ class ServiceClient:
             if stop is not None:
                 stop.set()
                 beat.join(5)
-        end = self.stream_end(job_id)
-        if not end.get("ok"):
-            raise ServiceError(f"stream-end rejected: {end}")
+        attempt = 0
+        while True:
+            # a delta-held stream resolves AT stream-end (a late queue
+            # entry), so even the end frame can answer queue_full —
+            # the same backoff-and-resend as a data frame
+            end = self.stream_end(job_id)
+            if end.get("ok"):
+                break
+            if end.get("error") != protocol.ERR_QUEUE_FULL \
+                    or attempt >= max_retries:
+                raise ServiceError(f"stream-end rejected: {end}")
+            sleep(retry_backoff_s(attempt, end.get("retry_after_s")))
+            waits += 1
+            attempt += 1
         resp["records"] = end.get("records")
         resp["backpressure_waits"] = waits
         return resp
@@ -447,8 +497,7 @@ def _parse_client_argv(argv: list[str],
     (``--exemplars`` on metrics, ``--deadline-s`` on submit and
     stream) are recognized ONLY for their verb — on any other verb
     they fall through to the job argv and fail its validation loudly
-    instead of being silently swallowed.  The TLS flags are noted
-    under ``later``: they come with a later slice."""
+    instead of being silently swallowed."""
     opts: dict = {}
     i = 0
     while i < len(argv):
@@ -481,9 +530,12 @@ def _parse_client_argv(argv: list[str],
             opts["trace_id"] = a.split("=", 1)[1]
         elif a.startswith("--trace-json="):
             opts["trace_json"] = a.split("=", 1)[1]
-        elif a.split("=", 1)[0] in ("--tls-ca", "--tls-cert",
-                                    "--tls-key"):
-            opts["later"] = a.split("=", 1)[0]
+        elif a.startswith("--tls-ca="):
+            opts["tls_ca"] = a.split("=", 1)[1]
+        elif a.startswith("--tls-cert="):
+            opts["tls_cert"] = a.split("=", 1)[1]
+        elif a.startswith("--tls-key="):
+            opts["tls_key"] = a.split("=", 1)[1]
         elif a == "--exemplars" and cmd == "metrics":
             opts["exemplars"] = True
         elif a.split("=", 1)[0] in ("--key", "--family") \
@@ -532,7 +584,7 @@ def _job_verdict(resp: dict, job_id: str, stdout, stderr,
 
 
 def _cache_probe_main(sock: str, opts: dict, job_argv: list[str],
-                      stdout, stderr) -> int:
+                      stdout, stderr, tls=None) -> int:
     """The ``cache-probe`` verb: the job argv's exact key and delta
     family (or ``--key``/``--family``), asked of the daemon."""
     key, family = opts.get("key"), opts.get("family")
@@ -554,7 +606,8 @@ def _cache_probe_main(sock: str, opts: dict, job_argv: list[str],
                      "job's CLI arguments or --key=HEX\n")
         return EXIT_USAGE
     with ServiceClient(sock, trace_id=opts.get("trace_id"),
-                       client_token=opts.get("client_token")) as c:
+                       client_token=opts.get("client_token"),
+                       tls=tls) as c:
         resp = c.cache_probe(key, family)
     if not resp.get("ok"):
         stderr.write(f"Error: cache-probe failed "
@@ -574,12 +627,25 @@ def client_main(cmd: str, argv: list[str], stdout=None,
     stdout = stdout if stdout is not None else sys.stdout
     stderr = stderr if stderr is not None else sys.stderr
     opts, job_argv = _parse_client_argv(argv, cmd)
-    if "later" in opts:
-        stderr.write(f"Error: {cmd} {opts['later']} is not ported to "
-                     "pwasm_tpu_torch yet; it comes with slice A9c "
-                     "(TLS)\n")
-        return EXIT_USAGE
     sock = opts.get("socket")
+    # TLS client config: --tls-ca verifies the server, --tls-cert and
+    # --tls-key present a client certificate (mTLS).  It applies to
+    # TCP targets; a unix-socket connect ignores it
+    tls = None
+    if "tls_ca" in opts:
+        from pwasm_tpu_torch.fleet.transport import ClientTLS
+        try:
+            tls = ClientTLS(opts["tls_ca"],
+                            certfile=opts.get("tls_cert"),
+                            keyfile=opts.get("tls_key"))
+        except ValueError as e:
+            stderr.write(f"Error: {e}\n")
+            return EXIT_USAGE
+    elif "tls_cert" in opts or "tls_key" in opts:
+        stderr.write(f"{_CLIENT_USAGE}\nError: --tls-cert/--tls-key "
+                     "need --tls-ca=PEM (the CA that vouches for "
+                     "the server)\n")
+        return EXIT_USAGE
     if not sock:
         stderr.write(f"{_CLIENT_USAGE}\nError: --socket=PATH is "
                      "required\n")
@@ -634,7 +700,8 @@ def client_main(cmd: str, argv: list[str], stdout=None,
         if cmd == "metrics":
             with ServiceClient(
                     sock, trace_id=opts.get("trace_id"),
-                    client_token=opts.get("client_token")) as c:
+                    client_token=opts.get("client_token"),
+                    tls=tls) as c:
                 resp = c.metrics(
                     exemplars=bool(opts.get("exemplars")))
             if not resp.get("ok"):
@@ -649,7 +716,8 @@ def client_main(cmd: str, argv: list[str], stdout=None,
                 return EXIT_USAGE
             with ServiceClient(
                     sock, trace_id=opts.get("trace_id"),
-                    client_token=opts.get("client_token")) as c:
+                    client_token=opts.get("client_token"),
+                    tls=tls) as c:
                 resp = c.inspect(job_argv[0])
             if not resp.get("ok"):
                 stderr.write(f"Error: inspect failed "
@@ -666,11 +734,12 @@ def client_main(cmd: str, argv: list[str], stdout=None,
             return 0
         if cmd == "cache-probe":
             return _cache_probe_main(sock, opts, job_argv, stdout,
-                                     stderr)
+                                     stderr, tls=tls)
         if cmd == "svc-stats":
             with ServiceClient(
                     sock, trace_id=opts.get("trace_id"),
-                    client_token=opts.get("client_token")) as c:
+                    client_token=opts.get("client_token"),
+                    tls=tls) as c:
                 if opts.get("drain"):
                     resp = c.drain()
                     if not resp.get("ok"):
@@ -706,7 +775,7 @@ def client_main(cmd: str, argv: list[str], stdout=None,
             with ServiceClient(
                     sock, trace_id=opts.get("trace_id"),
                     client_token=opts.get("client_token"),
-                    deadline_s=deadline_s) as c:
+                    deadline_s=deadline_s, tls=tls) as c:
                 t0 = tracer.now() if tracer is not None else 0.0
                 resp = c.stream(job_argv, src,
                                 client=opts.get("client"),
@@ -744,7 +813,7 @@ def client_main(cmd: str, argv: list[str], stdout=None,
         with ServiceClient(
                 sock, trace_id=opts.get("trace_id"),
                 client_token=opts.get("client_token"),
-                deadline_s=deadline_s) as c:
+                deadline_s=deadline_s, tls=tls) as c:
             for attempt in range(retries + 1):
                 t0 = tracer.now() if tracer is not None else 0.0
                 resp = c.submit(job_argv, client=opts.get("client"),

@@ -41,12 +41,19 @@ surface, fanned out to per-job drain flags.
 - **one build directory** (``--compile-cache-dir=DIR``): where every
   job builds and finds the kernels and the C++ engine; set once for
   the process, so a job's own ``--compile-cache-dir`` is not used.
+  A ``stream`` opened with ``"delta": true`` is held against the
+  cache's per-line digest columns: a stream whose records extend a
+  cached run is served that run's report and queued as a
+  ``--resume`` of the tail;
+- **one edge** (all opt-in): TLS and mTLS on the ``--listen`` TCP
+  listener, scoped capability tokens (``--auth-tokens``,
+  ``service/authz.py``) checked before any verb runs, and a
+  per-identity token bucket (``--rate-limit``) in front of admission.
 
 What the reference's daemon also does and the port's does not yet:
-delta streams (``stream`` with ``"delta": true``) come with slice
-A9d; the SLO engine (``--slo-rules=FILE``, the ``health`` verb), the
-canary, the ``logs`` verb, TLS, ``--auth-tokens`` and ``--rate-limit``
-with A9c.  Until then the daemon behaves as the reference's does under
+the SLO engine (``--slo-rules=FILE``, the ``health`` verb), the
+canary and the ``logs`` verb come with the rest of slice A9c.  Until
+then the daemon behaves as the reference's does under
 ``--slo-rules=off``, and a submitted argv that needs a later slice is
 answered at admission, before anything queues.
 """
@@ -98,6 +105,9 @@ _SERVE_USAGE = """Usage:
                  [--result-cache=DIR|off]
                  [--result-cache-max-bytes=N]
                  [--cache-prefetch[=N]]
+                 [--tls-cert=PEM --tls-key=PEM
+                  [--tls-client-ca=PEM]]
+                 [--auth-tokens=FILE] [--rate-limit=N[/s][:burst]]
 
    --socket=PATH        unix socket to listen on (required)
    --listen=HOST:PORT   ALSO serve the same protocol over plain TCP
@@ -216,6 +226,35 @@ _SERVE_USAGE = """Usage:
                         through a verified read (bare: 64), so a
                         daemon restarted on a populated directory
                         serves its first repeat job from a warm cache
+   --tls-cert=PEM --tls-key=PEM  upgrade the --listen TCP listener to
+                        TLS (stdlib ssl, TLS1.2+ floor; the unix
+                        socket keeps kernel peer credentials and
+                        never wraps).  Handshake failures — plaintext
+                        probes, downgrades, bad certs — are counted
+                        (pwasm_transport_tls_handshake_failures_total)
+                        and answered with a loud close, never a hang
+   --tls-client-ca=PEM  require mTLS: client certificates verified
+                        against this CA, and the peer certificate's
+                        CN becomes the connection's ATTESTED identity
+                        (cn:<name>, ranking above client_token in the
+                        resolution order)
+   --auth-tokens=FILE   scoped capability tokens (service/authz.py):
+                        FILE maps principal (token, cn:<name>,
+                        uid:<n>, or the "*" default) -> scopes from
+                        {submit, read, cancel-own, admin}.  Control-
+                        plane verbs (drain, lease-grant, fence) need
+                        admin; cancel needs ownership or admin; an
+                        unauthorized frame answers `unauthorized`
+                        having changed no queue/journal state.  The
+                        file hot-reloads on the accept-loop tick
+                        (CRC'd, keep-last-good).  Unset = every verb
+                        open
+   --rate-limit=N[/s][:burst]  per-identity token bucket in front of
+                        admission (submit/stream): past N requests/s
+                        (bucket depth `burst`, default max(1,N)) a
+                        client's frame answers `overloaded` with a
+                        truthful retry_after_s — one hot loop cannot
+                        starve admission for everyone else
 
  SIGTERM/SIGINT (or the `drain` protocol command) drains gracefully:
  in-flight jobs finish at their next batch boundary and checkpoint,
@@ -225,19 +264,11 @@ _SERVE_USAGE = """Usage:
 
 # the reference's serve options that later slices of the port bring,
 # each naming its slice (ROADMAP.md queue A)
-_LATER_SERVE = dict.fromkeys(
-    ("canary-interval", "tls-cert", "tls-key", "tls-client-ca",
-     "auth-tokens", "rate-limit"),
-    "A9c (security, the SLO engine and the canary)")
+_LATER_SERVE = {"canary-interval": "A9c (self-monitoring: the canary)"}
 
 # the reference's protocol verbs that later slices bring
-_LATER_CMDS = {"health": "A9c (the SLO engine)",
-               "logs": "A9c (the log query)"}
-
-# the reference's delta streams (``stream`` with ``"delta": true``)
-DELTA_STREAMS_LATER = ("delta streams are not ported to pwasm_tpu_torch "
-                       "yet; they come with slice A9d (the result cache's "
-                       "delta streams)")
+_LATER_CMDS = {"health": "A9c (self-monitoring: the SLO engine)",
+               "logs": "A9c (self-monitoring: the log query)"}
 
 
 # fair-share client identities double as metric label values and
@@ -366,7 +397,9 @@ class Daemon:
                  result_cache: str | None = None,
                  result_cache_max_bytes: int | None = None,
                  result_cache_ttl_s: float | None = None,
-                 cache_prefetch: int | None = None):
+                 cache_prefetch: int | None = None,
+                 tls=None, auth_tokens: str | None = None,
+                 rate_limit: tuple | None = None):
         self.socket_path = socket_path
         # an optional plain-TCP listener joining the unix socket — same
         # protocol, token-based client identity (no SO_PEERCRED on
@@ -527,7 +560,29 @@ class Daemon:
         # pwasm_service_breaker_state gauge
         self.run_metrics = build_run_metrics(self.registry,
                                              include_live=False)
-        build_transport_metrics(self.registry)
+        # ---- the edge: TLS on the TCP listener (the handshake runs on
+        # each connection's own thread), scoped capability tokens, and
+        # a per-identity rate limit.  All three are opt-in: unarmed,
+        # every frame and output is what a daemon without them gives
+        self.transport_metrics = build_transport_metrics(self.registry)
+        self.tls = tls                     # transport.ServerTLS | None
+        self.auth = None
+        self._penalty = None
+        if auth_tokens:
+            from pwasm_tpu_torch.service.authz import (AuthRegistry,
+                                                       PenaltyBox)
+            # startup is fail-fast (the ValueError reaches serve_main
+            # as a usage error): a daemon must never come up OPEN
+            # because its token file was bad
+            self.auth = AuthRegistry(auth_tokens, say=self._say)
+            self._penalty = PenaltyBox()
+        self._auth_labels: set[str] = set()   # bounded label universe
+        #   for the per-client auth-failure counter (overflow -> other)
+        self.rate_limiter = None
+        if rate_limit is not None:
+            from pwasm_tpu_torch.service.queue import RateLimiter
+            self.rate_limiter = RateLimiter(rate_limit[0],
+                                            rate_limit[1])
         self.svc_metrics["max_queue"].set(self.queue.max_queue)
         self.svc_metrics["max_concurrent"].set(self.max_concurrent)
         self.svc_metrics["lanes"].set(self.leases.n_lanes)
@@ -697,6 +752,10 @@ class Daemon:
             try:
                 while True:
                     self._evict_results()
+                    if self.auth is not None:
+                        # token rotation without a restart: the file
+                        # hot-reloads on this tick (keep-last-good)
+                        self.auth.maybe_reload()
                     if self.epoch_lease.expired():
                         self._fence("lease TTL expired: heartbeats "
                                     "from the fleet router stopped")
@@ -1191,7 +1250,15 @@ class Daemon:
         self.leases.drain()    # wake lease-waiters empty-handed: their
         #                        jobs are preempted below by the worker
         waiting = self.queue.drain()
-        for job in waiting:
+        # delta-held streams are queued but not in the queue: the
+        # drain preempts them too, or they would hang forever
+        with self._lock:
+            held = [j for j in self.jobs.values()
+                    if j.state == JOB_QUEUED and j.dstate is not None
+                    and j.dstate.get("mode") == "holding"]
+        for j in held:
+            j.dstate["mode"] = "off"
+        for job in waiting + held:
             self._retire_stream(job)
             job.state = JOB_PREEMPTED
             job.rc = EXIT_PREEMPTED
@@ -1576,6 +1643,12 @@ class Daemon:
             # the outputs this run just wrote become the entry an
             # identical later submit is answered from at admission
             self._cache_insert(job)
+        elif job.state == JOB_DONE and job.dstate is not None \
+                and self.cache is not None:
+            # a delta-mirrored stream inserts too: its digest column
+            # is the delta index a later stream or file job of the
+            # same family extends
+            self._stream_cache_insert(job)
         # past every RAM consumer of job.stats: big results move to
         # the spool (index-only in RAM), then the terminal verdict —
         # with its spool pointer — lands durably in the journal
@@ -1635,7 +1708,8 @@ class Daemon:
                priority: str | None = None,
                stream: bool = False,
                trace_id: str | None = None,
-               deadline_ms: int | None = None) -> Job:
+               deadline_ms: int | None = None,
+               delta: bool = False) -> Job:
         """Validate + admit one job (raises Draining/QueueFull/
         ValueError).  Also the in-process API the tests drive.
         ``cwd`` is the CLIENT's working directory: relative paths in
@@ -1648,7 +1722,11 @@ class Daemon:
         ``stream`` protocol verb): its PAF records arrive later as
         ``stream-data`` frames, so the argv must carry no positional
         input, and the job gets a quota-gated StreamFeed plus lane
-        affinity to the client's previous stream."""
+        affinity to the client's previous stream.  ``delta=True`` (a
+        stream under ``--result-cache``) classifies the stream against
+        the cache's per-line digest columns: while a same-family entry
+        could still prefix-match, the job is HELD out of the queue and
+        its frames parked (``_delta_stream_data``)."""
         if not isinstance(argv, list) \
                 or not all(isinstance(a, str) for a in argv) \
                 or not argv:
@@ -1798,6 +1876,12 @@ class Daemon:
             with self._lock:
                 job.prefer_lane = self._client_lanes.get(client)
             self.streams.register(job.id, client, job.feed)
+            if delta and self.cache is not None:
+                # the daemon digests the stream's lines itself, so the
+                # stream is classified against the cache like a file
+                # input: a strict-prefix match serves the cached
+                # report and re-arms the job as a --resume over it
+                job.dstate = self._delta_stream_open(job_opts)
         # write-ahead order: the admit record lands BEFORE the queue
         # can hand the job to a worker — a worker only journals start
         # after a successful dequeue, so the file order admit < start
@@ -1823,7 +1907,12 @@ class Daemon:
                            served=delta_served[0],
                            total=delta_served[1])
         try:
-            self.queue.submit(job)
+            # a delta-HELD stream defers its queue entry: its frames
+            # promote it to a --resume, or it goes cold at the
+            # viability, cap or end boundary (_delta_stream_queue)
+            if not (job.dstate is not None
+                    and job.dstate.get("mode") == "holding"):
+                self.queue.submit(job)
         except (Draining, QueueFull):
             # the admission never happened: retract the id so replay
             # cannot resurrect a job the client was told was rejected
@@ -1913,7 +2002,12 @@ class Daemon:
         """A delta job finished cleanly: account the served fraction and
         stamp its stats (the result frame's and the client's own
         ``--stats`` file) ``cache_delta: true`` with the served and
-        total record counts."""
+        total record counts.  A held stream's promote fixed its served
+        count when only part of the input had arrived: its total is
+        the whole stream, known now."""
+        if job.stream and job.feed is not None:
+            job.delta = (job.delta[0],
+                         max(job.delta[1], job.feed.records_in))
         if self.cache is not None:
             self.cache.note_delta(*job.delta)
         if not isinstance(job.stats, dict):
@@ -1929,6 +2023,271 @@ class Daemon:
                     f.write("\n")
             except OSError:
                 pass
+
+    # ---- delta over socket streams ------------------------------------
+    #
+    # A file job's delta admission has the whole input in hand; a
+    # stream's input arrives one frame at a time.  So the stream-delta
+    # admission is a small state machine on Job.dstate:
+    #
+    #   holding  — frames are digested and PARKED (not fed, not
+    #              queued) while any same-family cache entry could
+    #              still prefix-match the growing digest column;
+    #   resolved — the job is queued (as a --resume over served
+    #              cached bytes, or cold); parked frames were
+    #              replayed into the feed, and the daemon keeps
+    #              mirroring the digest column so a clean finish
+    #              inserts a delta-indexed entry of its own;
+    #   off      — bookkeeping abandoned (cancel/drain while held).
+    #
+    # Digests are the SERVER's: the client's advisory column
+    # (stream-data "digests") is cross-checked, never trusted — a
+    # disagreement is a loud bad_request, not a wrong serve.
+
+    def _delta_stream_open(self, job_opts: dict) -> dict | None:
+        """Classify a delta-opted stream against the cache; ``None``
+        when the shape can never delta-match (bypass flag, non-report
+        output, unreadable ref) — the stream then runs exactly as a
+        non-delta stream."""
+        from pwasm_tpu_torch.service.cache import (DELTA_MAX_LINES,
+                                                   classify_stream,
+                                                   delta_eligible,
+                                                   stream_keys)
+        from pwasm_tpu_torch.stream.pafstream import LineAssembler
+        cls = classify_stream(job_opts)
+        if cls is None or not delta_eligible(cls):
+            return None
+        keys = stream_keys(cls, [])
+        if keys is None:
+            return None
+        cands = self.cache.delta_index(keys[1])
+        return {
+            # no candidates = nothing to wait for: queue now, mirror
+            # only (this stream still INSERTS a delta entry at finish)
+            "mode": "holding" if cands else "resolved",
+            "cls": cls, "family": keys[1],
+            "digests": [], "held": [],
+            "asm": LineAssembler(),
+            "cands": cands,
+            # parked lines stay under the per-stream buffer quota the
+            # feed itself would have enforced
+            "cap": min(self.streams.max_buffer, DELTA_MAX_LINES),
+        }
+
+    def _delta_stream_queue(self, job: Job) -> dict | None:
+        """Late queue entry for a held stream; an error response means
+        the hold state is UNCHANGED and the triggering frame (or
+        stream-end) resends after backoff — the same all-or-nothing
+        contract every stream frame has."""
+        try:
+            self.queue.submit(job)
+        except Draining as e:
+            return protocol.err(protocol.ERR_DRAINING, str(e))
+        except QueueFull as e:
+            return protocol.err(
+                protocol.ERR_QUEUE_FULL, str(e),
+                queue_depth=self.queue.depth(),
+                max_queue=self.queue.max_queue,
+                retry_after_s=self._retry_after_s())
+        return None
+
+    def _delta_stream_replay(self, job: Job, extra: list,
+                             end: bool = False) -> None:
+        """Feed the parked frames (plus the triggering frame) into the
+        now-queued job's StreamFeed, committing the digest mirror for
+        the triggering frame as the feed commits its lines."""
+        from pwasm_tpu_torch.service.cache import line_digest
+        ds = job.dstate
+        feed = job.feed
+        for fr in ds["held"] + list(extra):
+            n = feed.completed(fr)
+            if n:
+                try:
+                    self.streams.admit(job.id, n)
+                except QueueFull:
+                    # the hold cap kept parked lines under the
+                    # per-stream quota; a shared-total squeeze here is
+                    # transient — backpressure resumes on the next
+                    # LIVE frame, and parked frames cannot be dropped
+                    # (they were acked)
+                    pass
+            fed = feed.feed(fr)
+            if fed:
+                self.stream_metrics["records"].inc(
+                    fed, client=job.client or "default")
+        for fr in extra:
+            for ln in ds["asm"].push(fr):
+                ds["digests"].append(line_digest(ln))
+        ds["held"] = []
+        if end:
+            for tail in ds["asm"].flush():
+                ds["digests"].append(line_digest(tail))
+            feed.end()
+
+    def _delta_stream_go_cold(self, job: Job, extra: list,
+                              end: bool = False) -> dict | None:
+        ds = job.dstate
+        err = self._delta_stream_queue(job)
+        if err is not None:
+            return err
+        self._delta_stream_replay(job, extra, end=end)
+        ds["mode"] = "resolved"
+        return None
+
+    def _delta_stream_promote(self, job: Job, hit: tuple,
+                              digests: list, extra: list,
+                              end: bool = False) -> dict | None:
+        """Serve a delta hit to a held stream: cached report bytes out,
+        job re-armed as a --resume, queued, parked frames replayed.
+        Falls back to a cold run on any write failure — delta is an
+        optimization, never a correctness gate."""
+        ds = job.dstate
+        _key, _manifest, blobs, nl = hit
+        report = ds["cls"].output_paths.get("o")
+        served = None
+        if report is not None and "o" in blobs:
+            try:
+                with open(report, "wb") as f:
+                    f.write(blobs["o"])
+                from pwasm_tpu_torch.cli import _unlink_checkpoint
+                _unlink_checkpoint(report)
+                served = (max(0, nl - 1), len(digests))
+            except OSError:
+                served = None
+        if served is None:
+            return self._delta_stream_go_cold(job, extra, end=end)
+        # arm BEFORE queueing — a worker may dequeue at once, and it
+        # must see the --resume and the served report
+        job.argv.append("--resume")
+        job.delta = served
+        err = self._delta_stream_queue(job)
+        if err is not None:
+            # unwind so the client's verbatim resend resolves again
+            # cleanly (the report file is written again then)
+            job.argv.pop()
+            job.delta = None
+            return err
+        self._journal_append(REC_CACHE_HIT, job_id=job.id,
+                             delta=True, served=served[0],
+                             total=served[1])
+        self.obs.event("cache_delta", job_id=job.id,
+                       trace_id=job.trace_id,
+                       served=served[0], total=served[1])
+        self._delta_stream_replay(job, extra, end=end)
+        ds["digests"] = list(digests)
+        ds["mode"] = "resolved"
+        return None
+
+    def _delta_stream_data(self, job: Job, req: dict,
+                           data: str) -> dict:
+        """One stream-data frame while HELD: digest its lines, decide
+        hit / keep-holding / go-cold, answer the client."""
+        from pwasm_tpu_torch.service.cache import line_digest
+        ds = job.dstate
+        feed = job.feed
+        asm = ds["asm"]
+        lines = asm.preview(data)
+        if not lines and data:
+            from pwasm_tpu_torch.stream.pafstream import MAX_RECORD_BYTES
+            if len(asm.pending) + len(data) > MAX_RECORD_BYTES:
+                return protocol.err(
+                    protocol.ERR_BAD_REQUEST,
+                    f"unterminated PAF record exceeds "
+                    f"{MAX_RECORD_BYTES} bytes — stream-data frames "
+                    "must eventually carry a newline")
+        digs = [line_digest(ln) for ln in lines]
+        cdigs = req.get("digests")
+        if cdigs is not None and list(cdigs) != digs:
+            return protocol.err(
+                protocol.ERR_BAD_REQUEST,
+                "stream-data digests disagree with the server's own "
+                "line digests — refusing to classify this stream "
+                "against the cache (client-side assembler bug?)")
+        new = ds["digests"] + digs
+        joined = "".join(new)
+        # a candidate fully inside our column decides NOW
+        if any(nl < len(new) and dx == joined[:len(dx)]
+               for nl, dx in ds["cands"]):
+            hit = self.cache.delta_lookup(ds["family"], new)
+            if hit is not None:
+                err = self._delta_stream_promote(job, hit, new,
+                                                 extra=[data])
+                if err is not None:
+                    return err
+                return protocol.ok(buffered=feed.buffered,
+                                   records=feed.records_in)
+            # the snapshot rotted under us: refresh and fall through
+            ds["cands"] = self.cache.delta_index(ds["family"])
+        # still worth holding?  some candidate our column prefixes
+        # (longer = a strict hit later; equal = an exact-length hit at
+        # stream-end) and the parked lines stay under the buffer quota
+        viable = any(nl >= len(new) and dx[:len(joined)] == joined
+                     for nl, dx in ds["cands"])
+        if viable and len(new) <= ds["cap"]:
+            ds["held"].append(data)
+            ds["digests"] = new
+            asm.push(data)
+            return protocol.ok(buffered=len(new), records=len(new))
+        err = self._delta_stream_go_cold(job, extra=[data])
+        if err is not None:
+            return err
+        return protocol.ok(buffered=feed.buffered,
+                           records=feed.records_in)
+
+    def _delta_stream_finish(self, job: Job) -> dict:
+        """stream-end while HELD: the column is final — one last
+        lookup with exact-length matches allowed, then promote or run
+        cold over the replayed frames."""
+        from pwasm_tpu_torch.service.cache import line_digest
+        ds = job.dstate
+        feed = job.feed
+        tail = ds["asm"].pending
+        final = ds["digests"] + ([line_digest(tail)] if tail else [])
+        hit = self.cache.delta_lookup(ds["family"], final,
+                                      allow_equal=True) \
+            if len(final) >= 2 else None
+        if hit is not None:
+            err = self._delta_stream_promote(job, hit, final,
+                                             extra=[], end=True)
+        else:
+            err = self._delta_stream_go_cold(job, extra=[], end=True)
+        if err is not None:
+            return err
+        return protocol.ok(records=feed.records_in,
+                           buffered=feed.buffered)
+
+    def _stream_cache_insert(self, job: Job) -> None:
+        """A cleanly finished delta-mirrored stream becomes a cache
+        entry with a per-line delta index — the next stream (or FILE
+        job: the family namespace is shared) that extends this one is
+        served as a delta.  Every guard degrades to 'no insert'."""
+        from pwasm_tpu_torch.service.cache import (DELTA_MAX_LINES,
+                                                   stream_keys)
+        ds = job.dstate
+        feed = job.feed
+        digests = ds.get("digests") or []
+        if ds.get("mode") != "resolved" or feed is None \
+                or not feed.ended \
+                or feed.records_in != len(digests) \
+                or len(digests) < 2 or len(digests) > DELTA_MAX_LINES:
+            return
+        keys = stream_keys(ds["cls"], digests)
+        if keys is None:
+            return
+        report = ds["cls"].output_paths.get("o")
+        if report is None:
+            return
+        try:
+            with open(report, "rb") as f:
+                blob = f.read()
+        except OSError:
+            return
+        if self.cache.insert(
+                keys[0], {"o": blob}, stats=job.stats,
+                delta={"family": keys[1], "lines": len(digests),
+                       "dx": "".join(digests).encode("ascii")}):
+            self.obs.event("cache_insert", job_id=job.id,
+                           trace_id=job.trace_id)
 
     def _cache_insert(self, job: Job) -> None:
         """Store a cleanly finished job's output files under its
@@ -2014,9 +2373,72 @@ class Daemon:
 
     # ---- protocol ------------------------------------------------------
     def _handle_conn(self, conn: socket.socket) -> None:
+        if self.tls is not None and conn.family != socket.AF_UNIX:
+            # the TLS handshake runs on THIS connection's thread (never
+            # the accept loop): a failure — a plaintext probe, a
+            # downgrade, a mid-handshake disconnect — is counted and
+            # answered with a loud close, and the daemon serves on
+            from pwasm_tpu_torch.fleet.transport import server_handshake
+            conn = server_handshake(conn, self.tls,
+                                    on_failure=self._tls_failed)
+            if conn is None:
+                return
         protocol.serve_connection(conn, self._dispatch,
                                   peer=_peer_identity(conn),
                                   max_frame_bytes=self.max_frame_bytes)
+
+    def _tls_failed(self, exc: Exception) -> None:
+        self.transport_metrics["tls_handshake_failures"].inc()
+        self.obs.event("tls_handshake_failed",
+                       detail=f"{type(exc).__name__}: {exc}")
+
+    def _auth_label(self, client: str) -> str:
+        """Metric label for an auth failure: per-client until the
+        universe would explode (identity strings are chosen by the
+        caller), then the overflow bucket."""
+        if client in self._auth_labels or len(self._auth_labels) < 64:
+            self._auth_labels.add(client)
+            return client
+        return "other"
+
+    def _authorize(self, cmd, req: dict, peer) -> dict | None:
+        """The scoped-token gate, BEFORE any verb handler runs: an
+        unauthorized frame answers ``unauthorized`` having touched no
+        queue, journal or lease state.  None = proceed."""
+        from pwasm_tpu_torch.service import authz
+        scope = authz.required_scope(cmd, req)
+        ok = False
+        if scope is None or self.auth.allows(req, peer,
+                                             authz.SCOPE_ADMIN):
+            ok = True
+        elif scope == authz.SCOPE_CANCEL_OWN:
+            if self.auth.allows(req, peer, scope):
+                job = self.jobs.get(req.get("job_id"))
+                # unknown ids fall through to the normal unknown_job
+                # answer — the auth layer must not become a job-id
+                # oracle; a KNOWN job needs ownership: its recorded
+                # fair-share identity == the caller's resolved one
+                ok = (job is None or job.client
+                      == self._resolve_client(req, peer))
+        else:
+            ok = self.auth.allows(req, peer, scope)
+        key = peer or self._resolve_client(req, peer) or "anonymous"
+        if ok:
+            self._penalty.clear(key)
+            return None
+        client = self._resolve_client(req, peer) or "anonymous"
+        self.transport_metrics["auth_failures"].inc(
+            client=self._auth_label(client))
+        self.obs.event("unauthorized", cmd=cmd, client=client)
+        # brute-force damping: consecutive failures from this peer
+        # earn a capped-exponential hold, served on this connection's
+        # own thread — the accept loop and other clients never wait
+        time.sleep(self._penalty.fail(key))
+        return protocol.err(
+            protocol.ERR_UNAUTHORIZED,
+            f"cmd {cmd!r} requires scope {scope!r} and the presented "
+            "credentials do not grant it (token file: "
+            f"{self.auth.path})")
 
     def _resolve_client(self, req: dict, peer: str | None) -> str:
         """protocol.resolve_client_identity — shared with the fleet
@@ -2025,6 +2447,30 @@ class Daemon:
 
     def _dispatch(self, req: dict, peer: str | None = None) -> dict:
         cmd = req.get("cmd")
+        if self.auth is not None:
+            deny = self._authorize(cmd, req, peer)
+            if deny is not None:
+                return deny
+        if self.rate_limiter is not None \
+                and cmd in ("submit", "stream"):
+            # a per-identity token bucket in FRONT of admission: a
+            # refused frame never reaches the queue or the journal,
+            # and the hint is the instant the bucket next holds a
+            # whole token
+            client = self._resolve_client(req, peer)
+            wait = self.rate_limiter.admit(client or "default")
+            if wait > 0:
+                self.obs.event("rate_limited",
+                               client=client or "default",
+                               retry_after_s=wait)
+                return protocol.err(
+                    protocol.ERR_OVERLOADED,
+                    f"rate limit: client "
+                    f"{client or 'default'} exceeded "
+                    f"{self.rate_limiter.rate:g}/s "
+                    f"(burst {self.rate_limiter.burst:g})",
+                    client=client or "default",
+                    retry_after_s=wait)
         # eviction runs on every request (plus the accept-loop tick
         # and each admission), so reads observe a deterministic
         # post-eviction view: an id past its TTL/LRU budget answers
@@ -2106,9 +2552,6 @@ class Daemon:
             # records will arrive as stream-data frames — the
             # minimap2-pipe-over-the-socket shape.  Admission control
             # is the same per-client fair-share gate as submit.
-            if req.get("delta"):
-                return protocol.err(protocol.ERR_BAD_REQUEST,
-                                    DELTA_STREAMS_LATER)
             client = self._resolve_client(req, peer)
             deadline_ms, dl_err = protocol.parse_deadline_ms(req)
             if dl_err is not None:
@@ -2120,7 +2563,8 @@ class Daemon:
                                   priority=req.get("priority"),
                                   stream=True,
                                   trace_id=req.get("trace_id"),
-                                  deadline_ms=deadline_ms)
+                                  deadline_ms=deadline_ms,
+                                  delta=bool(req.get("delta")))
             except ValueError as e:
                 return protocol.err(protocol.ERR_BAD_REQUEST, str(e))
             except Draining as e:
@@ -2162,7 +2606,18 @@ class Daemon:
                     + ("; re-open a stream with --resume to complete "
                        "it" if job.state == JOB_PREEMPTED else ""))
             if cmd == "stream-end":
+                ds = job.dstate
+                if ds is not None and ds.get("mode") == "holding" \
+                        and feed is not None and not feed.ended:
+                    return self._delta_stream_finish(job)
                 if feed is not None:
+                    if ds is not None \
+                            and ds.get("mode") == "resolved" \
+                            and not feed.ended:
+                        from pwasm_tpu_torch.service.cache import \
+                            line_digest
+                        for tail in ds["asm"].flush():
+                            ds["digests"].append(line_digest(tail))
                     feed.end()
                 return protocol.ok(
                     records=feed.records_in if feed else 0,
@@ -2172,6 +2627,11 @@ class Daemon:
                 return protocol.err(
                     protocol.ERR_BAD_REQUEST,
                     "stream-data needs a string data field")
+            ds = job.dstate
+            if ds is not None and ds.get("mode") == "holding":
+                # a delta hold: this frame is digested and parked or
+                # promoted instead of fed — the job is not queued yet
+                return self._delta_stream_data(job, req, data)
             n = feed.completed(data)
             if not n and data:
                 # the record quota counts complete lines, so
@@ -2205,6 +2665,13 @@ class Daemon:
             if fed:
                 self.stream_metrics["records"].inc(
                     fed, client=job.client or "default")
+            if ds is not None and ds.get("mode") == "resolved":
+                # keep the digest mirror current for the finish-time
+                # insert — AFTER the commit, so a rejected frame's
+                # verbatim resend cannot digest twice
+                from pwasm_tpu_torch.service.cache import line_digest
+                for ln in ds["asm"].push(data):
+                    ds["digests"].append(line_digest(ln))
             return protocol.ok(buffered=feed.buffered,
                                records=feed.records_in)
         if cmd == "stats":
@@ -2387,6 +2854,27 @@ class Daemon:
                             f"unknown cmd {cmd!r}")
 
     def _cancel(self, job: Job) -> dict:
+        if job.state == JOB_QUEUED and job.dstate is not None \
+                and job.dstate.get("mode") == "holding":
+            # a delta-HELD stream is not in the queue (queue.remove
+            # would miss it and the running branch would wait forever
+            # on a job that never starts): retire it directly
+            job.dstate["mode"] = "off"
+            self._retire_stream(job)
+            job.state = JOB_CANCELLED
+            job.rc = None
+            job.detail = ("cancelled while held for stream-delta "
+                          "classification (never started)")
+            job.finished_s = time.time()
+            self.stats.jobs_cancelled += 1
+            self.svc_metrics["jobs"].inc(outcome="cancelled")
+            self._journal_append(REC_FINISH, job_id=job.id,
+                                 state=JOB_CANCELLED, rc=None,
+                                 detail=job.detail)
+            self.obs.event("job_cancel", job_id=job.id, was="held",
+                           trace_id=job.trace_id)
+            job.done.set()
+            return protocol.ok(state=JOB_CANCELLED, was="held")
         if job.state == JOB_QUEUED and self.queue.remove(job):
             self._retire_stream(job)
             job.state = JOB_CANCELLED
@@ -2693,6 +3181,42 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                      "SLO engine); --slo-rules=off is the only "
                      "setting\n")
         return EXIT_USAGE
+    # the edge: TLS/mTLS on the TCP listener, scoped capability
+    # tokens, per-identity rate limiting — each opt-in
+    tls_cert = opts.pop("tls-cert", None)
+    tls_key = opts.pop("tls-key", None)
+    tls_client_ca = opts.pop("tls-client-ca", None)
+    if (tls_cert is None) != (tls_key is None):
+        stderr.write(f"{_SERVE_USAGE}\nError: --tls-cert and "
+                     "--tls-key must be given together\n")
+        return EXIT_USAGE
+    if tls_client_ca is not None and tls_cert is None:
+        stderr.write(f"{_SERVE_USAGE}\nError: --tls-client-ca "
+                     "requires --tls-cert/--tls-key\n")
+        return EXIT_USAGE
+    tls = None
+    if tls_cert is not None:
+        from pwasm_tpu_torch.fleet.transport import ServerTLS
+        try:
+            tls = ServerTLS(tls_cert, tls_key,
+                            client_ca=tls_client_ca)
+        except ValueError as e:
+            stderr.write(f"Error: {e}\n")
+            return EXIT_USAGE
+    auth_tokens = opts.pop("auth-tokens", None)
+    if auth_tokens is not None and not auth_tokens.strip():
+        stderr.write(f"{_SERVE_USAGE}\nInvalid --auth-tokens value\n")
+        return EXIT_USAGE
+    rate_limit = None
+    val = opts.pop("rate-limit", None)
+    if val is not None:
+        from pwasm_tpu_torch.service.queue import parse_rate_limit
+        try:
+            rate_limit = parse_rate_limit(val)
+        except ValueError as e:
+            stderr.write(f"{_SERVE_USAGE}\nInvalid --rate-limit "
+                         f"value: {val} ({e})\n")
+            return EXIT_USAGE
     metrics_textfile = opts.pop("metrics-textfile", None)
     log_json = opts.pop("log-json", None)
     trace_json = opts.pop("trace-json", None)
@@ -2750,7 +3274,14 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                         result_cache=result_cache,
                         result_cache_max_bytes=nums[
                             "result-cache-max-bytes"],
-                        cache_prefetch=cache_prefetch)
+                        cache_prefetch=cache_prefetch,
+                        tls=tls, auth_tokens=auth_tokens,
+                        rate_limit=rate_limit)
+    except ValueError as e:
+        # the --auth-tokens load is fail-fast: never come up OPEN
+        # because the policy file was bad
+        stderr.write(f"Error: {e}\n")
+        return EXIT_USAGE
     except OSError:
         stderr.write(f"Cannot open file {log_json} for writing!\n")
         return EXIT_USAGE

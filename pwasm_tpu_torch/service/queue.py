@@ -120,6 +120,12 @@ class Job:
     delta: tuple | None = field(default=None, repr=False)  # (records
     #   served, records total) of a job re-armed at admission as a
     #   --resume over a cached same-family input prefix
+    dstate: dict | None = field(default=None, repr=False)  # a delta
+    #   stream's state: while "holding", stream-data frames are
+    #   classified against the cache's per-line digest columns BEFORE
+    #   the job enters the queue; once "resolved" the daemon keeps
+    #   mirroring the digest column so a cleanly finished stream
+    #   inserts a delta-indexed entry of its own
     stderr_tail: str = ""
     # per-job drain flag: the daemon's SIGTERM (or a cancel) requests
     # it, and the job's cli.run honors it at the next batch boundary —

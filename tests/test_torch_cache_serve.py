@@ -540,39 +540,36 @@ def test_serve_compile_cache_dir_is_the_jobs_build_dir(tmp_path,
     assert not (tmp_path / "s.sock").exists()
 
 
-def test_delta_streams_answer_bad_request_naming_their_slice(tmp_path):
-    with _daemon(result_cache=str(tmp_path / "cd")) as h:
-        with ServiceClient(h.sock) as c:
-            r = c.request({"cmd": "stream", "args": ["-r", "q.fa", "-o",
-                                                     "x.dfa"],
-                           "cwd": str(tmp_path), "delta": True})
-    assert r["error"] == protocol.ERR_BAD_REQUEST
-    assert "slice A9d" in r["detail"]
-
-
 def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
-    """Every remaining refusal of a later slice names it (A9c, A9d, A10,
-    A11), and what this slice brought is refused nowhere: the cache
-    options on the CLI and on ``serve``, ``cache-probe``, and a served
-    ``--many2many``."""
+    """Every remaining refusal of a later slice names it (A9c, A10,
+    A11; what is left of A9c is its self-monitoring half: the canary,
+    ``health``, ``logs`` and ``top``), and what the cache's slices
+    brought is refused nowhere: the cache options on the CLI and on
+    ``serve``, ``cache-probe``, a served ``--many2many``, delta streams
+    and the edge's options."""
     from pwasm_tpu_torch import cli, native
     from pwasm_tpu_torch.ops import _build
     from pwasm_tpu_torch.service import daemon
     from pwasm_tpu_torch.stream import multicds
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
-    slices = ("A9c", "A9d", "A10", "A11")
+    slices = ("A9c", "A10", "A11")
     tables = (cli._LATER_OPTS, cli._LATER_CMDS, daemon._LATER_SERVE,
               daemon._LATER_CMDS)
     for table in tables:
         for name, why in table.items():
             assert any(f"slice {s}" in why or why.startswith(s)
                        for s in slices), (name, why)
-    assert "slice A9d" in daemon.DELTA_STREAMS_LATER
+    assert not hasattr(daemon, "DELTA_STREAMS_LATER")
+    for name in ("canary-interval", "health", "logs", "top"):
+        why = {**daemon._LATER_SERVE, **daemon._LATER_CMDS,
+               **cli._LATER_CMDS}[name]
+        assert "A9c" in why and "self-monitoring" in why, (name, why)
     assert not hasattr(multicds, "_LATER")
     brought = {"result-cache", "result-cache-max-bytes",
                "compile-cache-dir", "cache-prefetch", "cache-probe",
-               "many2many"}
+               "many2many", "tls-cert", "tls-key", "tls-client-ca",
+               "auth-tokens", "rate-limit"}
     for table in tables:
         assert not brought & set(table), table
     assert cli.later_option("result-cache") is None

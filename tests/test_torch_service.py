@@ -898,10 +898,14 @@ def test_serve_subprocess_sigterm_drains_exit75_resumable(tmp_path):
      "Invalid --compile-cache-dir value"),
     (["serve", "--socket=/x", "--cache-prefetch=0"],
      "Invalid --cache-prefetch value"),
-    (["serve", "--socket=/x", "--rate-limit=5"], "slice A9c"),
-    (["serve", "--socket=/x", "--tls-cert=c"], "slice A9c"),
+    (["serve", "--socket=/x", "--rate-limit=0"],
+     "Invalid --rate-limit value"),
+    (["serve", "--socket=/x", "--tls-cert=c"],
+     "--tls-cert and --tls-key must be given together"),
+    (["serve", "--socket=/x", "--canary-interval=5"], "slice A9c"),
     (["submit"], "--socket"), (["svc-stats"], "--socket"),
-    (["submit", "--socket=/x", "--tls-ca=c", "--", "x"], "slice A9c"),
+    (["submit", "--socket=/x", "--tls-ca=c", "--", "x"],
+     "cannot load --tls-ca=c"),
     (["health", "--socket=/x"], "slice A9c"),
     (["logs", "--socket=/x"], "slice A9c"),
     (["route", "--socket=/x"], "slice A11"),
