@@ -236,7 +236,30 @@ Phases, one JSON line each; any failure exits non-zero:
               alignments (held, promoted to a ``--resume``: 199 of 220
               served) and a stream whose fifth line differs (cold), each
               equal to a cold run; ``svc-stats`` over mTLS;
-21. the ``kernels`` line (with each main-path kernel's
+21. selfmon — self-monitoring (``run_selfmon``): an in-process daemon
+              with ``--canary-interval=1`` and ``--log-json`` reads
+              ``ok`` with the 9 default rules after three canary probes
+              on cuda (each probe's wall); phase 17's served job beside
+              the canary (phase 5's outputs; its wall beside phase
+              17's); ``health --exit-code``, ``logs --job=`` and ``top
+              --once`` client processes; a second daemon under
+              ``PWASM_CANARY_FAULTS=2-3:...`` turns ``failing`` (a
+              ``health --exit-code`` process exits 2) within two
+              intervals of the first faulted probe and returns to
+              ``ok`` after the window (the detection and resolution
+              seconds);
+22. surveil — ``--m2m-stream`` (``run_surveil``) over phase 9's 500 CDS
+              and the first 1,024 of its targets on cuda: a cold run
+              equal to a cold ``--many2many`` of the same files (its
+              arrival batches, scores launches and wall); an in-process
+              daemon with ``--result-cache`` fed the targets in four
+              stream pushes of 256 (a's bytes, the ``m2m`` blocks), then
+              1,024 + 256 targets dispatching only the 128,000 new pairs
+              (a cold ``--many2many`` over the 1,280's bytes); a spent
+              ``--deadline-s`` (exit 75) and its resubmission (a's
+              bytes); ``--device=cpu`` with the shortest and the longest
+              CDS (a's sections);
+23. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
    phase 15's faulted ``--realign`` run, ``follow_launches`` from
@@ -244,8 +267,10 @@ Phases, one JSON line each; any failure exits non-zero:
    phase 17's first daemon, every job of its life; for the consensus
    and scores kernels, ``library_launches`` from phase 18 and the
    single-core host baseline's time; every kernel's
-   ``cache_launches`` in each of phase 19's runs and
-   ``edge_launches`` in each of phase 20's), the card's name
+   ``cache_launches`` in each of phase 19's runs,
+   ``edge_launches`` in each of phase 20's, ``selfmon_launches`` in
+   phase 21 and, for the scores kernels, ``surveil_launches`` in each
+   of phase 22's runs), the card's name
    and power limit as nvidia-smi prints them, and the final
    ``{"ok": true, ...}`` line.
 
@@ -3869,6 +3894,375 @@ def _edge_b(work, fa, daemon, sock, tcp, alice, dev) -> dict:
     return rec
 
 
+class InProcessDaemon:
+    """A serve daemon on a thread of this process (its launches move this
+    process's counters), on ``<work>/<tag>.sock``; ``stop`` drains it and
+    requires exit 75 (phases 21 and 22)."""
+
+    def __init__(self, work: str, tag: str, **kw):
+        import threading
+
+        from pwasm_tpu_torch.service.client import wait_for_socket
+        from pwasm_tpu_torch.service.daemon import Daemon
+
+        self.tag = tag
+        self.sock = os.path.join(work, f"{tag}.sock")
+        self.err = io.StringIO()
+        self.daemon = Daemon(self.sock, stderr=self.err, journal_path=None,
+                             **kw)
+        self._box: list = []
+        self._th = threading.Thread(
+            target=lambda: self._box.append(self.daemon.serve()),
+            daemon=True)
+        self._th.start()
+        if not wait_for_socket(self.sock, 60):
+            self.stop()
+            raise AssertionError(f"{tag}: no daemon: "
+                                 f"{self.err.getvalue()[-2000:]}")
+
+    def health(self) -> dict:
+        from pwasm_tpu_torch.service.client import ServiceClient
+
+        with ServiceClient(self.sock) as c:
+            return c.health()["health"]
+
+    def wait_health(self, pred, what: str, limit_s: float = 30.0):
+        """Poll the health verb every 20 ms until ``pred``: (seconds,
+        health)."""
+        t0 = time.perf_counter()
+        while True:
+            got = self.health()
+            if pred(got):
+                return time.perf_counter() - t0, got
+            if time.perf_counter() - t0 > limit_s:
+                raise AssertionError(f"{self.tag}: {what}: {got}")
+            time.sleep(0.02)
+
+    def stop(self) -> None:
+        if not self.daemon.drain.requested:
+            self.daemon.drain.request(f"{self.tag} done")
+        self._th.join(60)
+        if self._box != [75]:
+            raise AssertionError(f"{self.tag}: the daemon exited "
+                                 f"{self._box}: {self.err.getvalue()[-2000:]}")
+
+
+def run_selfmon(work: str, paf: str, fa: str, outputs: dict,
+                phase17_walls: list, smi: str) -> dict:
+    """Phase 21: self-monitoring on the card.  In-process daemons on
+    cuda (the canary's probe: the warmup corpus, ``-o`` alone, through
+    ``cli.run`` on a free lane):
+
+    - a: ``--max-concurrent=2 --lanes=2 --canary-interval=1
+      --log-json``: after three canary probes ``health`` reads ``ok``
+      with the 9 default rules; phase 17's served job (a ``submit``
+      client process, all six outputs) runs beside the canary, its
+      outputs phase 5's; client processes: ``health --exit-code`` (rc
+      0), ``logs --job=<that job>`` (its admit, start and finish
+      events), ``top --once`` (the alerts pane, quiet, and the canary);
+    - b: ``PWASM_CANARY_FAULTS=2-3:seed=1,rate=1,kinds=raise`` (probes 2
+      and 3 fail their run): the verdict turns ``failing`` (a ``health
+      --exit-code`` client process exits 2 then) within two intervals
+      of the first faulted probe's failure, and returns to ``ok`` after
+      the window; the detection and resolution seconds from the event
+      log's wall clocks.
+
+    Returns the record; raises on a failure."""
+    from pwasm_tpu_torch.obs.logquery import query_log
+
+    interval = 1.0
+    record: dict = {}
+    before = launch_counts()
+    log = os.path.join(work, "sm_a.ndjson")
+    a = InProcessDaemon(work, "sm_a", max_concurrent=2, lanes=2,
+                        canary_interval_s=interval, log_json=log)
+    try:
+        _s, h = a.wait_health(
+            lambda x: (x["canary"] or {}).get("runs", 0) >= 3,
+            "three canary probes")
+        if h["verdict"] != "ok" or h["rules"] != 9 \
+                or h["canary"]["fails"]:
+            raise AssertionError(f"a: health {h}")
+        tag = "sm_job"
+        rc, out, err, job_s = run_client(
+            a.sock, "submit", "--", paf, "-r", fa, *out_args(work, tag),
+            "--device=cuda", f"--stats={work}/{tag}.json")
+        if rc != 0:
+            raise AssertionError(f"a: the served job rc {rc}: {err[-2000:]}")
+        same_outputs(tag, read_outputs(work, tag), outputs)
+        job_id = json.loads(out.splitlines()[-1])["job_id"]
+        rc, out, err, health_s = run_client(a.sock, "health", "--exit-code")
+        if rc != 0 or json.loads(out)["verdict"] != "ok":
+            raise AssertionError(f"a: health --exit-code rc {rc}: {out}")
+        rc, out, err, logs_s = run_client(a.sock, "logs", f"--job={job_id}")
+        evs = [json.loads(ln)["event"] for ln in out.splitlines()]
+        if rc != 0 or evs[:2] != ["job_admit", "job_start"] \
+                or evs[-1] != "job_finish":
+            raise AssertionError(f"a: logs --job rc {rc}: {evs} {err}")
+        rc, out, err, top_s = run_client(a.sock, "top", "--once")
+        if rc != 0 or " ALERTS: none" not in out \
+                or " canary: ok (" not in out:
+            raise AssertionError(f"a: top --once rc {rc}: {out} {err}")
+        h = a.health()
+    finally:
+        a.stop()
+    canary_walls = [r["wall_s"] for r in query_log(log, event="canary_ok")]
+    record["a"] = dict(canary_walls=canary_walls, canary=h["canary"],
+                       evaluations=h["evaluations"], job_s=job_s,
+                       phase17_job_s=phase17_walls, health_s=health_s,
+                       logs_s=logs_s, top_s=top_s, job_events=evs)
+
+    log_b = os.path.join(work, "sm_b.ndjson")
+    with env_var("PWASM_CANARY_FAULTS", "2-3:seed=1,rate=1,kinds=raise"):
+        b = InProcessDaemon(work, "sm_b", canary_interval_s=interval,
+                            log_json=log_b)
+    try:
+        b.wait_health(lambda x: x["verdict"] == "failing",
+                      "the faulted probes never fired")
+        rc, out, err, _w = run_client(b.sock, "health", "--exit-code")
+        if rc != 2 or json.loads(out)["verdict"] != "failing":
+            raise AssertionError(f"b: health --exit-code rc {rc}: {out}")
+        _s, h = b.wait_health(
+            lambda x: x["verdict"] == "ok"
+            and (x["canary"] or {}).get("runs", 0) >= 4,
+            "the verdict did not return to ok")
+    finally:
+        b.stop()
+    evs = query_log(log_b)
+    fails = [e for e in evs if e["event"] == "canary_fail"]
+    oks = [e for e in evs if e["event"] == "canary_ok"]
+    fired = [e for e in evs if e["event"] == "alert_firing"]
+    resolved = [e for e in evs if e["event"] == "alert_resolved"]
+    if [e["run"] for e in fails] != [2, 3] \
+            or [e["rule"] for e in fired] != ["canary_failing"] \
+            or [e["rule"] for e in resolved] != ["canary_failing"] \
+            or h["canary"]["fails"] != 2:
+        raise AssertionError(f"b: fails {fails}, firing {fired}, "
+                             f"resolved {resolved}")
+    first_fail, healed = fails[0], next(e for e in oks if e["run"] == 4)
+    detect_s = fired[0]["ts_wall"] - first_fail["ts_wall"]
+    resolve_s = resolved[0]["ts_wall"] - healed["ts_wall"]
+    if not 0 <= detect_s <= 2 * interval \
+            or not 0 <= resolve_s <= 2 * interval:
+        raise AssertionError(f"b: detected in {detect_s} s, resolved in "
+                             f"{resolve_s} s (interval {interval})")
+    record["b"] = dict(
+        detect_s=detect_s, resolve_s=resolve_s,
+        detect_from_probe_start_s=detect_s + first_fail["wall_s"],
+        faulted_walls=[e["wall_s"] for e in fails],
+        ok_walls=[e["wall_s"] for e in oks], interval_s=interval)
+    record["launches"] = launches_since(before)
+    print("selfmon: canary walls {} s; served job {:.3f} s beside the "
+          "canary (phase 17: {}); health {:.3f}, logs {:.3f}, top {:.3f} "
+          "s; faulted window: detected {:.3f} s after the first failed "
+          "probe ({:.3f} s after it began), resolved {:.3f} s after the "
+          "first good one; {}".format(
+              [round(w, 4) for w in canary_walls], job_s,
+              [round(w, 3) for w in phase17_walls], health_s, logs_s,
+              top_s, detect_s, record["b"]["detect_from_probe_start_s"],
+              resolve_s, smi), flush=True)
+    return record
+
+
+def first_records(path: str, n: int) -> list[str]:
+    """The first ``n`` records of a FASTA, each as its text ending in a
+    newline."""
+    with open(path) as f:
+        text = f.read()
+    recs = [">" + r.rstrip("\n") + "\n"
+            for r in text.lstrip(">").split("\n>")]
+    if len(recs) < n:
+        raise AssertionError(f"{path} holds {len(recs)} records, not {n}")
+    return recs[:n]
+
+
+def run_surveil(work: str, smi: str) -> dict:
+    """Phase 22: ``--m2m-stream`` on the card at config 3's widths: phase
+    9's 500 CDS (1,200-1,800 bases, band 64) against the first 1,024
+    records of its target FASTA (the depth cut, the widths not):
+
+    - a: a cold run from the file, its bytes those of a cold
+      ``--many2many`` over the same files on cuda; its arrival batches,
+      scores launches (one a dispatch) and wall;
+    - b: an in-process daemon with ``--result-cache`` (and a stream
+      buffer of 4,096 lines) fed the same targets in four stream pushes
+      of 256 records: the bytes of a; the
+      result's and svc-stats' ``m2m`` blocks count the flow; then a
+      session over those 1,024 plus 256 new targets dispatches only
+      the 128,000 new pairs, its bytes those of a cold ``--many2many``
+      over the 1,280;
+    - c: ``--deadline-s=0.000001`` with a fresh ``--result-cache``
+      preempts (exit 75, no report), and the resubmission without it
+      completes with a's bytes;
+    - d: ``--device=cpu`` with only the shortest and the longest CDS
+      (phase 9's ``m2m_cds2.fa``): its sections and -s lines equal a's,
+      and it launches nothing.
+
+    Returns the record; raises on a failure."""
+    from pwasm_tpu_torch.core.errors import EXIT_PREEMPTED
+    from pwasm_tpu_torch.service.client import ServiceClient
+
+    qfa = os.path.join(work, "m2m_cds.fa")
+    recs = first_records(os.path.join(work, "m2m_targets.fa"), 1280)
+    t1024, t1280 = (os.path.join(work, f"s22_t{n}.fa") for n in (1024, 1280))
+    for path, n in ((t1024, 1024), (t1280, 1280)):
+        with open(path, "w") as f:
+            f.write("".join(recs[:n]))
+    n_q = sum(1 for ln in open(qfa) if ln.startswith(">"))
+
+    def cold(tag: str, job: str, targets: str, *extra: str,
+             rfa: str = qfa, want_rc: int = 0) -> dict:
+        p = os.path.join(work, tag)
+        for ext in ("tsv", "sum", "json"):
+            if os.path.exists(f"{p}.{ext}"):
+                os.unlink(f"{p}.{ext}")
+        before = launch_counts()
+        with logged_scores() as (dispatches, _largest):
+            rc, _st, err, wall = run_cli(
+                [job, targets, "-r", rfa, "-o", f"{p}.tsv", "-s", f"{p}.sum",
+                 f"--stats={p}.json", *extra])
+        launches = launches_since(before)
+        if rc != want_rc:
+            raise AssertionError(f"{tag}: rc {rc}: {err[-2000:]}")
+        got = dict(wall_s=wall, launches=launches, dispatches=len(dispatches),
+                   kernels=sorted({d[4] for d in dispatches}), err=err)
+        with open(f"{p}.json") as f:
+            got["stats"] = json.load(f)
+        for ext in ("tsv", "sum"):
+            got[ext] = None
+            if os.path.exists(f"{p}.{ext}"):
+                with open(f"{p}.{ext}", "rb") as f:
+                    got[ext] = f.read()
+        return got
+
+    def same_bytes(tag: str, got: dict, want: dict) -> None:
+        if (got["tsv"], got["sum"]) != (want["tsv"], want["sum"]):
+            raise AssertionError(f"{tag}: the report or -s differs")
+
+    def launched(tag: str, got: dict, on_card: bool = True) -> dict:
+        """The run's launches of the two scores kernels; on the card one
+        a dispatch."""
+        by = {k: got["launches"][k] for k in ("scores", "scores_long")}
+        n = sum(by.values())
+        if on_card and (n != got["dispatches"] or not n) or (
+                not on_card and n):
+            raise AssertionError(f"{tag}: {by} scores launches for "
+                                 f"{got['dispatches']} dispatches")
+        return by
+
+    record: dict = {}
+    # a: the cold session and the cold --many2many over the same files
+    a = cold("s22_a", "--m2m-stream", t1024, "--device=cuda")
+    m1024 = cold("s22_m1024", "--many2many", t1024, "--device=cuda")
+    same_bytes("a", a, m1024)
+    ma = a["stats"]["m2m"]
+    if ma["pairs_dispatched"] != n_q * 1024 or ma["targets_in"] != 1024 \
+            or a["kernels"] != ["resident"]:
+        raise AssertionError(f"a: m2m {ma}, kernels {a['kernels']}")
+    record["a"] = dict(wall_s=a["wall_s"], batches=ma["batches"],
+                       launches=launched("a", a),
+                       many2many_wall_s=m1024["wall_s"],
+                       many2many_launches=launched("m1024", m1024))
+
+    # b: two served sessions on one daemon with a result cache
+    rcd = os.path.join(work, "s22_cache")
+    shutil.rmtree(rcd, ignore_errors=True)
+    # a push of 256 FASTA records is 512 lines or more: a stream buffer
+    # of 4,096 lines takes each push without a queue_full backoff
+    d = InProcessDaemon(work, "s22", result_cache=rcd, stream_buffer=4096)
+    try:
+        def session(tag: str, n: int) -> dict:
+            p = os.path.join(work, tag)
+            pushes = ["".join(recs[k:k + 256]) for k in range(0, n, 256)]
+            before = launch_counts()
+            t0 = time.perf_counter()
+            with logged_scores() as (dispatches, _largest), \
+                    ServiceClient(d.sock) as c:
+                r = c.stream(["--m2m-stream", "-r", qfa, "-o", f"{p}.tsv",
+                              "-s", f"{p}.sum", "--device=cuda"], pushes,
+                             cwd=work)
+                if not r.get("ok"):
+                    raise AssertionError(f"{tag}: stream {r}")
+                res = c.result(r["job_id"], timeout=600)
+                wall = time.perf_counter() - t0
+                svc = c.stats()["stats"]
+            if res.get("rc") != 0:
+                raise AssertionError(f"{tag}: {res}")
+            got = dict(wall_s=wall, launches=launches_since(before),
+                       dispatches=len(dispatches), m2m=res["stats"]["m2m"],
+                       svc_m2m=svc["m2m"], cache=svc["cache"])
+            for ext in ("tsv", "sum"):
+                with open(f"{p}.{ext}", "rb") as f:
+                    got[ext] = f.read()
+            return got
+
+        b1 = session("s22_b1", 1024)
+        same_bytes("b1", b1, a)
+        if b1["m2m"]["pairs_dispatched"] != n_q * 1024 \
+                or b1["svc_m2m"]["sessions"] != 1 \
+                or b1["svc_m2m"]["targets_in"] != 1024 \
+                or b1["svc_m2m"]["pairs_dispatched"] != n_q * 1024:
+            raise AssertionError(f"b1: {b1['m2m']}, svc {b1['svc_m2m']}")
+        b2 = session("s22_b2", 1280)
+    finally:
+        d.stop()
+    m1280 = cold("s22_m1280", "--many2many", t1280, "--device=cuda")
+    same_bytes("b2", b2, m1280)
+    mb2 = b2["m2m"]
+    if (mb2["pairs_dispatched"], mb2["pairs_reused"],
+            mb2["targets_reused"]) != (n_q * 256, n_q * 1024, 1024) \
+            or b2["svc_m2m"]["sessions"] != 2:
+        raise AssertionError(f"b2: {mb2}, svc {b2['svc_m2m']}")
+    record["b"] = {k: dict(wall_s=v["wall_s"], batches=v["m2m"]["batches"],
+                           launches=launched(k, v), m2m=v["m2m"])
+                   for k, v in (("first", b1), ("grown", b2))}
+    record["b"].update(svc_m2m=b2["svc_m2m"], cache_bytes=b2["cache"]["bytes"],
+                       many2many_1280_wall_s=m1280["wall_s"])
+
+    # c: a spent deadline, then the resubmission
+    rcc = os.path.join(work, "s22_dl_cache")
+    shutil.rmtree(rcc, ignore_errors=True)
+    c_pre = cold("s22_c", "--m2m-stream", t1024, "--device=cuda",
+                 f"--result-cache={rcc}", "--deadline-s=0.000001",
+                 want_rc=EXIT_PREEMPTED)
+    if c_pre["tsv"] is not None or "deadline_exceeded" not in c_pre["err"] \
+            or c_pre["stats"].get("preempted") is not True:
+        raise AssertionError(f"c: {c_pre['err'][-1000:]}")
+    c_re = cold("s22_c", "--m2m-stream", t1024, "--device=cuda",
+                f"--result-cache={rcc}")
+    same_bytes("c", c_re, a)
+    record["c"] = dict(preempted_wall_s=c_pre["wall_s"],
+                       resubmit_wall_s=c_re["wall_s"],
+                       launches=launched("c", c_re))
+
+    # d: the shortest and the longest CDS on the CPU
+    dd = cold("s22_d", "--m2m-stream", t1024, "--device=cpu",
+              rfa=os.path.join(work, "m2m_cds2.fa"))
+    launched("d", dd, on_card=False)
+    got_s, want_s = sections(dd["tsv"]), sections(a["tsv"])
+    want_sums = {ln.split(b"\t", 1)[0]: ln for ln in a["sum"].splitlines()}
+    if len(got_s) != 2 or any(got_s[nm] != want_s.get(nm) for nm in got_s) \
+            or any(ln != want_sums.get(ln.split(b"\t", 1)[0])
+                   for ln in dd["sum"].splitlines()):
+        raise AssertionError("d: the cpu sections differ from the cuda run's")
+    record["d"] = dict(wall_s=dd["wall_s"], launches=launched(
+        "d", dd, on_card=False))
+    print("surveil: a cold {:.3f} s ({} batches, {} scores launches; "
+          "--many2many {:.3f} s); b served {:.3f} s ({} batches), grown "
+          "{:.3f} s ({} batches, {} new pairs, {} launches; --many2many "
+          "over 1,280 {:.3f} s); c preempted {:.3f} s, resubmitted "
+          "{:.3f} s; d cpu {:.3f} s; {}".format(
+              a["wall_s"], ma["batches"],
+              sum(record["a"]["launches"].values()),
+              m1024["wall_s"], b1["wall_s"], b1["m2m"]["batches"],
+              b2["wall_s"], mb2["batches"], mb2["pairs_dispatched"],
+              sum(record["b"]["grown"]["launches"].values()),
+              m1280["wall_s"],
+              c_pre["wall_s"], c_re["wall_s"], dd["wall_s"], smi),
+          flush=True)
+    return record
+
+
 def abandoned_threads_done(limit_s: float = 30.0) -> int:
     """Wait for the supervisor's abandoned attempt threads (``pwasm-*``,
     left running at their deadline) to end; returns how many there
@@ -5411,6 +5805,36 @@ def main(argv: list[str]) -> int:
     edge = run_edge(work, paf, fa, runs["cuda"]["outputs"], smi)
     emit(dict(phase="edge", nvidia_smi=smi, **edge))
 
+    # 21. self-monitoring: a daemon's canary and health on the card, a
+    # served job beside it, the operator verbs from client processes,
+    # and a scripted fault window detected and resolved
+    t0 = time.perf_counter()
+    selfmon = run_selfmon(work, paf, fa, runs["cuda"]["outputs"],
+                          [j["client_wall_s"] for j in serve["jobs"]], smi)
+    emit(dict(phase="selfmon", nvidia_smi=smi,
+              wall_s=time.perf_counter() - t0, **selfmon))
+
+    # 22. surveillance: --m2m-stream at config 3's widths, cold, served
+    # in stream pushes with the section cache, preempted and resubmitted,
+    # and on the CPU
+    t0 = time.perf_counter()
+    surveil = run_surveil(work, smi)
+    emit(dict(phase="surveil", nvidia_smi=smi,
+              wall_s=time.perf_counter() - t0, **surveil))
+
+    def selfmon_runs(kernel: str) -> int:
+        """A kernel's launches in phase 21 (the served job's; the
+        canary's ``-o`` probes launch none)."""
+        return selfmon["launches"][kernel]
+
+    def surveil_runs(kernel: str) -> dict:
+        """A scores kernel's launches in each of phase 22's runs."""
+        return dict(cold=surveil["a"]["launches"][kernel],
+                    served=surveil["b"]["first"]["launches"][kernel],
+                    served_grown=surveil["b"]["grown"]["launches"][kernel],
+                    resubmitted=surveil["c"]["launches"][kernel],
+                    cpu=surveil["d"]["launches"][kernel])
+
     def edge_runs(kernel: str) -> dict:
         """A kernel's launches in each of phase 20's served runs."""
         return dict(mtls=edge["a"]["launches"][kernel],
@@ -5435,7 +5859,7 @@ def main(argv: list[str]) -> int:
             k: rec[k] for k in ("equal", "max_abs_err", "plain_host_s",
                                 "process_s")}))
 
-    # 21. the kernels line, the card, the verdict
+    # 23. the kernels line, the card, the verdict
     re_err = max(long_read["max_abs_err"],
                  *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
@@ -5467,6 +5891,7 @@ def main(argv: list[str]) -> int:
         launches=main_launches,
         cache_launches=cache_runs("consensus"),
         edge_launches=edge_runs("consensus"),
+        selfmon_launches=selfmon_runs("consensus"),
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
@@ -5490,6 +5915,7 @@ def main(argv: list[str]) -> int:
         launches=re_launches["fwdptr"],
         cache_launches=cache_runs("fwdptr"),
         edge_launches=edge_runs("fwdptr"),
+        selfmon_launches=selfmon_runs("fwdptr"),
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
@@ -5512,6 +5938,7 @@ def main(argv: list[str]) -> int:
         launches=long_launches["fwdptr_long"],
         cache_launches=cache_runs("fwdptr_long"),
         edge_launches=edge_runs("fwdptr_long"),
+        selfmon_launches=selfmon_runs("fwdptr_long"),
         follow_launches=follow_launches["fwdptr_long"],
         serve_launches=serve_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
@@ -5527,6 +5954,7 @@ def main(argv: list[str]) -> int:
         launches=re_launches["walk"],
         cache_launches=cache_runs("walk"),
         edge_launches=edge_runs("walk"),
+        selfmon_launches=selfmon_runs("walk"),
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
@@ -5553,6 +5981,8 @@ def main(argv: list[str]) -> int:
         launches=m2m_launches["scores"],
         cache_launches=cache_runs("scores"),
         edge_launches=edge_runs("scores"),
+        selfmon_launches=selfmon_runs("scores"),
+        surveil_launches=surveil_runs("scores"),
         library_launches=library["score_launches"].get("scores", 0),
         host_1core=library["scores_host"], max_abs_err=sc_err,
         ms=main_sc["ms_resident"], plain_ms=main_sc["plain_ms"],
@@ -5572,6 +6002,8 @@ def main(argv: list[str]) -> int:
         launches=m2m_long["launches"]["scores_long"],
         cache_launches=cache_runs("scores_long"),
         edge_launches=edge_runs("scores_long"),
+        selfmon_launches=selfmon_runs("scores_long"),
+        surveil_launches=surveil_runs("scores_long"),
         config5_launches=cfg5["launches"]["scores_long"],
         max_abs_err=max(sc_err, cfg5["max_abs_err"],
                         m2m_long["max_abs_err"]),

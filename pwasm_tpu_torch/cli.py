@@ -13,7 +13,9 @@ on the device), ``PWASM_NATIVE=0`` every Python engine.  With
 gap structure is first replaced by a banded Gotoh re-alignment
 (``ops/realign.py``, the CUDA realign kernels on ``--device=cuda``).
 ``--many2many`` scores every query of a multi-FASTA against every target
-(``stream/multicds.py``, the CUDA scores kernels on ``--device=cuda``).
+(``stream/multicds.py``, the CUDA scores kernels on ``--device=cuda``);
+``--m2m-stream`` scores targets that arrive as a stream, a batch at a
+time (``surveil/session.py``).
 ``--shard[=N]`` spreads that device work over a mesh of N CUDA devices
 (``parallel/mesh.py``).  ``--stats`` writes the run's counters
 (``utils/runstats.py``), ``--profile`` a ``torch.profiler`` trace
@@ -45,8 +47,10 @@ C++ engine are built (``ops/_build.py::use_build_dir``).
 Outputs are byte-identical to the reference's, with these flags on or
 off.  ``serve`` starts the warm-pool daemon (``service/daemon.py``),
 which runs each job through :func:`run` with its ``warm`` hook;
-``submit``, ``stream``, ``svc-stats``, ``metrics``, ``inspect`` and
-``cache-probe`` are its client verbs (``service/client.py``).
+``submit``, ``stream``, ``svc-stats``, ``metrics``, ``inspect``,
+``cache-probe``, ``health`` and ``logs`` are its client verbs
+(``service/client.py``), and ``top`` its live view
+(``service/top.py``).
 
 Usage:
   python -m pwasm_tpu_torch.cli <paf_with_cg_cs> -r <refseq.fa>
@@ -66,11 +70,13 @@ Usage:
       [--stats=FILE] [--deadline-s=S] [--max-retries=N] [--fallback=fail]
       [--result-cache=DIR|off] [--result-cache-max-bytes=N]
       [--compile-cache-dir=DIR]
+  python -m pwasm_tpu_torch.cli --m2m-stream [<targets.fa>]
+      -r <cds_multi.fa> [the options of --many2many]
   python -m pwasm_tpu_torch.cli trace-merge FILE.json [FILE.json ...]
       [-o OUT.json]
   python -m pwasm_tpu_torch.cli serve --socket=PATH [options]
   python -m pwasm_tpu_torch.cli submit|stream|svc-stats|metrics|inspect|
-      cache-probe --socket=PATH [options] [--] [job args]
+      cache-probe|health|logs|top --socket=PATH [options] [--] [job args]
 """
 
 from __future__ import annotations
@@ -223,15 +229,26 @@ USAGE = """Usage:
    <targets.fa> (banded affine-gap DP); one report section per query,
    cached a section at a time under --result-cache
 
+ pafreport --m2m-stream [<targets.fa>] -r <cds_multi.fa> [the options
+    of --many2many]
+   continuous many2many: the targets arrive as a stream (over the
+   daemon's stream verbs, or read from <targets.fa> as one) and score
+   in arrival batches against the resident -r queries; each batch
+   dispatches only the (query, target) pairs the section cache has
+   never scored.  The report equals --many2many's over the same
+   targets in arrival order
+
  pafreport trace-merge FILE.json [FILE.json ...] [-o OUT.json]
    merge --trace-json documents onto one wall-anchored timeline
 
  pafreport serve --socket=PATH [options]
    the warm-pool daemon: jobs run through this same CLI in one resident
    process (serve -h lists its options)
- pafreport submit|stream|svc-stats|metrics|inspect|cache-probe
-    --socket=PATH ...
+ pafreport submit|stream|svc-stats|metrics|inspect|cache-probe|health|
+    logs --socket=PATH ...
    its client verbs (submit -h lists them)
+ pafreport top --socket=PATH [--interval=S] [--once]
+   a live view of the daemon's svc-stats, its alerts pane first
 """
 
 # reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
@@ -248,13 +265,9 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "result-cache", "result-cache-max-bytes",
                "compile-cache-dir")
 
-# options and subcommands of the reference that later slices of the
-# port bring, each naming its slice (ROADMAP.md queue A)
-_A9C = ("slice A9c of the service (self-monitoring: the SLO engine, the "
-        "canary and the operator verbs)")
-_LATER_OPTS = {"m2m-stream": "slice A10 (surveil)"}
-_LATER_CMDS = {"top": _A9C, "health": _A9C, "logs": _A9C,
-               "route": "slice A11 (fleet)"}
+# subcommands of the reference that a later slice of the port brings,
+# each naming its slice (ROADMAP.md queue A)
+_LATER_CMDS = {"route": "slice A11a (the fleet router)"}
 # the reference's subcommands, dispatched on the first argv token (a
 # served job may name none of them)
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
@@ -264,16 +277,6 @@ _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
 
 class CliError(PwasmError):
     exit_code = EXIT_USAGE
-
-
-def later_option(name: str) -> str | None:
-    """The refusal of ``--name`` when a later slice of the port brings
-    it (None otherwise); the serve daemon answers a submitted job with
-    it at admission."""
-    if name not in _LATER_OPTS:
-        return None
-    return (f"Error: --{name} is not ported to pwasm_tpu_torch yet; it "
-            f"comes with {_LATER_OPTS[name]}\n")
 
 
 def _parse_args(argv: list[str]) -> tuple[dict, list[str]]:
@@ -597,10 +600,18 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
         from pwasm_tpu_torch.stream.multicds import many2many_main
         return many2many_main(opts, positional, stdout, stderr, stats,
                               warm=warm)
+    if opts.get("m2m-stream"):
+        # continuous many2many: targets arrive incrementally — over the
+        # stream verbs when served (input_stream), from a FASTA read
+        # as a stream when cold — and score against the resident -r
+        # query set with per-CDS section emission (surveil/)
+        from pwasm_tpu_torch.surveil.session import m2m_stream_main
+        return m2m_stream_main(opts, positional, stdout, stderr,
+                               warm=warm, input_stream=input_stream)
     for k in opts:
         if len(k) > 1 and k not in _LONG_FLAGS:
-            raise CliError(later_option(k) or f"Error: --{k} is not an "
-                           "option of pwasm_tpu_torch\n")
+            raise CliError(f"Error: --{k} is not an option of "
+                           "pwasm_tpu_torch\n")
     cfg = Config()
     cfg.debug = bool(opts.get("D"))
     cfg.fullgenome = bool(opts.get("F"))
@@ -1259,12 +1270,15 @@ def _run_mesh(shard: int, device, stderr, verbose: bool, lane=None):
 
 
 def _service_main(argv: list[str], stdout, stderr) -> int:
-    """The subcommands: ``trace-merge``; ``serve`` (the daemon) and the
-    client verbs; the reference's others exit 1 naming their slice."""
+    """The subcommands: ``trace-merge``; ``top``; ``serve`` (the daemon)
+    and the client verbs; ``route`` exits 1 naming its slice."""
     cmd, rest = argv[0], argv[1:]
     if cmd == "trace-merge":
         from pwasm_tpu_torch.obs.merge import trace_merge_main
         return trace_merge_main(rest, stdout, stderr)
+    if cmd == "top":
+        from pwasm_tpu_torch.service.top import top_main
+        return top_main(rest, stdout, stderr)
     if cmd in _LATER_CMDS:
         raise CliError(f"Error: '{cmd}' is not ported to pwasm_tpu_torch "
                        f"yet; it comes with {_LATER_CMDS[cmd]}\n")

@@ -1,7 +1,7 @@
 """Client side of the warm-pool service (``pafreport submit``,
-``stream``, ``svc-stats``, ``metrics``, ``inspect`` and
-``cache-probe``) and the :class:`ServiceClient` library the tests and
-``chip_smoke.py`` drive.
+``stream``, ``svc-stats``, ``metrics``, ``inspect``, ``cache-probe``,
+``health`` and ``logs``) and the :class:`ServiceClient` library the
+tests and ``chip_smoke.py`` drive.
 
 Counterpart of ``pwasm_tpu/service/client.py``, with its names.  A
 client is one connection speaking the newline-delimited JSON protocol
@@ -13,8 +13,10 @@ cold runs and warm submissions by prefixing ``submit --socket=PATH
 --`` and nothing else changes.  On a TCP target, ``--tls-ca`` (and,
 for mTLS, ``--tls-cert``/``--tls-key``) speak TLS to a ``serve
 --tls-cert`` daemon; ``ServiceClient.stream(..., delta=True)`` opens a
-delta stream.  The reference's ``health`` and ``logs`` verbs come
-with a later slice of the port.  ``cache-probe`` is the port's own
+delta stream.  ``health`` prints the daemon's self-monitoring verdict
+(``--exit-code``: 0 ok, 1 degraded, 2 failing), and ``logs`` queries
+its event log, or a log file on disk with no daemon
+(``obs/logquery.py``).  ``cache-probe`` is the port's own
 verb over the reference's protocol command: the client derives the
 job's cache key (``service/cache.py``) and asks whether the daemon
 holds it.
@@ -105,6 +107,21 @@ _CLIENT_USAGE = """Usage:
      and the bounded event ring (retries, breaker transitions, OOM
      bisections, ckpt writes).  Works on live, finished, and
      disk-spooled jobs (spooled records are CRC-verified).
+
+ pafreport health --socket=TARGET [--exit-code]
+     print the daemon's health verdict as JSON: ok/degraded/failing,
+     the firing SLO rules (obs/catalog.py's rule catalog) and the
+     canary's state.  With --exit-code the shell exit encodes the
+     verdict (0 ok, 1 degraded, 2 failing) — the orchestrator-probe
+     form (k8s liveness, cron pagers).
+
+ pafreport logs (--socket=TARGET | FILE) [--trace-id=ID] [--job=ID]
+                [--event=TYPE] [--limit=N]
+     query the NDJSON event log — a live daemon's --log-json over the
+     socket, or a log FILE on disk directly — filtered by trace_id
+     (matches run_id too), job id, and/or event type, rotated .1
+     generation included, newest --limit (default 1000) matches in
+     order.
 
  Every frame this client sends carries a trace_id (minted per
  connection, or --trace-id=ID to join an existing trace): the daemon
@@ -442,6 +459,26 @@ class ServiceClient:
             req["family"] = family
         return self._req(req)
 
+    def health(self) -> dict:
+        """The machine-readable health verdict: ok/degraded/failing,
+        the firing SLO rules and the canary's state."""
+        return self._req({"cmd": "health"})
+
+    def logs(self, trace_id: str | None = None,
+             job_id: str | None = None, event: str | None = None,
+             limit: int = 1000) -> dict:
+        """Query the daemon's --log-json event log (rotation-aware).
+        The filter rides as ``filter_trace_id`` because every frame
+        already carries this CONNECTION's trace_id."""
+        req: dict = {"cmd": "logs", "limit": limit}
+        if trace_id is not None:
+            req["filter_trace_id"] = trace_id
+        if job_id is not None:
+            req["job_id"] = job_id
+        if event is not None:
+            req["event"] = event
+        return self._req(req)
+
     def metrics(self, exemplars: bool = False) -> dict:
         """Prometheus text exposition; ``exemplars=True`` opts into
         the OpenMetrics exemplar suffix on histogram buckets (strict
@@ -494,7 +531,8 @@ def _parse_client_argv(argv: list[str],
     until the first ``--`` or the first token that is not a recognized
     client flag (so both ``submit --socket=S -- in.paf ...`` and
     ``submit --socket=S in.paf ...`` work).  The verb-specific flags
-    (``--exemplars`` on metrics, ``--deadline-s`` on submit and
+    (``--exit-code`` on health, ``--job``/``--event``/``--limit`` on
+    logs, ``--exemplars`` on metrics, ``--deadline-s`` on submit and
     stream) are recognized ONLY for their verb — on any other verb
     they fall through to the job argv and fail its validation loudly
     instead of being silently swallowed."""
@@ -536,8 +574,16 @@ def _parse_client_argv(argv: list[str],
             opts["tls_cert"] = a.split("=", 1)[1]
         elif a.startswith("--tls-key="):
             opts["tls_key"] = a.split("=", 1)[1]
+        elif a == "--exit-code" and cmd == "health":
+            opts["exit_code"] = True
         elif a == "--exemplars" and cmd == "metrics":
             opts["exemplars"] = True
+        elif a.startswith("--job=") and cmd == "logs":
+            opts["job"] = a.split("=", 1)[1]
+        elif a.startswith("--event=") and cmd == "logs":
+            opts["event"] = a.split("=", 1)[1]
+        elif a.startswith("--limit=") and cmd == "logs":
+            opts["limit"] = a.split("=", 1)[1]
         elif a.split("=", 1)[0] in ("--key", "--family") \
                 and "=" in a and cmd == "cache-probe":
             opts[a[2:].split("=", 1)[0]] = a.split("=", 1)[1]
@@ -583,6 +629,80 @@ def _job_verdict(resp: dict, job_id: str, stdout, stderr,
     return rc if isinstance(rc, int) else EXIT_FATAL
 
 
+def _logs_main(opts: dict, positional: list[str],
+               sock: str | None, stdout, stderr, tls=None) -> int:
+    """The ``pafreport logs`` verb: socket mode asks the daemon to
+    filter its own ``--log-json``; FILE mode runs the SAME filter
+    (``obs/logquery.py``) over a log on disk — the two cannot
+    disagree.  Output is NDJSON, oldest-first, newest --limit kept."""
+    # flags may follow the FILE positional (`logs ev.ndjson
+    # --event=x` reads as naturally as the flag-first order the
+    # generic client parser stops at) — sweep the remainder here
+    rest: list[str] = []
+    for a in positional:
+        if a.startswith("--trace-id="):
+            opts["trace_id"] = a.split("=", 1)[1]
+        elif a.startswith("--job="):
+            opts["job"] = a.split("=", 1)[1]
+        elif a.startswith("--event="):
+            opts["event"] = a.split("=", 1)[1]
+        elif a.startswith("--limit="):
+            opts["limit"] = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    positional = rest
+    limit = 1000
+    if "limit" in opts:
+        val = opts["limit"]
+        if not (val.isascii() and val.isdigit()
+                and 1 <= int(val) <= 10000):
+            stderr.write(f"{_CLIENT_USAGE}\nInvalid --limit value: "
+                         f"{val}\n")
+            return EXIT_USAGE
+        limit = int(val)
+    trace_id = opts.get("trace_id")
+    job_id = opts.get("job")
+    event = opts.get("event")
+    if sock:
+        if positional:
+            stderr.write(f"{_CLIENT_USAGE}\nError: logs takes "
+                         "--socket OR a log FILE, not both\n")
+            return EXIT_USAGE
+        try:
+            with ServiceClient(sock, client_token=opts.get("client_token"),
+                               tls=tls) as c:
+                resp = c.logs(trace_id=trace_id, job_id=job_id,
+                              event=event, limit=limit)
+        except ServiceError as e:
+            stderr.write(f"Error: {e}\n")
+            return EXIT_FATAL
+        if not resp.get("ok"):
+            stderr.write(f"Error: logs failed "
+                         f"({resp.get('error')}): "
+                         f"{resp.get('detail', '')}\n")
+            return EXIT_FATAL
+        lines = resp.get("lines") or []
+    else:
+        if len(positional) != 1:
+            stderr.write(f"{_CLIENT_USAGE}\nError: logs needs "
+                         "--socket=TARGET or exactly one log FILE\n")
+            return EXIT_USAGE
+        import os
+
+        path = positional[0]
+        if not os.path.exists(path) \
+                and not os.path.exists(path + ".1"):
+            stderr.write(f"Error: no event log at {path}\n")
+            return EXIT_FATAL
+        from pwasm_tpu_torch.obs.logquery import query_log
+        lines = query_log(path, trace_id=trace_id, job_id=job_id,
+                          event=event, limit=limit)
+    for rec in lines:
+        json.dump(rec, stdout, separators=(",", ":"))
+        stdout.write("\n")
+    return 0
+
+
 def _cache_probe_main(sock: str, opts: dict, job_argv: list[str],
                       stdout, stderr, tls=None) -> int:
     """The ``cache-probe`` verb: the job argv's exact key and delta
@@ -623,7 +743,8 @@ def _cache_probe_main(sock: str, opts: dict, job_argv: list[str],
 def client_main(cmd: str, argv: list[str], stdout=None,
                 stderr=None) -> int:
     """The ``pafreport submit`` / ``stream`` / ``svc-stats`` /
-    ``metrics`` / ``inspect`` / ``cache-probe`` entry point."""
+    ``metrics`` / ``inspect`` / ``cache-probe`` / ``health`` / ``logs``
+    entry point."""
     stdout = stdout if stdout is not None else sys.stdout
     stderr = stderr if stderr is not None else sys.stderr
     opts, job_argv = _parse_client_argv(argv, cmd)
@@ -646,6 +767,11 @@ def client_main(cmd: str, argv: list[str], stdout=None,
                      "need --tls-ca=PEM (the CA that vouches for "
                      "the server)\n")
         return EXIT_USAGE
+    if cmd == "logs":
+        # the one socket-optional verb: `logs FILE` queries a log on
+        # disk directly (the same filter the daemon runs)
+        return _logs_main(opts, job_argv, sock, stdout, stderr,
+                          tls=tls)
     if not sock:
         stderr.write(f"{_CLIENT_USAGE}\nError: --socket=PATH is "
                      "required\n")
@@ -708,6 +834,27 @@ def client_main(cmd: str, argv: list[str], stdout=None,
                 stderr.write(f"Error: metrics failed: {resp}\n")
                 return EXIT_FATAL
             stdout.write(resp.get("metrics", ""))
+            return 0
+        if cmd == "health":
+            with ServiceClient(
+                    sock, trace_id=opts.get("trace_id"),
+                    client_token=opts.get("client_token"),
+                    tls=tls) as c:
+                resp = c.health()
+            if not resp.get("ok"):
+                stderr.write(f"Error: health failed "
+                             f"({resp.get('error')}): "
+                             f"{resp.get('detail', '')}\n")
+                return EXIT_FATAL
+            health = resp.get("health") or {}
+            json.dump(health, stdout, indent=2)
+            stdout.write("\n")
+            if opts.get("exit_code"):
+                # the orchestrator-probe form: 0 ok / 1 degraded /
+                # 2 failing (unknown ranks degraded — a probe must
+                # never read a parse problem as health)
+                from pwasm_tpu_torch.obs.slo import verdict_exit_code
+                return verdict_exit_code(health.get("verdict"))
             return 0
         if cmd == "inspect":
             if len(job_argv) != 1:

@@ -48,14 +48,14 @@ surface, fanned out to per-job drain flags.
 - **one edge** (all opt-in): TLS and mTLS on the ``--listen`` TCP
   listener, scoped capability tokens (``--auth-tokens``,
   ``service/authz.py``) checked before any verb runs, and a
-  per-identity token bucket (``--rate-limit``) in front of admission.
-
-What the reference's daemon also does and the port's does not yet:
-the SLO engine (``--slo-rules=FILE``, the ``health`` verb), the
-canary and the ``logs`` verb come with the rest of slice A9c.  Until
-then the daemon behaves as the reference's does under
-``--slo-rules=off``, and a submitted argv that needs a later slice is
-answered at admission, before anything queues.
+  per-identity token bucket (``--rate-limit``) in front of admission;
+- **one self-monitor**: the SLO engine (``obs/slo.py``, the default
+  rules of ``obs/catalog.py`` merged with ``--slo-rules=FILE``, or
+  none under ``--slo-rules=off``) evaluated on the accept tick, whose
+  verdict the ``health`` verb and svc-stats' ``health`` block serve;
+  the synthetic canary (``--canary-interval``, ``service/canary.py``)
+  probing a free lane with the warmup corpus; and the ``logs`` verb
+  over the daemon's own ``--log-json``.
 """
 
 from __future__ import annotations
@@ -101,7 +101,8 @@ _SERVE_USAGE = """Usage:
                  [--log-json=FILE] [--log-json-max-bytes=N]
                  [--trace-json=FILE]
                  [--result-ttl-s=S] [--max-results=N]
-                 [--slo-rules=off] [--compile-cache-dir=DIR]
+                 [--canary-interval=S] [--slo-rules=FILE|off]
+                 [--compile-cache-dir=DIR]
                  [--result-cache=DIR|off]
                  [--result-cache-max-bytes=N]
                  [--cache-prefetch[=N]]
@@ -206,8 +207,19 @@ _SERVE_USAGE = """Usage:
                         job ids answer unknown_job
    --max-results=N      keep at most N finished-job results (least-
                         recently-accessed evicted first)
-   --slo-rules=off      the only setting until the SLO engine is
-                        ported (no rule is evaluated)
+   --canary-interval=S  run a synthetic canary probe every S seconds
+                        (service/canary.py): the deterministic warmup
+                        corpus through a free lane's normal serving
+                        path, byte-verified against a golden digest —
+                        pwasm_canary_* metrics feed the canary_failing
+                        SLO rule, so a silently-wedged lane fires an
+                        alert instead of waiting for a user job
+   --slo-rules=FILE|off JSON list of SLO rule objects merged over the
+                        default set (obs/catalog.py; a rule with a
+                        default's name replaces it) — evaluated
+                        continuously by the in-process engine
+                        (obs/slo.py) feeding pwasm_alerts_firing and
+                        the `health` verb; "off" disables the engine
    --compile-cache-dir=DIR  build directory of every job (a job's own
                         flag is not used): nvcc's kernel libraries
                         and the C++ engine are built there once and
@@ -261,15 +273,6 @@ _SERVE_USAGE = """Usage:
  queued jobs are reported preempted-resumable, new submissions are
  rejected, and the daemon exits 75.  A second signal hard-aborts.
 """
-
-# the reference's serve options that later slices of the port bring,
-# each naming its slice (ROADMAP.md queue A)
-_LATER_SERVE = {"canary-interval": "A9c (self-monitoring: the canary)"}
-
-# the reference's protocol verbs that later slices bring
-_LATER_CMDS = {"health": "A9c (self-monitoring: the SLO engine)",
-               "logs": "A9c (self-monitoring: the log query)"}
-
 
 # fair-share client identities double as metric label values and
 # journal fields: keep the charset boring (empty = anonymous bucket)
@@ -394,6 +397,8 @@ class Daemon:
                  journal_dir: str | None = None,
                  warmup: str | None = None,
                  compile_cache_dir: str | None = None,
+                 canary_interval_s: float | None = None,
+                 slo_rules=None,
                  result_cache: str | None = None,
                  result_cache_max_bytes: int | None = None,
                  result_cache_ttl_s: float | None = None,
@@ -519,11 +524,6 @@ class Daemon:
         # run-level families every finished job's --stats JSON is
         # folded into (fold_run_stats), exposed over the `metrics`
         # protocol command and, optionally, a node-exporter textfile.
-        # The families of the later slices' features (m2m, the result
-        # cache, the transport edge, the SLO engine, the canary) are
-        # registered as the reference's daemon registers them, so the
-        # exposition's families are the reference's under
-        # --slo-rules=off; they carry no sample until those slices.
         from pwasm_tpu_torch.obs import (EventLog, MetricsRegistry,
                                          Observability, TraceRecorder)
         from pwasm_tpu_torch.obs.catalog import (
@@ -613,8 +613,34 @@ class Daemon:
                                  events=events, tracer=tracer,
                                  trace_path=trace_json)
         self.drain.obs = self.obs   # SIGTERM/drain lands in the log
-        build_slo_metrics(self.registry)
-        build_canary_metrics(self.registry)
+        self.log_json_path = log_json   # the `logs` verb reads it
+        # ---- self-monitoring: the SLO engine over THIS registry
+        # (default rules + user --slo-rules merged by name;
+        # slo_rules="off" runs an empty engine) and the synthetic
+        # canary
+        from pwasm_tpu_torch.obs.catalog import default_slo_rules
+        from pwasm_tpu_torch.obs.slo import SloEngine, merge_rules
+        self.slo_metrics = build_slo_metrics(self.registry)
+        self.canary_metrics = build_canary_metrics(self.registry)
+        if slo_rules == "off":
+            rules = []
+        else:
+            rules = merge_rules(default_slo_rules(), slo_rules)
+        # evaluate fast enough that a canary failure fires within the
+        # detection contract (two canary intervals), slow enough to
+        # stay invisible next to the 0.2s accept tick
+        eval_s = 1.0
+        if canary_interval_s is not None:
+            eval_s = min(eval_s, max(0.05, canary_interval_s / 2))
+        self.slo = SloEngine(self.registry, rules,
+                             metrics=self.slo_metrics,
+                             on_event=self.obs.event,
+                             eval_interval_s=eval_s)
+        self.canary = None
+        if canary_interval_s is not None:
+            from pwasm_tpu_torch.service.canary import CanaryRunner
+            self.canary = CanaryRunner(self, canary_interval_s,
+                                       self.canary_metrics)
         # ---- result eviction: TTL and/or LRU ceiling over TERMINAL
         # jobs only — running and queued jobs are never touched; an
         # evicted id answers unknown_job exactly like one that never
@@ -749,9 +775,14 @@ class Daemon:
                 # admission is already open
                 threading.Thread(target=self._run_warmup, daemon=True,
                                  name="pwasm-svc-warmup").start()
+            if self.canary is not None:
+                # the synthetic canary loop: started after _jobdir
+                # exists — the probe corpus lives under it
+                self.canary.start()
             try:
                 while True:
                     self._evict_results()
+                    self._selfmon_tick()
                     if self.auth is not None:
                         # token rotation without a restart: the file
                         # hot-reloads on this tick (keep-last-good)
@@ -845,6 +876,25 @@ class Daemon:
         print(f"pwasm: {msg}", file=self.stderr)
 
     # ---- observability -------------------------------------------------
+    def _selfmon_tick(self) -> None:
+        """One accept-loop tick of the SLO engine: refresh the gauges
+        the rules read, then evaluate — time-gated inside the engine so
+        the 0.2s accept cadence costs nothing between evaluation
+        intervals."""
+        if self.slo.due():
+            self._refresh_gauges()
+            self.slo.evaluate()
+
+    def _health(self) -> dict:
+        """The `health` verb body: a FRESH evaluation (a probe must
+        see now, not the last timer tick), the verdict + firing rules,
+        and the canary roll-up."""
+        self._refresh_gauges()
+        h = self.slo.evaluate()
+        h["canary"] = self.canary.summary() \
+            if self.canary is not None else None
+        return h
+
     def _refresh_gauges(self) -> None:
         """Stamp the point-in-time gauges from the live state.  Called
         before every exposition/stats read and after every job, so the
@@ -1773,8 +1823,7 @@ class Daemon:
                 raise ValueError(
                     f"unknown priority lane {priority!r} "
                     f"(configured: {','.join(lanes)})")
-        from pwasm_tpu_torch.cli import (_SERVICE_CMDS, CliError,
-                                         _parse_args, later_option)
+        from pwasm_tpu_torch.cli import _SERVICE_CMDS, CliError, _parse_args
         if argv[0] in _SERVICE_CMDS:
             raise ValueError(
                 f"nested service command {argv[0]!r} not allowed")
@@ -1795,12 +1844,6 @@ class Daemon:
                 "service jobs must write their report to a file "
                 "(-o <report>): the socket carries control frames, "
                 "not report bytes")
-        # an option the port's CLI refuses because a later slice brings
-        # it is refused HERE, before anything queues or runs
-        for k in job_opts:
-            later = later_option(k)
-            if later is not None:
-                raise ValueError(later.strip())
         if stream:
             if _pos:
                 raise ValueError(
@@ -2480,11 +2523,6 @@ class Daemon:
             return protocol.ok(
                 protocol_version=protocol.PROTOCOL_VERSION,
                 draining=self._draining)
-        if cmd in _LATER_CMDS:
-            return protocol.err(
-                protocol.ERR_UNKNOWN_CMD,
-                f"cmd {cmd!r} is not ported to pwasm_tpu_torch yet; it "
-                f"comes with slice {_LATER_CMDS[cmd]}")
         if cmd in ("submit", "stream", "stream-data") \
                 and self.epoch_lease.fenced:
             # the fence: no NEW work while the lease is lost — the
@@ -2739,9 +2777,11 @@ class Daemon:
                 "max_buffer_total": self.streams.max_total,
             }
             # m2m-stream sessions: arrival and dispatch flow,
-            # incremental reuse, section emission (the reference's
-            # "health" block comes with the SLO engine)
+            # incremental reuse, section emission
             st["m2m"] = self._m2m_stats()
+            # the self-monitoring verdict: `top`'s alerts pane reads it
+            # from the same surface as the JSON verbs
+            st["health"] = self._health()
             # additive: epoch-lease fencing.  The router's
             # lease heartbeat RIDES the stats poll (req["lease"]), so
             # governance costs zero extra RPCs; the reply always
@@ -2766,6 +2806,11 @@ class Daemon:
                 metrics=self.registry.expose(
                     exemplars=bool(req.get("exemplars"))),
                 content_type="text/plain; version=0.0.4")
+        if cmd == "health":
+            # the machine-readable health verdict: ok/degraded/failing
+            # + the firing rules + canary state — what `health
+            # --exit-code` and any external orchestrator probe consume
+            return protocol.ok(health=self._health())
         if cmd == "cache-probe":
             # could this daemon answer a key from its result cache?  A
             # manifest check: no blob reads, no admission
@@ -2782,6 +2827,11 @@ class Daemon:
                 family_hit=self.cache is not None
                 and isinstance(fam, str) and bool(fam)
                 and self.cache.contains_family(fam))
+        if cmd == "logs":
+            # the incident-query verb: filter THIS daemon's --log-json
+            # (rotated .1 generation included) by trace_id/job/event —
+            # the same query `pafreport logs FILE` runs locally
+            return protocol.handle_logs(req, self.log_json_path)
         if cmd == "drain":
             self.drain.request("drain requested by client")
             self._begin_drain(self.drain.reason)
@@ -3048,16 +3098,8 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
         elif a in ("-h", "--help"):
             stderr.write(_SERVE_USAGE)
             return EXIT_USAGE
-        elif a[2:] in _LATER_SERVE:
-            opts[a[2:]] = ""
         else:
             stderr.write(f"{_SERVE_USAGE}\nInvalid argument: {a}\n")
-            return EXIT_USAGE
-    for k in opts:
-        if k in _LATER_SERVE:
-            stderr.write(f"Error: serve --{k} is not ported to "
-                         f"pwasm_tpu_torch yet; it comes with slice "
-                         f"{_LATER_SERVE[k]}\n")
             return EXIT_USAGE
     sock = opts.pop("socket", None)
     if not sock:
@@ -3174,13 +3216,31 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
             stderr.write(f"{_SERVE_USAGE}\nInvalid --stream-idle-s "
                          f"value: {val}\n")
             return EXIT_USAGE
+    canary_interval_s = None
+    val = opts.pop("canary-interval", None)
+    if val is not None:
+        import math
+        try:
+            canary_interval_s = float(val)
+            if canary_interval_s <= 0 \
+                    or not math.isfinite(canary_interval_s):
+                raise ValueError
+        except (TypeError, ValueError):
+            stderr.write(f"{_SERVE_USAGE}\nInvalid --canary-interval "
+                         f"value: {val}\n")
+            return EXIT_USAGE
+    slo_rules = None
     val = opts.pop("slo-rules", None)
-    if val is not None and val != "off":
-        stderr.write(f"Error: serve --slo-rules={val} is not ported to "
-                     "pwasm_tpu_torch yet; it comes with slice A9c (the "
-                     "SLO engine); --slo-rules=off is the only "
-                     "setting\n")
-        return EXIT_USAGE
+    if val is not None:
+        if val == "off":
+            slo_rules = "off"
+        else:
+            from pwasm_tpu_torch.obs.slo import load_rules_file
+            try:
+                slo_rules = load_rules_file(val)
+            except ValueError as e:
+                stderr.write(f"{_SERVE_USAGE}\nError: {e}\n")
+                return EXIT_USAGE
     # the edge: TLS/mTLS on the TCP listener, scoped capability
     # tokens, per-identity rate limiting — each opt-in
     tls_cert = opts.pop("tls-cert", None)
@@ -3271,6 +3331,8 @@ def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
                         listen=listen, journal_dir=journal_dir,
                         warmup=warmup,
                         compile_cache_dir=compile_cache_dir,
+                        canary_interval_s=canary_interval_s,
+                        slo_rules=slo_rules,
                         result_cache=result_cache,
                         result_cache_max_bytes=nums[
                             "result-cache-max-bytes"],

@@ -6,9 +6,6 @@ bounds a frame's nesting depth (:data:`MAX_FRAME_DEPTH`) before it
 parses, so a JSON bomb answers ``bad_json`` in band on every Python
 (the reference relies on the parser raising ``RecursionError``, which
 Python 3.12's ``json`` no longer does at the depths a frame can reach).
-The verbs ``cache-probe``, ``health`` and ``logs`` come with later
-slices of the port; until then the daemon answers them
-``unknown_cmd``, naming the slice.
 
 One request frame per line, one response frame per line — a format a
 shell one-liner (``printf ... | nc -U``) can speak, trivially
@@ -267,6 +264,27 @@ def parse_deadline_ms(req: dict) -> tuple[int | None, dict | None]:
             "resubmit with a fresh --deadline-s",
             deadline_ms=v)
     return v, None
+
+
+def handle_logs(req: dict, log_path: str | None) -> dict:
+    """The ``logs`` verb body: validate the limit, filter the server's
+    own ``--log-json`` via ``obs/logquery.py`` (rotated ``.1``
+    generation included), answer the newest matches oldest-first."""
+    if not log_path:
+        return err(ERR_BAD_REQUEST,
+                   "this server runs without --log-json; there is "
+                   "no event log to query")
+    limit = req.get("limit", 1000)
+    if not isinstance(limit, int) or isinstance(limit, bool) \
+            or not 1 <= limit <= 10000:
+        return err(ERR_BAD_REQUEST,
+                   "limit must be an integer in [1, 10000]")
+    from pwasm_tpu_torch.obs.logquery import query_log
+    lines = query_log(log_path,
+                      trace_id=req.get("filter_trace_id"),
+                      job_id=req.get("job_id"),
+                      event=req.get("event"), limit=limit)
+    return ok(lines=lines, path=log_path)
 
 
 def ok(**fields) -> dict:

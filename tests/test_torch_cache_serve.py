@@ -541,38 +541,27 @@ def test_serve_compile_cache_dir_is_the_jobs_build_dir(tmp_path,
 
 
 def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
-    """Every remaining refusal of a later slice names it (A9c, A10,
-    A11; what is left of A9c is its self-monitoring half: the canary,
-    ``health``, ``logs`` and ``top``), and what the cache's slices
-    brought is refused nowhere: the cache options on the CLI and on
-    ``serve``, ``cache-probe``, a served ``--many2many``, delta streams
-    and the edge's options."""
+    """The one remaining refusal of a later slice names it (``route``,
+    A11a), and what the cache's, the edge's and the self-monitoring
+    slices brought is refused nowhere: the cache options on the CLI and
+    on ``serve``, ``cache-probe``, a served ``--many2many``, delta
+    streams, the edge's options, ``--m2m-stream``, ``top``, ``health``,
+    ``logs`` and ``serve --canary-interval/--slo-rules``."""
     from pwasm_tpu_torch import cli, native
     from pwasm_tpu_torch.ops import _build
     from pwasm_tpu_torch.service import daemon
     from pwasm_tpu_torch.stream import multicds
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
-    slices = ("A9c", "A10", "A11")
-    tables = (cli._LATER_OPTS, cli._LATER_CMDS, daemon._LATER_SERVE,
-              daemon._LATER_CMDS)
-    for table in tables:
-        for name, why in table.items():
-            assert any(f"slice {s}" in why or why.startswith(s)
-                       for s in slices), (name, why)
-    assert not hasattr(daemon, "DELTA_STREAMS_LATER")
-    for name in ("canary-interval", "health", "logs", "top"):
-        why = {**daemon._LATER_SERVE, **daemon._LATER_CMDS,
-               **cli._LATER_CMDS}[name]
-        assert "A9c" in why and "self-monitoring" in why, (name, why)
+    assert cli._LATER_CMDS == {"route": "slice A11a (the fleet router)"}
+    for name in ("_LATER_SERVE", "_LATER_CMDS", "DELTA_STREAMS_LATER"):
+        assert not hasattr(daemon, name), name
+    for name in ("_LATER_OPTS", "later_option"):
+        assert not hasattr(cli, name), name
     assert not hasattr(multicds, "_LATER")
-    brought = {"result-cache", "result-cache-max-bytes",
-               "compile-cache-dir", "cache-prefetch", "cache-probe",
-               "many2many", "tls-cert", "tls-key", "tls-client-ca",
-               "auth-tokens", "rate-limit"}
-    for table in tables:
-        assert not brought & set(table), table
-    assert cli.later_option("result-cache") is None
+    assert set(cli._SERVICE_CMDS) - set(cli._LATER_CMDS) == {
+        "serve", "submit", "svc-stats", "metrics", "stream", "inspect",
+        "top", "trace-merge", "health", "logs", "cache-probe"}
     paf, fa = _corpus(tmp_path, n=4)
     qs, _ts, tfa = _m2m_files(tmp_path, nq=1, nt=2)
     qfa = _write_fa(tmp_path, "q1.fa", qs)
@@ -581,11 +570,14 @@ def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
                  cache_prefetch=4) as h:
         with ServiceClient(h.sock) as c:
             assert c.cache_probe("0" * 64).get("ok")
+            assert c.health()["health"]["rules"] == 9
         for argv in ([paf, "-r", fa, "-o", str(tmp_path / "a.dfa"),
                       f"--result-cache={tmp_path / 'own'}",
                       "--result-cache-max-bytes=99999999",
                       f"--compile-cache-dir={tmp_path / 'bd'}"],
                      ["--many2many", tfa, "-r", qfa, "-o",
-                      str(tmp_path / "a.tsv")]):
+                      str(tmp_path / "a.tsv")],
+                     ["--m2m-stream", tfa, "-r", qfa, "-o",
+                      str(tmp_path / "b.tsv")]):
             assert _submit_wait(h.sock, argv + ["--device=cpu"]) \
                 .get("rc") == 0

@@ -127,15 +127,18 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,later", [
-    ("--compile-cache-dir=DIR", None), ("--m2m-stream", "slice A10"),
+    ("--compile-cache-dir=DIR", None),
+    ("--m2m-stream", "-w builds an MSA and does not apply"),
     ("--result-cache-max-bytes=1", None),
     ("--result-cache=DIR", None),
     ("--follow=0.2 --result-cache=DIR", None),
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
-    """An option of a later slice exits 1 naming it; the result cache and
-    the build directory, which an earlier slice refused, run (``later``
-    None) to the flagless outputs."""
+    """An option the run refuses exits 1 saying why (``--m2m-stream``, a
+    job type of its own, takes no MSA output; ``route`` names the slice
+    that brings it); the result cache and the build directory, which an
+    earlier slice refused, run (``later`` None) to the flagless
+    outputs."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
@@ -156,8 +159,8 @@ def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
         assert rc == 1
         assert later in err.getvalue()
     err = io.StringIO()
-    assert run(["top", "--socket=x"], stderr=err) == 1
-    assert "slice A9c" in err.getvalue()
+    assert run(["route", "--socket=x"], stderr=err) == 1
+    assert "slice A11a" in err.getvalue()
 
 
 def test_usage_and_parse_exit_codes(tmp_path):

@@ -76,6 +76,12 @@ def test_port_sources_never_name_jax_or_the_reference():
     assert {f"pwasm_tpu_torch/fleet/{m}.py" for m in (
         "__init__", "fencing", "transport")} <= rel
     assert "pwasm_tpu_torch/obs/flight.py" in rel
+    # and self-monitoring and surveillance
+    assert {"pwasm_tpu_torch/obs/slo.py", "pwasm_tpu_torch/obs/logquery.py",
+            "pwasm_tpu_torch/service/canary.py",
+            "pwasm_tpu_torch/service/top.py"} <= rel
+    assert {f"pwasm_tpu_torch/surveil/{m}.py" for m in (
+        "__init__", "partition", "records", "session")} <= rel
 
 
 def test_port_cxx_sources_never_name_the_reference():
@@ -146,6 +152,11 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.service.journal\n"
         "import pwasm_tpu_torch.service.leases\n"
         "import pwasm_tpu_torch.service.queue\n"
+        "import pwasm_tpu_torch.service.canary\n"
+        "import pwasm_tpu_torch.service.top\n"
+        "import pwasm_tpu_torch.obs.slo\n"
+        "import pwasm_tpu_torch.obs.logquery\n"
+        "import pwasm_tpu_torch.surveil.session\n"
         f"assert run({serve!r}) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
@@ -171,6 +182,58 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
     for name in ("st.json", "t.json", "e.ndjson", "m.prom",
                  "prof/trace.json", "tm.json"):
         assert (tmp_path / name).stat().st_size > 0, name
+
+
+def test_client_processes_import_no_torch(tmp_path):
+    """A ``submit``, ``top``, ``health`` or ``logs`` client process, as
+    ``python -m pwasm_tpu_torch`` runs it, against a live port daemon
+    (and ``logs`` on a file with no daemon), stays light: it loads no
+    torch, no jax and nothing of the reference."""
+    for name in ("in.paf", "q.fa"):
+        shutil.copy(os.path.join(REPO, "tests", "golden", name), tmp_path)
+    sock = str(tmp_path / "s.sock")
+    log = str(tmp_path / "ev.ndjson")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "pwasm_tpu_torch", "serve",
+         f"--socket={sock}", f"--log-json={log}", "--journal=off"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    verbs = [["submit", f"--socket={sock}", "--", "in.paf", "-r", "q.fa",
+              "-o", "r.dfa", "--device=cpu"],
+             ["health", f"--socket={sock}", "--exit-code"],
+             ["top", f"--socket={sock}", "--once"],
+             ["logs", f"--socket={sock}", "--event=job_finish"],
+             ["logs", log, "--event=job_admit"]]
+    code = (
+        "import runpy, sys\n"
+        "rcs = []\n"
+        f"for argv in {verbs!r}:\n"
+        "    sys.argv = ['pwasm_tpu_torch', *argv]\n"
+        "    try:\n"
+        "        runpy.run_module('pwasm_tpu_torch', run_name='__main__',\n"
+        "                         alter_sys=True)\n"
+        "    except SystemExit as e:\n"
+        "        rcs.append(e.code)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'jax', 'jaxlib', 'pwasm_tpu'))\n"
+        "print('RCS', rcs)\n"
+        "print('BAD', bad)\n")
+    try:
+        from pwasm_tpu_torch.service.client import wait_for_socket
+        assert wait_for_socket(sock, 60)
+        out = subprocess.run([sys.executable, "-c", code],
+                             cwd=str(tmp_path), env=env,
+                             capture_output=True, text=True, timeout=240)
+    finally:
+        daemon.terminate()
+        daemon.wait(60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "RCS [0, 0, 0, 0, 0]" in out.stdout, out.stdout + out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "ALERTS: none" in out.stdout
+    assert '"event":"job_finish"' in out.stdout
+    assert '"event":"job_admit"' in out.stdout
 
 
 def _reference_state() -> dict:
