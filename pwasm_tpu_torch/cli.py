@@ -249,6 +249,11 @@ USAGE = """Usage:
    its client verbs (submit -h lists them)
  pafreport top --socket=PATH [--interval=S] [--once]
    a live view of the daemon's svc-stats, its alerts pane first
+
+ pafreport route --backends=TARGET[,TARGET...] --socket=PATH [options]
+   the fleet router: serve daemons (unix sockets and/or HOST:PORT)
+   behind one submit surface, with least-loaded placement, a fleet-wide
+   fair share and journal-aware failover (route -h lists its options)
 """
 
 # reference optstring "DGFCNvd:p:r:o:m:w:c:s:" minus the value flags the
@@ -266,8 +271,9 @@ _LONG_FLAGS = ("ace", "info", "cons", "motifs", "batch", "band", "realign",
                "compile-cache-dir")
 
 # subcommands of the reference that a later slice of the port brings,
-# each naming its slice (ROADMAP.md queue A)
-_LATER_CMDS = {"route": "slice A11a (the fleet router)"}
+# each naming its slice (ROADMAP.md queue A; none is left — the route
+# flags still to come are fleet/router.py's _LATER_ROUTE)
+_LATER_CMDS: dict[str, str] = {}
 # the reference's subcommands, dispatched on the first argv token (a
 # served job may name none of them)
 _SERVICE_CMDS = ("serve", "submit", "svc-stats", "metrics", "stream",
@@ -1270,8 +1276,8 @@ def _run_mesh(shard: int, device, stderr, verbose: bool, lane=None):
 
 
 def _service_main(argv: list[str], stdout, stderr) -> int:
-    """The subcommands: ``trace-merge``; ``top``; ``serve`` (the daemon)
-    and the client verbs; ``route`` exits 1 naming its slice."""
+    """The subcommands: ``trace-merge``; ``top``; ``serve`` (the daemon);
+    ``route`` (the fleet router) and the client verbs."""
     cmd, rest = argv[0], argv[1:]
     if cmd == "trace-merge":
         from pwasm_tpu_torch.obs.merge import trace_merge_main
@@ -1285,6 +1291,9 @@ def _service_main(argv: list[str], stdout, stderr) -> int:
     if cmd == "serve":
         from pwasm_tpu_torch.service.daemon import serve_main
         return serve_main(rest, stdout, stderr)
+    if cmd == "route":
+        from pwasm_tpu_torch.fleet.router import route_main
+        return route_main(rest, stdout, stderr)
     from pwasm_tpu_torch.service.client import client_main
     return client_main(cmd, rest, stdout, stderr)
 

@@ -1,16 +1,23 @@
-"""Fleet pieces the serve daemon needs.
+"""Fleet federation: many serve daemons, one submit surface.
 
-Counterpart of ``pwasm_tpu/fleet/``, so far its two modules that the
-daemon and the client import:
+Counterpart of ``pwasm_tpu/fleet/``:
 
 - ``transport``  — the unix-socket and TCP transport: target parsing
   and connecting shared by :class:`~pwasm_tpu_torch.service.client.
-  ServiceClient` and ``serve --listen``;
+  ServiceClient`, ``serve --listen`` and the router;
 - ``fencing``    — :class:`~pwasm_tpu_torch.fleet.fencing.EpochLease`,
-  the member side of a fleet router's epoch lease (the ``lease-grant``
-  and ``fence`` verbs).
+  the member side of the router's epoch lease (the ``lease-grant`` and
+  ``fence`` verbs), and ``readmit_epoch_guard``, the router's;
+- ``ledger``     — the global fair-share ledger: per-client fleet-wide
+  admission quotas and placement accounting;
+- ``router``     — the ``route`` daemon: full-protocol fan-out over N
+  member daemons with least-depth placement, the write-ahead journal
+  and epoch leases, slow-member quarantine and brownout shedding, the
+  fleet result cache, and journal-aware failover (a member killed
+  mid-job has its journal read and its started-unfinished jobs
+  re-admitted to a sibling as ``--resume`` continuations).
 
-The router, its ledger, the scaler and the standby come with a later
-slice of the port.  Every module here imports no torch: the fleet
-layer moves frames and files, never tensors.
+The warm standby and the SLO scaler come with a later slice (A11b).
+Every module here imports no torch: the fleet layer moves frames and
+files, never tensors.
 """

@@ -54,6 +54,41 @@ REC_CACHE_HIT = "cache_hit"   # job answered from the result cache at
 #   a finish record but no start record
 
 
+# ── router write-ahead vocabulary (fleet/router.py) ──
+# The fleet router journals its routed-job table through this same
+# JobJournal (same appender, same torn-tail contract, same compaction)
+# with its own record kinds, so a kill -9'd router — or the warm
+# standby tailing the file — can rebuild every routed admission and
+# in-flight placement.  fold_route_records lives in fleet/router.py
+# (the fold is routing semantics; this module only owns the durable
+# line format).
+REC_ROUTE_ADMIT = "route_admit"    # routed job acked (frame, client,
+#                                    trace_id, stream flag)
+REC_ROUTE_PLACE = "route_place"    # placement or failover RE-placement
+#                                    (member, member job id, gen, epoch)
+REC_ROUTE_RETIRE = "route_retire"  # routed job retired from the ledger
+#                                    (optionally with a router-cached
+#                                    terminal verdict: state/rc/detail)
+REC_EPOCH = "epoch"                # fleet epoch bump (fencing): every
+#                                    failover event and every router
+#                                    restart/takeover writes one
+REC_MEMBERS = "members"            # member-set snapshot — the standby
+#                                    inherits its backends from the
+#                                    LAST of these, never from flags
+REC_SCALE = "scale"                # scaler action (spawn/retire) with
+#                                    the member target + child pid, so
+#                                    a restarted router knows which
+#                                    members it owns
+REC_ROUTE_SHED = "route_shed"      # brownout shed-level transition
+#                                    (level + lane set), so
+#                                    the journal records WHEN the
+#                                    router started/stopped turning
+#                                    low-priority admissions away
+#                                    (fold_route_records skips it —
+#                                    shed state is not rebuilt, only
+#                                    auditable)
+
+
 class JobJournal:
     """Append-side of the journal.  Thread-safe: worker threads and
     connection threads append concurrently.  A failed append degrades

@@ -541,19 +541,24 @@ def test_serve_compile_cache_dir_is_the_jobs_build_dir(tmp_path,
 
 
 def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
-    """The one remaining refusal of a later slice names it (``route``,
-    A11a), and what the cache's, the edge's and the self-monitoring
-    slices brought is refused nowhere: the cache options on the CLI and
-    on ``serve``, ``cache-probe``, a served ``--many2many``, delta
-    streams, the edge's options, ``--m2m-stream``, ``top``, ``health``,
-    ``logs`` and ``serve --canary-interval/--slo-rules``."""
+    """The remaining refusals of a later slice name it (the router's
+    ``--standby-of`` and ``--scale-policy``, A11b; no subcommand is
+    left), and what the cache's, the edge's, the self-monitoring and
+    the router's slices brought is refused nowhere: the cache options
+    on the CLI and on ``serve``, ``cache-probe``, a served
+    ``--many2many``, delta streams, the edge's options,
+    ``--m2m-stream``, ``top``, ``health``, ``logs``, ``route`` and
+    ``serve --canary-interval/--slo-rules``."""
     from pwasm_tpu_torch import cli, native
+    from pwasm_tpu_torch.fleet import router
     from pwasm_tpu_torch.ops import _build
     from pwasm_tpu_torch.service import daemon
     from pwasm_tpu_torch.stream import multicds
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
-    assert cli._LATER_CMDS == {"route": "slice A11a (the fleet router)"}
+    assert cli._LATER_CMDS == {}
+    assert router._LATER_ROUTE == {"standby-of": "slice A11b (router HA)",
+                                   "scale-policy": "slice A11b (router HA)"}
     for name in ("_LATER_SERVE", "_LATER_CMDS", "DELTA_STREAMS_LATER"):
         assert not hasattr(daemon, name), name
     for name in ("_LATER_OPTS", "later_option"):
@@ -561,7 +566,7 @@ def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
     assert not hasattr(multicds, "_LATER")
     assert set(cli._SERVICE_CMDS) - set(cli._LATER_CMDS) == {
         "serve", "submit", "svc-stats", "metrics", "stream", "inspect",
-        "top", "trace-merge", "health", "logs", "cache-probe"}
+        "top", "trace-merge", "health", "logs", "cache-probe", "route"}
     paf, fa = _corpus(tmp_path, n=4)
     qs, _ts, tfa = _m2m_files(tmp_path, nq=1, nt=2)
     qfa = _write_fa(tmp_path, "q1.fa", qs)

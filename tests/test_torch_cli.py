@@ -135,10 +135,10 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
     """An option the run refuses exits 1 saying why (``--m2m-stream``, a
-    job type of its own, takes no MSA output; ``route`` names the slice
-    that brings it); the result cache and the build directory, which an
-    earlier slice refused, run (``later`` None) to the flagless
-    outputs."""
+    job type of its own, takes no MSA output; ``route --standby-of`` and
+    ``route --scale-policy`` name the slice that brings them); the
+    result cache and the build directory, which an earlier slice
+    refused, run (``later`` None) to the flagless outputs."""
     from pwasm_tpu_torch import native
     from pwasm_tpu_torch.ops import _build
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
@@ -158,9 +158,10 @@ def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
     else:
         assert rc == 1
         assert later in err.getvalue()
-    err = io.StringIO()
-    assert run(["route", "--socket=x"], stderr=err) == 1
-    assert "slice A11a" in err.getvalue()
+    for route_flag in ("--standby-of=x.sock", "--scale-policy=p.json"):
+        err = io.StringIO()
+        assert run(["route", "--socket=x", route_flag], stderr=err) == 1
+        assert "slice A11b (router HA)" in err.getvalue()
 
 
 def test_usage_and_parse_exit_codes(tmp_path):

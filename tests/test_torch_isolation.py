@@ -74,7 +74,7 @@ def test_port_sources_never_name_jax_or_the_reference():
         "__init__", "cache", "client", "daemon", "journal", "leases",
         "protocol", "queue")} <= rel
     assert {f"pwasm_tpu_torch/fleet/{m}.py" for m in (
-        "__init__", "fencing", "transport")} <= rel
+        "__init__", "fencing", "ledger", "router", "transport")} <= rel
     assert "pwasm_tpu_torch/obs/flight.py" in rel
     # and self-monitoring and surveillance
     assert {"pwasm_tpu_torch/obs/slo.py", "pwasm_tpu_torch/obs/logquery.py",
@@ -147,6 +147,8 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.stream.pafstream\n"
         "import pwasm_tpu_torch.obs.flight\n"
         "import pwasm_tpu_torch.fleet.fencing\n"
+        "import pwasm_tpu_torch.fleet.ledger\n"
+        "import pwasm_tpu_torch.fleet.router\n"
         "import pwasm_tpu_torch.fleet.transport\n"
         "import pwasm_tpu_torch.service.cache\n"
         "import pwasm_tpu_torch.service.journal\n"
@@ -184,28 +186,11 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         assert (tmp_path / name).stat().st_size > 0, name
 
 
-def test_client_processes_import_no_torch(tmp_path):
-    """A ``submit``, ``top``, ``health`` or ``logs`` client process, as
-    ``python -m pwasm_tpu_torch`` runs it, against a live port daemon
-    (and ``logs`` on a file with no daemon), stays light: it loads no
-    torch, no jax and nothing of the reference."""
-    for name in ("in.paf", "q.fa"):
-        shutil.copy(os.path.join(REPO, "tests", "golden", name), tmp_path)
-    sock = str(tmp_path / "s.sock")
-    log = str(tmp_path / "ev.ndjson")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    daemon = subprocess.Popen(
-        [sys.executable, "-m", "pwasm_tpu_torch", "serve",
-         f"--socket={sock}", f"--log-json={log}", "--journal=off"],
-        cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True)
-    verbs = [["submit", f"--socket={sock}", "--", "in.paf", "-r", "q.fa",
-              "-o", "r.dfa", "--device=cpu"],
-             ["health", f"--socket={sock}", "--exit-code"],
-             ["top", f"--socket={sock}", "--once"],
-             ["logs", f"--socket={sock}", "--event=job_finish"],
-             ["logs", log, "--event=job_admit"]]
-    code = (
+def _verbs_code(verbs):
+    """A process running each argv of ``verbs`` as ``python -m
+    pwasm_tpu_torch`` runs it, then printing the exit codes and every
+    loaded module of torch, jax or the reference."""
+    return (
         "import runpy, sys\n"
         "rcs = []\n"
         f"for argv in {verbs!r}:\n"
@@ -219,18 +204,63 @@ def test_client_processes_import_no_torch(tmp_path):
         "             ('torch', 'jax', 'jaxlib', 'pwasm_tpu'))\n"
         "print('RCS', rcs)\n"
         "print('BAD', bad)\n")
+
+
+def test_client_processes_import_no_torch(tmp_path):
+    """A ``submit``, ``top``, ``health`` or ``logs`` client process, as
+    ``python -m pwasm_tpu_torch`` runs it, against a live port daemon
+    (and ``logs`` on a file with no daemon), stays light: it loads no
+    torch, no jax and nothing of the reference.  So does a ``route``
+    process over that daemon, which routes a job and drains (exit 0)."""
+    for name in ("in.paf", "q.fa"):
+        shutil.copy(os.path.join(REPO, "tests", "golden", name), tmp_path)
+    sock = str(tmp_path / "s.sock")
+    log = str(tmp_path / "ev.ndjson")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "pwasm_tpu_torch", "serve",
+         f"--socket={sock}", f"--log-json={log}", "--journal=off"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    rsock = str(tmp_path / "r.sock")
+    verbs = [["submit", f"--socket={sock}", "--", "in.paf", "-r", "q.fa",
+              "-o", "r.dfa", "--device=cpu"],
+             ["health", f"--socket={sock}", "--exit-code"],
+             ["top", f"--socket={sock}", "--once"],
+             ["logs", f"--socket={sock}", "--event=job_finish"],
+             ["logs", log, "--event=job_admit"],
+             ["submit", f"--socket={rsock}", "--", "in.paf", "-r", "q.fa",
+              "-o", "routed.dfa", "--device=cpu"],
+             ["svc-stats", f"--socket={rsock}", "--drain"]]
+    route = [["route", f"--backends={sock}", f"--socket={rsock}",
+              "--poll-interval=0.1"]]
+    router = None
     try:
         from pwasm_tpu_torch.service.client import wait_for_socket
         assert wait_for_socket(sock, 60)
-        out = subprocess.run([sys.executable, "-c", code],
+        router = subprocess.Popen(
+            [sys.executable, "-c", _verbs_code(route)], cwd=str(tmp_path),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        assert wait_for_socket(rsock, 60)
+        out = subprocess.run([sys.executable, "-c", _verbs_code(verbs)],
                              cwd=str(tmp_path), env=env,
                              capture_output=True, text=True, timeout=240)
+        rout, rerr = router.communicate(timeout=60)
     finally:
+        if router is not None and router.poll() is None:
+            router.kill()
+            router.wait()
         daemon.terminate()
         daemon.wait(60)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "RCS [0, 0, 0, 0, 0]" in out.stdout, out.stdout + out.stderr
+    assert "RCS [0, 0, 0, 0, 0, 0, 0]" in out.stdout, \
+        out.stdout + out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert router.returncode == 0, rerr[-2000:]
+    assert "RCS [0]" in rout and "BAD []" in rout, rout + rerr
+    assert (tmp_path / "routed.dfa").read_bytes() \
+        == (tmp_path / "r.dfa").read_bytes()
     assert "ALERTS: none" in out.stdout
     assert '"event":"job_finish"' in out.stdout
     assert '"event":"job_admit"' in out.stdout
