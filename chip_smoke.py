@@ -274,7 +274,21 @@ Phases, one JSON line each; any failure exits non-zero:
               mid-job and restarted on its socket (the pre-crash ids
               answer, the epoch is higher), ``svc-stats``, ``top`` and
               ``health`` through it, and its drain (exit 0);
-24. the ``kernels`` line (with each main-path kernel's
+24. ha      — router HA (``run_ha``): three member daemons on the card
+              (``--lanes=1 --warmup=cuda --max-queue=1``): a ``route
+              --standby-of`` process takes over a SIGKILLed ``route``
+              process with a slowed ``--realign --batch=16`` job in
+              flight (phase 14's bytes; ``ha.takeover``, a higher epoch;
+              the kill-to-socket seconds); phase 22's 500 x 1,024
+              ``--m2m-stream`` through the promoted router, scattered
+              over both members (phase 22's cold bytes, scores launches
+              on each member, the wall beside phase 22's); a ``route
+              --scale-policy`` over one member whose ``queue_pressure``
+              a burst of slowed jobs fires: the scaler spawns a ``serve``
+              member on the card (the first firing to its socket's
+              seconds), a job lands there with phase 5's bytes, and the
+              calm retires it (exit 75);
+25. the ``kernels`` line (with each main-path kernel's
    ``resume_launches`` from phase 14's SIGTERM resume and, for the
    consensus, forward and walk kernels, ``faulted_launches`` from
    phase 15's faulted ``--realign`` run, ``follow_launches`` from
@@ -285,8 +299,9 @@ Phases, one JSON line each; any failure exits non-zero:
    ``cache_launches`` in each of phase 19's runs,
    ``edge_launches`` in each of phase 20's, ``selfmon_launches`` in
    phase 21, for the scores kernels, ``surveil_launches`` in each
-   of phase 22's runs, and ``fleet_launches`` on each of phase 23's
-   members), the card's name
+   of phase 22's runs, ``fleet_launches`` on each of phase 23's
+   members and ``ha_launches`` on phase 24's members in a, b and c),
+   the card's name
    and power limit as nvidia-smi prints them, and the final
    ``{"ok": true, ...}`` line.
 
@@ -359,6 +374,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 OUTPUTS = ("report.dfa", "summary.txt", "msa.mfa", "contig.ace",
            "contig.info", "cons.fa")
+# the kernels' launch counters (realign.LAUNCHES, consensus.LAUNCHES and
+# banded_dp.LAUNCHES), as the phase-23 and phase-24 members write them
+KERNEL_NAMES = ("consensus", "fwdptr", "fwdptr_long", "walk", "scores",
+                "scores_long")
 # the realign dispatches (T, m_max, n, band) of the 200-alignment
 # --realign run: three shape buckets, each tried at band 64, and the
 # lanes that band missed again at 256
@@ -4484,10 +4503,8 @@ def run_fleet(work: str, paf: str, fa: str, outputs: dict,
         time.sleep(0.2)
         after = owner.counts()
         st = stats("fl_b2")
-        kernels = ("consensus", "fwdptr", "fwdptr_long", "walk", "scores",
-                   "scores_long")
         if placed["b2"] != placed["b1"] or st.get("cache_hit") is not True \
-                or any(after[k] != before[k] for k in kernels):
+                or any(after[k] != before[k] for k in KERNEL_NAMES):
             raise AssertionError(f"b: placed {placed}, stats cache_hit "
                                  f"{st.get('cache_hit')}, launches "
                                  f"{before} -> {after}")
@@ -4625,7 +4642,7 @@ def run_fleet(work: str, paf: str, fa: str, outputs: dict,
             err.close()
         for m in members:
             m.stop()
-    total = {k: sum(n[k] for n in launches.values()) for k in kernels}
+    total = {k: sum(n[k] for n in launches.values()) for k in KERNEL_NAMES}
     if total["consensus"] < 1 or total["walk"] < 1 \
             or total["fwdptr"] + total["fwdptr_long"] < 1:
         raise AssertionError(f"the members launched {launches}")
@@ -4649,6 +4666,353 @@ def run_fleet(work: str, paf: str, fa: str, outputs: dict,
               walls["a_pair"], walls["b1"], walls["b2"],
               record["c"]["kill_to_sibling_start_s"],
               record["d"]["restart_to_socket_s"], smi), flush=True)
+    return record
+
+
+def run_ha(work: str, paf: str, fa: str, outputs: dict, res_outputs: dict,
+           cold_stream_s: float, smi: str) -> dict:
+    """Phase 24: router HA on the one card.  Three member daemons
+    (``ServeProcess``, each ``--lanes=1 --warmup=cuda --max-queue=1
+    --stream-buffer=4096 --journal-dir=SHARED``, no result cache):
+
+    - a: a ``route`` process over members 0 and 1 with a ``route
+      --standby-of`` process tailing its journal; a ``--realign
+      --batch=16`` job slowed by injected 0.1 s hangs is in flight when
+      the primary is SIGKILLed: the standby binds the primary's socket
+      (the seconds from the kill to a ping answered there), the job
+      lands with phase 14's bytes, and ``svc-stats`` through it says
+      ``ha.takeover`` true and a higher epoch, ``metrics`` one takeover;
+    - b: an ``--m2m-stream`` of phase 22's 500 CDS against the first
+      1,024 of phase 9's targets, sent to the promoted router in four
+      pushes of 256 records: it scatters over both members (the open
+      answer and the result's ``scatter`` block name them), the merged
+      report and -s equal phase 22's cold run's, and each member
+      launches the scores kernels; the wall beside phase 22's cold one;
+      then the router drains (exit 0) and so do members 0 and 1 (75);
+    - c: a ``route`` process over member 2 alone with a
+      ``--scale-policy`` (``max_members`` 2, ``hysteresis`` 1,
+      ``cooldown_s`` 0, ``scale_down_after_s`` 12, ``queue_pressure``;
+      ``spawn.args`` ``--warmup=cuda --lanes=1`` and this script's build
+      directory as ``--compile-cache-dir``): two ``--batch=16`` jobs
+      slowed by injected 0.5 s hangs, one running and one queued, hold
+      member 2's queue at its ``--max-queue`` until its
+      ``queue_pressure`` fires; the scaler spawns one ``python -m
+      pwasm_tpu_torch serve`` member (the seconds from the member's
+      ``alert_firing`` event to the router's ``scaler_spawn`` event,
+      which it logs once the spawned socket answers), a job then lands
+      on it with phase
+      5's bytes and one consensus dispatch on cuda in its ``--stats``,
+      and after the calm the scaler retires it (exit 75 in the router's
+      log, ``ha.scaler`` retired 1).
+
+    The members' counts are the kernels line's ``ha_launches``: the
+    launches on members 0 and 1 during a and during b, and on member 2
+    during c (the spawned member's process is not this script's, so its
+    job's dispatches stand for its launches).  Returns the record;
+    raises on a failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pwasm_tpu_torch.ops import _build
+    from pwasm_tpu_torch.service.client import (ServiceClient, ServiceError,
+                                                wait_for_socket)
+
+    shared = os.path.join(work, "ha_journals")
+    scaled_dir = os.path.join(work, "ha_scaled")
+    for d in (shared, scaled_dir):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    socks = [os.path.join(work, f"ha_m{i}.sock") for i in range(3)]
+    names = [os.path.basename(s) for s in socks]
+    rsock = os.path.join(work, "ha_r.sock")
+    csock = os.path.join(work, "ha_c.sock")
+
+    def hang(s: float) -> str:
+        return f"--inject-faults=seed=1,rate=1,kinds=hang,hang_s={s}"
+
+    def job(tag: str, *extra: str) -> list[str]:
+        return [paf, "-r", fa, *out_args(work, tag), "--device=cuda",
+                f"--stats={os.path.join(work, tag)}.json", *extra]
+
+    def stats(tag: str) -> dict:
+        with open(os.path.join(work, f"{tag}.json")) as f:
+            return json.load(f)
+
+    def same(tag: str, want: dict) -> None:
+        got = read_outputs(work, tag)
+        differ = [n for n in OUTPUTS if got[n] != want[n]]
+        if differ:
+            raise AssertionError(f"{tag}: outputs differ {differ}")
+
+    def route(tag: str, *args: str):
+        err = open(os.path.join(work, f"ha_{tag}.err"), "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "pwasm_tpu_torch", "route", *args],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
+        procs.append((p, err))
+        return p
+
+    def log(tag: str) -> str:
+        with open(os.path.join(work, f"ha_{tag}.err")) as f:
+            return f.read()
+
+    def wait_for(pred, what: str, limit_s: float = 60.0) -> float:
+        t0 = time.perf_counter()
+        while not pred():
+            if time.perf_counter() - t0 > limit_s:
+                raise AssertionError(f"{what} within {limit_s} s")
+            time.sleep(0.02)
+        return time.perf_counter() - t0
+
+    def svc(sock: str) -> dict:
+        with ServiceClient(sock, timeout=30) as c:
+            return c.stats()["stats"]
+
+    def state(sock: str, jid: str) -> str:
+        with ServiceClient(sock, timeout=30) as c:
+            return c.status(jid)["job"]["state"]
+
+    def events(path: str, name: str) -> list:
+        with open(path) as f:
+            return [e for e in map(json.loads, filter(str.strip, f))
+                    if e.get("event") == name]
+
+    def answers(sock: str) -> bool:
+        try:
+            with ServiceClient(sock, timeout=2.0) as c:
+                return bool(c.request({"cmd": "ping"}).get("ok"))
+        except (ServiceError, OSError):
+            return False
+
+    def counts() -> list:
+        return [m.counts() for m in members]
+
+    def delta(after: list, before: list, i: int) -> dict:
+        return {k: after[i][k] - before[i][k] for k in KERNEL_NAMES}
+
+    record: dict = {}
+    members: list = []
+    procs: list = []
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            members = list(pool.map(lambda i: ServeProcess(
+                os.path.join(work, f"ha_member{i}"), socks[i],
+                ["--lanes=1", "--warmup=cuda", "--max-queue=1",
+                 "--stream-buffer=4096", f"--journal-dir={shared}",
+                 f"--log-json={work}/ha_member{i}.ndjson"]), range(3)))
+        record["members_up_s"] = time.perf_counter() - t0
+        record["warmup_s"] = [m.warmup_s() for m in members]
+
+        # a: the standby takes over a SIGKILLed primary mid-job
+        primary = route("primary", f"--backends={socks[0]},{socks[1]}",
+                        f"--socket={rsock}", f"--journal-dir={shared}",
+                        "--poll-interval=0.1")
+        if not wait_for_socket(rsock, 60):
+            raise AssertionError(f"a: no router: {log('primary')[-2000:]}")
+        wait_for(lambda: svc(rsock)["fleet"]["alive"] == 2,
+                 "a: the router saw both members")
+        standby = route("standby", f"--standby-of={rsock}",
+                        f"--journal-dir={shared}", "--poll-interval=0.1")
+        wait_for(lambda: "standing by" in log("standby"),
+                 "a: the standby stood by")
+        time.sleep(0.5)                  # a ping of the live primary
+        before = counts()
+        with ServiceClient(rsock, timeout=30, trace_id="ha-takeover") as c:
+            sub = c.submit(job("ha_a", "--realign", "--batch=16",
+                               hang(0.1)))
+            if not sub.get("ok"):
+                raise AssertionError(f"a: {sub}")
+            epoch0 = c.stats()["stats"]["ha"]["epoch"]
+        wait_for(lambda: state(rsock, sub["job_id"]) == "running",
+                 "a: the job ran")
+        t_kill = time.perf_counter()
+        primary.kill()
+        primary.wait(30)
+        wait_for(lambda: answers(rsock), "a: the standby answered")
+        takeover_s = time.perf_counter() - t_kill
+        with ServiceClient(rsock, timeout=300, trace_id="ha-takeover") as c:
+            ra_ = c.result(sub["job_id"], timeout=240)
+            st = c.stats()["stats"]
+        if ra_.get("rc") != 0 or ra_["job"]["trace_id"] != "ha-takeover" \
+                or st["ha"]["takeover"] is not True \
+                or st["ha"]["epoch"] <= epoch0 \
+                or len(st["fleet"]["members"]) != 2:
+            raise AssertionError(f"a: {ra_} ha {st['ha']}: "
+                                 f"{log('standby')[-2000:]}")
+        same("ha_a", res_outputs)
+        rc, metrics, err, _w = run_client(rsock, "metrics")
+        takeovers = [ln for ln in metrics.splitlines()
+                     if ln.startswith("pwasm_fleet_takeovers_total")]
+        if rc != 0 or takeovers != ["pwasm_fleet_takeovers_total 1"]:
+            raise AssertionError(f"a: metrics rc {rc} {takeovers} {err}")
+        time.sleep(0.2)                  # the members' last counts
+        after = counts()
+        la = {names[i]: delta(after, before, i) for i in range(2)}
+        tot = {k: sum(n[k] for n in la.values()) for k in KERNEL_NAMES}
+        if tot["consensus"] < 1 or tot["walk"] < 1 \
+                or tot["fwdptr"] + tot["fwdptr_long"] < 1:
+            raise AssertionError(f"a: the members launched {la}")
+        record["a"] = dict(kill_to_socket_s=takeover_s,
+                           epoch=[epoch0, st["ha"]["epoch"]],
+                           member=ra_["job"].get("member"),
+                           by_site=stats("ha_a")["device"]["by_site"],
+                           launches=la,
+                           took_over=[ln for ln in log("standby")
+                                      .splitlines() if "TAKING OVER" in ln])
+
+        # b: a scattered --m2m-stream at phase 22's 500 x 1,024
+        qfa = os.path.join(work, "m2m_cds.fa")
+        recs = first_records(os.path.join(work, "m2m_targets.fa"), 1024)
+        pushes = ["".join(recs[k:k + 256]) for k in range(0, 1024, 256)]
+        p = os.path.join(work, "ha_b")
+        before = counts()
+        t0 = time.perf_counter()
+        with ServiceClient(rsock, timeout=600) as c:
+            r = c.stream(["--m2m-stream", "-r", qfa, "-o", f"{p}.tsv", "-s",
+                          f"{p}.sum", "--device=cuda"], pushes, cwd=work)
+            if not r.get("ok"):
+                raise AssertionError(f"b: stream {r}")
+            res = c.result(r["job_id"], timeout=600)
+        wall_b = time.perf_counter() - t0
+        time.sleep(0.2)
+        after = counts()
+        scat = (res.get("stats") or {}).get("scatter")
+        if res.get("rc") != 0 or sorted(r.get("scatter") or []) \
+                != sorted(names[:2]) \
+                or scat != {"subs": 2, "records": 1024, "failovers": 0}:
+            raise AssertionError(f"b: open {r} result {res.get('rc')} "
+                                 f"scatter {scat}")
+        for ext in ("tsv", "sum"):
+            with open(f"{p}.{ext}", "rb") as f, \
+                    open(os.path.join(work, f"s22_a.{ext}"), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"b: the {ext} differs from "
+                                         "phase 22's cold run")
+        lb = {names[i]: delta(after, before, i) for i in range(2)}
+        if any(n["scores"] + n["scores_long"] < 1 for n in lb.values()):
+            raise AssertionError(f"b: the members launched {lb}")
+        record["b"] = dict(wall_s=wall_b, cold_phase22_s=cold_stream_s,
+                           scatter=scat, subs=r["scatter"],
+                           m2m=(res.get("stats") or {}).get("m2m"),
+                           launches=lb)
+        rc, _out, err, _w = run_client(rsock, "svc-stats", "--drain")
+        if rc != 0 or standby.wait(60) != 0:
+            raise AssertionError(f"b: the promoted router's drain rc {rc}: "
+                                 f"{err} {log('standby')[-2000:]}")
+        for i in range(2):
+            rc, _out, err, _w = run_client(socks[i], "svc-stats", "--drain")
+            mrc = members[i].wait(60)
+            if rc != 0 or mrc != 75:
+                raise AssertionError(f"b: member {i} drain rc {rc}/{mrc}")
+
+        # c: the scaler spawns a member under pressure, then retires it
+        policy = os.path.join(work, "ha_policy.json")
+        with open(policy, "w") as f:
+            json.dump({"min_members": 1, "max_members": 2,
+                       "cooldown_s": 0, "hysteresis": 1,
+                       # past the spawned member's warmup (its CUDA
+                       # probe, 6-7 s) and its first job: a job waiting
+                       # for the warmup's lane counts as neither queued
+                       # nor running, so an earlier calm retires the
+                       # member under it (ROADMAP C)
+                       "scale_down_after_s": 12,
+                       "rules": ["queue_pressure"],
+                       "spawn": {"socket_dir": scaled_dir,
+                                 "args": ["--warmup=cuda", "--lanes=1",
+                                          f"--compile-cache-dir="
+                                          f"{_build.BUILD_DIR}"]}}, f)
+        events_path = os.path.join(work, "ha_c.ndjson")
+        scaler_router = route("scaler", f"--backends={socks[2]}",
+                              f"--socket={csock}",
+                              f"--journal-dir={shared}",
+                              "--poll-interval=0.25",
+                              f"--scale-policy={policy}",
+                              f"--log-json={events_path}")
+        if not wait_for_socket(csock, 60):
+            raise AssertionError(f"c: no router: {log('scaler')[-2000:]}")
+        wait_for(lambda: svc(csock)["fleet"]["alive"] == 1,
+                 "c: the router saw member 2")
+        before = counts()
+        t0 = time.perf_counter()
+        with ServiceClient(csock, timeout=30) as c:
+            busy = [c.submit(job(f"ha_c{k}", "--batch=16", hang(0.5)))
+                    for k in range(2)]
+        if not all(b.get("ok") for b in busy):
+            raise AssertionError(f"c: the burst {busy}")
+        scaled = os.path.join(scaled_dir, "scaled-1.sock")
+        burst_s = wait_for(
+            lambda: svc(csock)["ha"]["scaler"]["spawned"] == 1,
+            "c: the scaler spawned a member", 90)
+        wait_for(lambda: any(m["name"] == "scaled-1.sock" and m["alive"]
+                             for m in svc(csock)["fleet"]["members"]),
+                 "c: the router polled the spawned member")
+        with ServiceClient(csock, timeout=300) as c:
+            sub = c.submit(job("ha_c_scaled"))
+            if not sub.get("ok") or sub.get("member") != "scaled-1.sock":
+                raise AssertionError(f"c: placed {sub}")
+            rs = c.result(sub["job_id"], timeout=240)
+            rb = [c.result(b["job_id"], timeout=240) for b in busy]
+        if rs.get("rc") != 0 or any(x.get("rc") != 0 for x in rb):
+            raise AssertionError(f"c: {rs} {rb}")
+        same("ha_c_scaled", outputs)
+        for k in range(2):
+            same(f"ha_c{k}", outputs)
+        by_site = stats("ha_c_scaled")["device"]["by_site"]
+        if by_site.get("consensus") != 1:
+            raise AssertionError(f"c: the scaled member's job {by_site}")
+        wait_for(lambda: svc(csock)["ha"]["scaler"]["retired"] == 1,
+                 "c: the scaler retired its member", 60)
+        cycle_s = time.perf_counter() - t0
+        st = svc(csock)
+        retired = [ln for ln in log("scaler").splitlines()
+                   if "retired idle member scaled-1.sock" in ln]
+        if retired != ["pwasm-route: scaler: retired idle member "
+                       "scaled-1.sock (rc=75)"] \
+                or len(st["fleet"]["members"]) != 1 \
+                or os.path.exists(scaled):
+            raise AssertionError(f"c: {retired} {st['ha']['scaler']} "
+                                 f"{log('scaler')[-2000:]}")
+        fired = [e for e in events(f"{work}/ha_member2.ndjson",
+                                   "alert_firing")
+                 if e.get("rule") == "queue_pressure"]
+        spawn = events(events_path, "scaler_spawn")
+        if not fired or len(spawn) != 1:
+            raise AssertionError(f"c: fired {fired} spawned {spawn}")
+        fire_to_socket_s = spawn[0]["ts_wall"] - fired[0]["ts_wall"]
+        time.sleep(0.2)
+        lc = delta(counts(), before, 2)
+        rc, _out, err, _w = run_client(csock, "svc-stats", "--drain")
+        if rc != 0 or scaler_router.wait(60) != 0:
+            raise AssertionError(f"c: the router's drain rc {rc}: {err}")
+        rc, _out, err, _w = run_client(socks[2], "svc-stats", "--drain")
+        if rc != 0 or members[2].wait(60) != 75:
+            raise AssertionError(f"c: member 2 drain rc {rc}")
+        record["c"] = dict(fire_to_socket_s=fire_to_socket_s,
+                           burst_to_spawned_s=burst_s, cycle_s=cycle_s,
+                           spawn=spawn[0], member_fired=fired[0],
+                           scaler=st["ha"]["scaler"],
+                           scaled_job_by_site=by_site, launches=lc,
+                           retired=retired[0])
+    finally:
+        for p, err in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+        for m in members:
+            m.stop()
+    record["launches"] = {k: dict(takeover={n: v[k] for n, v in la.items()},
+                                  scatter={n: v[k] for n, v in lb.items()},
+                                  scaler={names[2]: lc[k]})
+                          for k in KERNEL_NAMES}
+    print("ha: members up {:.3f} (warmup {}); a kill to socket {:.3f} s "
+          "(epoch {} -> {}); b scattered over {} {:.3f} s (phase 22 cold "
+          "{:.3f}); c first firing to the spawned socket {:.3f} s (burst "
+          "to spawned {:.3f} s, burst to retired {:.3f} s); {}".format(
+              record["members_up_s"],
+              [round(w, 3) for w in record["warmup_s"]], takeover_s,
+              *record["a"]["epoch"], r["scatter"], wall_b, cold_stream_s,
+              fire_to_socket_s, burst_s, cycle_s, smi), flush=True)
     return record
 
 
@@ -6222,6 +6586,15 @@ def main(argv: list[str]) -> int:
     emit(dict(phase="fleet", nvidia_smi=smi,
               wall_s=time.perf_counter() - t0, **fleet))
 
+    # 24. router HA: a warm standby taking over a SIGKILLed router with
+    # a job in flight, an --m2m-stream scattered over two members, and
+    # the SLO scaler spawning a member under pressure and retiring it
+    t0 = time.perf_counter()
+    ha = run_ha(work, paf, fa, runs["cuda"]["outputs"],
+                read_outputs(work, "res_whole"), surveil["a"]["wall_s"], smi)
+    emit(dict(phase="ha", nvidia_smi=smi,
+              wall_s=time.perf_counter() - t0, **ha))
+
     def fleet_runs(kernel: str) -> dict:
         """A kernel's launches on each phase-23 member (the killed one's
         as its last count before the kill) and their sum."""
@@ -6266,7 +6639,7 @@ def main(argv: list[str]) -> int:
             k: rec[k] for k in ("equal", "max_abs_err", "plain_host_s",
                                 "process_s")}))
 
-    # 24. the kernels line, the card, the verdict
+    # 25. the kernels line, the card, the verdict
     re_err = max(long_read["max_abs_err"],
                  *(c["max_abs_err"] for c in re_checks))
     re_shapes = [dict(shape=c["shape"], ms=c["ms_resident"],
@@ -6300,6 +6673,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("consensus"),
         selfmon_launches=selfmon_runs("consensus"),
         fleet_launches=fleet_runs("consensus"),
+        ha_launches=ha["launches"]["consensus"],
         shard_launches=shard_runs("consensus"),
         resume_launches=resume_launches["consensus"],
         faulted_launches=faulted_launches["consensus"],
@@ -6325,6 +6699,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("fwdptr"),
         selfmon_launches=selfmon_runs("fwdptr"),
         fleet_launches=fleet_runs("fwdptr"),
+        ha_launches=ha["launches"]["fwdptr"],
         shard_launches=shard_runs("fwdptr"),
         resume_launches=resume_launches["fwdptr"],
         faulted_launches=faulted_launches["fwdptr"],
@@ -6349,6 +6724,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("fwdptr_long"),
         selfmon_launches=selfmon_runs("fwdptr_long"),
         fleet_launches=fleet_runs("fwdptr_long"),
+        ha_launches=ha["launches"]["fwdptr_long"],
         follow_launches=follow_launches["fwdptr_long"],
         serve_launches=serve_launches["fwdptr_long"], max_abs_err=re_err,
         ms=main_re["ms_streamed"], plain_ms=main_re["plain_ms_fwd"],
@@ -6366,6 +6742,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("walk"),
         selfmon_launches=selfmon_runs("walk"),
         fleet_launches=fleet_runs("walk"),
+        ha_launches=ha["launches"]["walk"],
         shard_launches=shard_runs("walk"),
         resume_launches=resume_launches["walk"],
         faulted_launches=faulted_launches["walk"],
@@ -6394,6 +6771,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("scores"),
         selfmon_launches=selfmon_runs("scores"),
         fleet_launches=fleet_runs("scores"),
+        ha_launches=ha["launches"]["scores"],
         surveil_launches=surveil_runs("scores"),
         library_launches=library["score_launches"].get("scores", 0),
         host_1core=library["scores_host"], max_abs_err=sc_err,
@@ -6416,6 +6794,7 @@ def main(argv: list[str]) -> int:
         edge_launches=edge_runs("scores_long"),
         selfmon_launches=selfmon_runs("scores_long"),
         fleet_launches=fleet_runs("scores_long"),
+        ha_launches=ha["launches"]["scores_long"],
         surveil_launches=surveil_runs("scores_long"),
         config5_launches=cfg5["launches"]["scores_long"],
         max_abs_err=max(sc_err, cfg5["max_abs_err"],

@@ -15,9 +15,13 @@ Counterpart of ``pwasm_tpu/fleet/``:
   and epoch leases, slow-member quarantine and brownout shedding, the
   fleet result cache, and journal-aware failover (a member killed
   mid-job has its journal read and its started-unfinished jobs
-  re-admitted to a sibling as ``--resume`` continuations).
+  re-admitted to a sibling as ``--resume`` continuations), and the
+  fleet-wide scatter of an ``--m2m-stream`` over its live members;
+- ``standby``    — ``route --standby-of``: a warm standby that tails
+  the primary router's journal and takes over its socket;
+- ``scaler``     — ``route --scale-policy``: SLO-driven spawning and
+  retiring of ``serve`` members.
 
-The warm standby and the SLO scaler come with a later slice (A11b).
 Every module here imports no torch: the fleet layer moves frames and
 files, never tensors.
 """

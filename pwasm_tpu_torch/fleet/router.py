@@ -41,13 +41,10 @@ every frame — including failover re-admissions — so one
 job's whole cross-process, cross-crash life.
 
 Counterpart of ``pwasm_tpu/fleet/router.py``, with its names, its
-protocol and its write-ahead journal, over the port's serve daemons.
-Not here yet (slice A11b, router HA): ``--standby-of`` (the warm
-standby), ``--scale-policy`` (the SLO scaler) and the fleet-wide
-scatter of an ``--m2m-stream``, which until then goes whole to one
-member (the reference's own path when it cannot hold two sub-streams
-open; the bytes are the same).  ``route_main`` refuses the two flags
-naming that slice.
+protocol and its write-ahead journal, over the port's serve daemons,
+with the warm standby (``fleet/standby.py``), the SLO scaler
+(``fleet/scaler.py``) and the fleet-wide scatter of an
+``--m2m-stream`` (``surveil/partition.py``).
 """
 
 from __future__ import annotations
@@ -77,9 +74,10 @@ from pwasm_tpu_torch.service.journal import (JOURNAL_VERSION,
                                              REC_ROUTE_RETIRE, REC_ROUTE_SHED,
                                              REC_SCALE, JobJournal,
                                              fold_records)
-from pwasm_tpu_torch.service.queue import (JOB_CANCELLED, JOB_FAILED,
-                                           JOB_PREEMPTED, QueueFull,
-                                           TERMINAL_STATES, _sum_numeric)
+from pwasm_tpu_torch.service.queue import (JOB_CANCELLED, JOB_DONE,
+                                           JOB_FAILED, JOB_PREEMPTED,
+                                           QueueFull, TERMINAL_STATES,
+                                           _sum_numeric)
 
 _ROUTE_USAGE = """Usage:
  pwasm-tpu route --backends=TARGET[,TARGET...]
@@ -232,11 +230,6 @@ _ROUTE_USAGE = """Usage:
 """
 
 
-# the reference's route flags that a later slice of the port brings,
-# each naming its slice (ROADMAP.md queue A)
-_LATER_ROUTE = {"standby-of": "slice A11b (router HA)",
-                "scale-policy": "slice A11b (router HA)"}
-
 # consecutive health-poll failures before a live member is declared
 # dead (the poll path is a timeout-prone 3s stats RPC; mid-request
 # connection failures on the forwarding paths still count as instant
@@ -311,7 +304,8 @@ class _FleetJob:
                  "member", "mjid", "gen", "stream", "sconn", "slock",
                  "terminal", "retired", "failovers", "submitted_s",
                  "accessed_s", "recovering", "epoch", "rbuf",
-                 "rbytes", "ended", "deadline_ms", "submitted_mono")
+                 "rbytes", "ended", "deadline_ms", "submitted_mono",
+                 "scatter")
 
     def __init__(self, fid: str, client: str, priority: str,
                  trace_id: str, frame: dict, member: str, mjid: str,
@@ -351,6 +345,11 @@ class _FleetJob:
         #   terminal preempted-resumable verdict)
         self.rbytes = 0
         self.ended = False          # stream-end already acked
+        self.scatter = None         # fleet-wide m2m surveillance: when
+        #   this stream job is a scattered --m2m-stream, the
+        #   router-side partition/merge state (surveil/partition.py) —
+        #   per-member sub-streams, record assignment, replay buffers,
+        #   fragment paths
 
 
 def fold_route_records(records: list[dict]) -> dict:
@@ -430,7 +429,9 @@ class Router:
                  result_cache: str | None = None,
                  result_cache_max_bytes: int | None = None,
                  lease_ttl_s: float = DEFAULT_LEASE_TTL_S,
+                 scale_policy: dict | None = None,
                  stream_replay_bytes: int = 4 << 20,
+                 takeover: bool = False,
                  priority_lanes: tuple | list | None = None,
                  quarantine_x: float = 4.0,
                  quarantine_probation: int = 3,
@@ -448,6 +449,7 @@ class Router:
         self.journal_dir = journal_dir
         self.lease_ttl_s = max(0.1, float(lease_ttl_s))
         self.stream_replay_bytes = max(0, int(stream_replay_bytes))
+        self.takeover = bool(takeover)
         self.epoch = 0               # fleet epoch (fencing token);
         #   _open_journal replays the highest journaled epoch and
         #   bumps it — every router incarnation is a new era
@@ -564,6 +566,14 @@ class Router:
                 self._say(f"warning: --result-cache dir "
                           f"{result_cache} unusable ({e}); fleet "
                           "result caching disabled")
+        # ---- SLO-driven member auto-scaling: the scaler turns the
+        # engine's queue-pressure/burn-rate verdicts into spawn/retire
+        # actions inside [min,max] bounds, journaled so a restarted
+        # router re-adopts the members it owns
+        self.scaler = None
+        if scale_policy:
+            from pwasm_tpu_torch.fleet.scaler import FleetScaler
+            self.scaler = FleetScaler(self, scale_policy)
         # ---- zero-trust edge, mirroring the serve daemon:
         # TLS on the router's own TCP listener, ClientTLS + capability
         # token for every router->member dial (the _dial factory), a
@@ -621,6 +631,10 @@ class Router:
             sel.register(s, selectors.EVENT_READ)
         self._open_journal()         # replay + epoch bump BEFORE the
         #   first poll — the first heartbeat must carry the new era
+        if self.takeover:
+            self.metrics["takeovers"].inc()
+            self.obs.event("standby_takeover", epoch=self.epoch,
+                           socket=self.socket_path)
         self._poll_members()         # first placement view up front
         health = threading.Thread(target=self._health_loop,
                                   daemon=True,
@@ -680,6 +694,8 @@ class Router:
                         os.unlink(self.socket_path)
                     except OSError:
                         pass
+        if self.scaler is not None:
+            self.scaler.shutdown()
         if self.rjournal is not None:
             if self.drain.requested and self._drained():
                 # clean drain: every routed job landed terminal and
@@ -959,6 +975,8 @@ class Router:
             #   stay false forever under a fast stats-poll loop (the
             #   stats verb evaluates directly), and the brownout must
             #   not be starved by the operator watching the fleet
+            if self.scaler is not None:
+                self.scaler.tick()
             if self.rjournal is not None \
                     and self.rjournal.records_written > max(
                         1024, 8 * (len(self.jobs) + 1)):
@@ -1179,7 +1197,10 @@ class Router:
         for j in pending:
             if j.terminal is not None:
                 self._note_retired(j)   # router-cached verdict
-            else:
+            elif j.scatter is None:
+                # scattered jobs are excluded: j.mjid is only sub 0 —
+                # a terminal sub 0 does NOT mean the fleet-wide job is
+                # done (the merge in _scatter_result decides that)
                 by_member.setdefault(j.member, []).append(j)
         for name, jobs in by_member.items():
             with self._lock:
@@ -1208,6 +1229,13 @@ class Router:
             # would otherwise leak one fd here and one blocked handler
             # thread on the member for the router's whole life
             sconn.close()
+        if job.scatter is not None:
+            for row in job.scatter["subs"]:
+                row["live"] = False
+                try:
+                    row["conn"].close()
+                except Exception:
+                    pass
         self.ledger.retire(job.client, job.member)
         fields: dict = {"job_id": job.fid}
         if isinstance(term, dict) and isinstance(term.get("job"),
@@ -1358,7 +1386,12 @@ class Router:
             #   been restarted WITH caching on — re-learn its verdict
             affected = [j for j in self.jobs.values()
                         if j.member == name and not j.retired
-                        and j.terminal is None]
+                        and j.terminal is None and j.scatter is None]
+            # scattered m2m streams re-partition, never _recover_job:
+            # the router itself holds their replay state per sub
+            scattered = [j for j in self.jobs.values()
+                         if j.scatter is not None and not j.retired
+                         and j.terminal is None]
         self.failovers += 1
         self.metrics["failovers"].inc()
         self.metrics["member_up"].set(0, member=name)
@@ -1398,6 +1431,8 @@ class Router:
                           "without it")
         for job in affected:
             self._recover_job(job, folded.get(job.mjid))
+        for job in scattered:
+            self._scatter_redrive(job, name)
         if folded and affected and m.journal_path:
             # set the consumed journal aside: a later restart of this
             # member must not replay jobs a sibling now owns (two
@@ -1763,7 +1798,7 @@ class Router:
         """EVERY router->member connection is minted here, so the
         member-facing TLS config and capability token cannot be
         missed by one call site — an all-TLS fleet stays all-TLS
-        through failover and cache probes."""
+        through failover, cache probes, and scaler retires."""
         if self.member_token is not None:
             kw.setdefault("client_token", self.member_token)
         return ServiceClient(target, timeout=timeout,
@@ -1934,8 +1969,21 @@ class Router:
                 protocol.ERR_QUEUE_FULL,
                 "no live fleet members (retry after they rejoin)",
                 retry_after_s=2.0)
-        # (an --m2m-stream goes whole to one member: the fleet-wide
-        # scatter comes with slice A11b)
+        if stream and len(order) > 1 \
+                and self._scatter_eligible(frame):
+            # fleet-wide m2m surveillance: partition the target stream
+            # across the members; None = could not hold two
+            # sub-streams open, fall back to one member
+            out = self._scatter_submit(req, frame, client, trace_id,
+                                       deadline_ms, t_in, order)
+            if out is not None:
+                return out
+            order = self._members_by_depth()
+            if not order:
+                return protocol.err(
+                    protocol.ERR_QUEUE_FULL,
+                    "no live fleet members (retry after they rejoin)",
+                    retry_after_s=2.0)
         if cache_key_hex is not None and len(order) > 1:
             # miss at the router: cache-AFFINITY placement — a member
             # whose private cache holds the key gets the job (its own
@@ -2214,6 +2262,9 @@ class Router:
             return protocol.err(
                 protocol.ERR_BAD_REQUEST,
                 f"job {job.fid} is not a stream job")
+        if job.scatter is not None:
+            job.accessed_s = time.time()
+            return self._scatter_stream_frame(job, req)
         with self._lock:
             # snapshot under the lock: _note_retired pops job.sconn
             # concurrently (a stream that landed terminal server-side
@@ -2297,10 +2348,706 @@ class Router:
         self.obs.event("stream_window_overflow", job_id=fid,
                        limit=self.stream_replay_bytes)
 
+    # ---- fleet-wide m2m scatter ---------------------------------------
+    # A --m2m-stream opened against the router with >= 2 live members
+    # is PARTITIONED, not placed: one sub-stream per member, arriving
+    # target records dealt round-robin (surveil/partition.ScatterState
+    # keeps the arrival-order bookkeeping), per-sub replay buffers so
+    # a member death re-partitions its records wholesale onto a
+    # survivor, and the per-member section fragments spliced back into
+    # ONE report at result time — byte-identical to an un-scattered
+    # run over the same stream.  All scatter state lives under
+    # sc["lock"] (an RLock: a send failure inside a frame handler
+    # re-enters via _member_down -> _scatter_redrive); member sub
+    # connections are only ever used under that lock.
+
+    @staticmethod
+    def _scatter_eligible(frame: dict) -> bool:
+        args = frame.get("args")
+        return (isinstance(args, list)
+                and all(isinstance(a, str) for a in args)
+                and "--m2m-stream" in args and "-o" in args)
+
+    def _scatter_submit(self, req: dict, frame: dict, client: str,
+                        trace_id, deadline_ms, t_in: float,
+                        order: list) -> dict | None:
+        """Open one sub-stream per live member; None = fewer than two
+        stayed open (the caller falls back to a single placement)."""
+        from pwasm_tpu_torch.surveil.partition import (ScatterState,
+                                                       rewrite_out_args)
+        from pwasm_tpu_torch.surveil.records import FastaAssembler
+        args = [str(a) for a in frame.get("args") or []]
+        cwd = frame.get("cwd")
+        cwd = cwd if isinstance(cwd, str) and cwd else os.getcwd()
+
+        def _abspath(p):
+            return p if os.path.isabs(p) else os.path.join(cwd, p)
+
+        o = s = stats_path = None
+        i = 0
+        while i < len(args):
+            a = args[i]
+            if a == "-o" and i + 1 < len(args):
+                o = args[i + 1]
+                i += 2
+                continue
+            if a == "-s" and i + 1 < len(args):
+                s = args[i + 1]
+                i += 2
+                continue
+            if a.startswith("--stats="):
+                stats_path = a[len("--stats="):]
+            i += 1
+        if not o:
+            return None
+        o = _abspath(o)
+        s = _abspath(s) if s else None
+        stats_path = _abspath(stats_path) if stats_path else None
+        rem = None
+        if deadline_ms is not None:
+            rem = deadline_ms - int((time.monotonic() - t_in) * 1000.0)
+            if rem <= 0:
+                self.metrics["jobs"].inc(outcome="rejected")
+                return protocol.err(
+                    protocol.ERR_DEADLINE_EXCEEDED,
+                    f"end-to-end deadline budget ({deadline_ms} ms "
+                    "at the router) was spent in routing before any "
+                    "member admitted the scattered stream; resubmit "
+                    "with a fresh --deadline-s", deadline_ms=rem)
+        state = ScatterState()
+        subs: list = []
+        ntag = 0
+        for m in order:
+            # the fragment tag burns per ATTEMPT, not per success: a
+            # mid-request open failure may have left a ghost sub job
+            # writing to this tag's paths — never reuse them
+            frag_o = f"{o}.frag{ntag:02d}"
+            frag_s = f"{s}.frag{ntag:02d}" if s else None
+            ntag += 1
+            sargs = rewrite_out_args(args, o=frag_o, s=frag_s)
+            row = self._scatter_open_sub(
+                m, sargs, cwd, client, trace_id, rem,
+                frame.get("priority"))
+            if row is None:
+                continue
+            state.add_sub()
+            row["o"], row["s"] = frag_o, frag_s
+            subs.append(row)
+        if len(subs) < 2:
+            for r in subs:
+                self._scatter_cancel_sub(r)
+            return None
+        try:
+            self.ledger.admit(client, subs[0]["member"])
+        except QueueFull as e:
+            for r in subs:
+                self._scatter_cancel_sub(r)
+            self.metrics["jobs"].inc(outcome="rejected")
+            self.obs.event("route_reject", client=client,
+                           detail=str(e))
+            return protocol.err(
+                protocol.ERR_QUEUE_FULL, str(e),
+                client=client or "default",
+                client_depth=self.ledger.client_depths().get(
+                    client, 0),
+                retry_after_s=2.0)
+        with self._lock:
+            self._next_id += 1
+            fid = f"fleet-{self._next_id:04d}"
+            job = _FleetJob(fid, client,
+                            str(req.get("priority") or ""),
+                            str(trace_id or ""), frame,
+                            subs[0]["member"], subs[0]["mjid"],
+                            stream=True)
+            job.epoch = self.epoch
+            if deadline_ms is not None:
+                job.deadline_ms = deadline_ms
+                job.submitted_mono = t_in
+            job.rbuf = None   # the scatter keeps RECORD-granular
+            #   replay buffers per sub instead of the frame window
+            job.scatter = {
+                "lock": threading.RLock(), "state": state,
+                "subs": subs, "asm": FastaAssembler(), "o": o,
+                "s": s, "stats_path": stats_path, "args": args,
+                "cwd": cwd, "ntag": ntag,
+                "texts": [[] for _ in subs], "rbytes": 0,
+                "ended": False}
+            if self.stream_replay_bytes <= 0:
+                job.scatter["texts"] = None
+            self.jobs[fid] = job
+            for r in subs:
+                m = self.members.get(r["member"])
+                if m is not None:
+                    m.jobs_routed += 1
+                    m.dispatched_since_poll += 1
+        rows = [(REC_ROUTE_ADMIT,
+                 {"job_id": fid, "client": client,
+                  "priority": job.priority, "trace_id": job.trace_id,
+                  "stream": True, "frame": frame, "scatter": True})]
+        for k, r in enumerate(subs):
+            rows.append((REC_ROUTE_PLACE,
+                         {"job_id": fid, "member": r["member"],
+                          "mjid": r["mjid"], "gen": 0,
+                          "epoch": job.epoch, "sub": k}))
+        self._journal(rows)
+        self.metrics["jobs"].inc(outcome="accepted")
+        for r in subs:
+            self.metrics["routed"].inc(member=r["member"])
+        self.obs.event("scatter_admit", job_id=fid, client=client,
+                       subs=len(subs), trace_id=job.trace_id,
+                       members=",".join(r["member"] for r in subs))
+        self._say(f"stream {fid}: scattered --m2m-stream across "
+                  f"{len(subs)} member(s)")
+        out = dict(subs[0].pop("open"))
+        for r in subs[1:]:
+            r.pop("open", None)
+        out["job_id"] = fid
+        out["member"] = f"scatter[{len(subs)}]"
+        out["scatter"] = [r["member"] for r in subs]
+        return out
+
+    def _scatter_open_sub(self, m, sargs: list, cwd: str,
+                          client: str, trace_id, rem,
+                          priority) -> dict | None:
+        try:
+            c = self._dial(m.target, timeout=60.0)
+        except ServiceError:
+            self._member_down(m.name)
+            return None
+        reqd: dict = {"cmd": "stream", "args": sargs, "cwd": cwd,
+                      "client": client}
+        if priority:
+            reqd["priority"] = priority
+        if rem is not None:
+            reqd["deadline_ms"] = rem
+        if isinstance(trace_id, str) and trace_id:
+            reqd["trace_id"] = trace_id
+        try:
+            resp = c.request(reqd)
+        except ServiceError:
+            # mid-request failure: the member may hold a ghost sub
+            # stream — its fragment tag is burned (never reused) and
+            # its idle reaper will collect the ghost, so skipping the
+            # member is safe where the un-scattered path must abort
+            c.close()
+            self._member_down(m.name)
+            return None
+        if not resp.get("ok"):
+            c.close()
+            return None
+        return {"member": m.name, "mjid": resp["job_id"], "conn": c,
+                "live": True, "open": resp}
+
+    @staticmethod
+    def _scatter_cancel_sub(row: dict) -> None:
+        try:
+            row["conn"].request({"cmd": "cancel",
+                                 "job_id": row["mjid"]})
+        except ServiceError:
+            pass
+        row["conn"].close()
+        row["live"] = False
+
+    def _scatter_stream_frame(self, job: _FleetJob,
+                              req: dict) -> dict:
+        sc = job.scatter
+        with self._lock:
+            closed = job.terminal is not None or job.retired
+        if closed or sc["ended"]:
+            return protocol.err(
+                protocol.ERR_BAD_REQUEST,
+                f"stream {job.fid} is closed; re-open a stream with "
+                "--resume to complete it")
+        with sc["lock"]:
+            if req.get("cmd") == "stream-end":
+                err = self._scatter_end(job)
+                if err is not None:
+                    return err
+                sc["ended"] = True
+                with self._lock:
+                    job.ended = True
+                return protocol.ok(records=sc["state"].nrec,
+                                   buffered=0)
+            data = req.get("data")
+            if not isinstance(data, str):
+                return protocol.err(
+                    protocol.ERR_BAD_REQUEST,
+                    "stream-data needs a string data field")
+            if data == "":
+                # keepalive: fan out so no member's idle reaper
+                # mistakes a slow producer for a vanished client
+                k = 0
+                while k < len(sc["subs"]):
+                    row = sc["subs"][k]
+                    k += 1
+                    if not row["live"]:
+                        continue
+                    err = self._scatter_send(job, row,
+                                             {"cmd": "stream-data",
+                                              "data": ""})
+                    if err is not None:
+                        return err
+                return protocol.ok(records=sc["state"].nrec,
+                                   buffered=0)
+            for text in sc["asm"].feed(data):
+                err = self._scatter_record(job, text)
+                if err is not None:
+                    return err
+            return protocol.ok(records=sc["state"].nrec, buffered=0)
+
+    def _scatter_record(self, job: _FleetJob, text: str
+                        ) -> dict | None:
+        """Deal one assembled target record to its sub-stream.  The
+        record is BUFFERED before it is sent: a member death mid-send
+        re-partitions it from the buffer, so frames never need a
+        client resend (backpressure is the router blocking the ack)."""
+        sc = job.scatter
+        try:
+            _gidx, sub = sc["state"].assign()
+        except ValueError:
+            return protocol.err(
+                protocol.ERR_BAD_REQUEST,
+                f"stream {job.fid}: no live fleet members left for "
+                "the scattered stream")
+        if sc["texts"] is not None:
+            sc["texts"][sub].append(text)
+            sc["rbytes"] += len(text)
+            if sc["rbytes"] > self.stream_replay_bytes:
+                sc["texts"] = None   # window overflow: a member
+                #   death now degrades to preempted-resumable
+                self.obs.event("stream_window_overflow",
+                               job_id=job.fid,
+                               limit=self.stream_replay_bytes)
+        row = sc["subs"][sub]
+        return self._scatter_send(job, row, {"cmd": "stream-data",
+                                             "data": text})
+
+    def _scatter_send(self, job: _FleetJob, row: dict,
+                      fwd: dict) -> dict | None:
+        """One frame to one sub, queue_full absorbed by waiting (the
+        client's ack is the backpressure).  None = the frame was
+        delivered — directly, or by a redrive that replayed the sub's
+        whole buffer onto a survivor (check ``row["live"]`` to tell)."""
+        fwd = dict(fwd)
+        fwd["job_id"] = row["mjid"]
+        attempts = 0
+        while True:
+            if not row["live"]:
+                return None   # a redrive re-homed this sub mid-retry
+            try:
+                resp = row["conn"].request(fwd)
+            except ServiceError:
+                return self._scatter_lost(job, row["member"])
+            if resp.get("ok"):
+                return None
+            if resp.get("error") == protocol.ERR_QUEUE_FULL:
+                attempts += 1
+                if attempts > 240:   # ~60 s stuck: treat the member
+                    #   as pathological and re-partition away from it
+                    return self._scatter_lost(job, row["member"])
+                ra = resp.get("retry_after_s")
+                time.sleep(min(0.25, float(ra))
+                           if isinstance(ra, (int, float)) and ra > 0
+                           else 0.05)
+                continue
+            return protocol.err(
+                protocol.ERR_BAD_REQUEST,
+                f"fleet member {row['member']} rejected a scattered "
+                f"frame: {resp.get('detail')}")
+
+    def _scatter_lost(self, job: _FleetJob, name: str
+                      ) -> dict | None:
+        """A sub's member failed mid-frame: declare it down (which
+        re-partitions every scatter job, this one included via the
+        re-entrant sc lock), then answer from the outcome."""
+        self._member_down(name)
+        self._scatter_redrive(job, name)   # no-op if _member_down
+        #   already re-homed it; covers a member that was ALREADY
+        #   marked dead (broken conn on a stale row)
+        with self._lock:
+            dead = job.terminal is not None or job.retired
+        if dead:
+            return protocol.err(
+                protocol.ERR_BAD_REQUEST,
+                f"stream {job.fid} lost fleet member(s) past its "
+                "replay window; re-open a stream with --resume and "
+                "re-send the records")
+        return None
+
+    def _scatter_end(self, job: _FleetJob) -> dict | None:
+        """Route the trailing record, then stream-end every live sub.
+        Index-based walk: a redrive mid-loop APPENDS replacement subs,
+        and they need the stream-end too."""
+        sc = job.scatter
+        for text in sc["asm"].finish():
+            err = self._scatter_record(job, text)
+            if err is not None:
+                return err
+        k = 0
+        while k < len(sc["subs"]):
+            row = sc["subs"][k]
+            k += 1
+            if not row["live"]:
+                continue
+            err = self._scatter_send(job, row, {"cmd": "stream-end"})
+            if err is not None:
+                return err
+        return None
+
+    def _scatter_redrive(self, job: _FleetJob, dead: str) -> None:
+        """Re-partition a dead member's sub-streams wholesale onto
+        survivors: each dead sub's buffered records replay — in their
+        original relative order — into a fresh sub, so the positional
+        row<->record mapping survives the failover unchanged."""
+        sc = job.scatter
+        if not sc["lock"].acquire(timeout=60):
+            return    # pathological cross-job lock contention: the
+            #   result waiter will land the truthful verdict later
+        try:
+            with self._lock:
+                if job.terminal is not None or job.retired:
+                    return
+            dead_idx = [k for k, r in enumerate(sc["subs"])
+                        if r["live"] and r["member"] == dead]
+            if not dead_idx:
+                return
+            job.failovers += 1
+            for k in dead_idx:
+                row = sc["subs"][k]
+                row["live"] = False
+                try:
+                    row["conn"].close()
+                except Exception:
+                    pass
+            if sc["texts"] is None:
+                self._scatter_abandon(job, dead)
+                return
+            epoch = readmit_epoch_guard(job.epoch, self.epoch)
+            for k in dead_idx:
+                order = sc["state"].kill(k)
+                if not self._scatter_replace(job, order,
+                                             sc["texts"][k], epoch):
+                    self._scatter_abandon(job, dead)
+                    return
+            anchor = next(r["member"] for r in sc["subs"]
+                          if r["live"])
+            with self._lock:
+                job.gen += 1
+                job.epoch = epoch
+                if job.member == dead:
+                    # the ledger slot is keyed to job.member: keep it
+                    # pointing at a member that still hosts a sub
+                    self.ledger.move(job.client, dead, anchor)
+                    job.member = anchor
+            self.recovered["stream_replayed"] += 1
+            self.metrics["recovered"].inc(how="stream_replayed")
+            self.obs.event("scatter_redriven", job_id=job.fid,
+                           trace_id=job.trace_id, was=dead,
+                           subs=len(dead_idx))
+            self._say(f"stream {job.fid}: re-partitioned "
+                      f"{len(dead_idx)} sub-stream(s) off dead "
+                      f"member {dead}")
+        finally:
+            sc["lock"].release()
+
+    def _scatter_replace(self, job: _FleetJob, order: list,
+                         texts: list, epoch: int) -> bool:
+        """One replacement sub for one dead sub: open on a survivor,
+        adopt the dead sub's record order, replay its buffer.  Safe to
+        try several survivors — a half-fed replacement is cancelled
+        and its fragment tag burned, so no path is ever written twice.
+        """
+        from pwasm_tpu_torch.surveil.partition import rewrite_out_args
+        sc = job.scatter
+        rem = self._deadline_left_ms(job)
+        if rem is not None and rem <= 0:
+            return False
+        cands = self._members_by_depth()
+        # members without a live sub first: spread before stacking
+        loaded = {r["member"] for r in sc["subs"] if r["live"]}
+        cands.sort(key=lambda m: m.name in loaded)
+        for m in cands:
+            frag_o = f"{sc['o']}.frag{sc['ntag']:02d}"
+            frag_s = f"{sc['s']}.frag{sc['ntag']:02d}" \
+                if sc["s"] else None
+            sc["ntag"] += 1
+            sargs = rewrite_out_args(sc["args"], o=frag_o, s=frag_s)
+            row = self._scatter_open_sub(
+                m, sargs, sc["cwd"], job.client, job.trace_id, rem,
+                job.frame.get("priority"))
+            if row is None:
+                continue
+            row.pop("open", None)
+            row["o"], row["s"] = frag_o, frag_s
+            k = sc["state"].add_sub()
+            sc["state"].adopt(k, order)
+            sc["subs"].append(row)
+            sc["texts"].append(list(texts))
+            with self._lock:
+                mm = self.members.get(m.name)
+                if mm is not None:
+                    mm.jobs_routed += 1
+                    mm.dispatched_since_poll += 1
+            for text in texts:
+                err = self._scatter_send(job, row,
+                                         {"cmd": "stream-data",
+                                          "data": text})
+                if err is not None:
+                    return False
+                if not row["live"]:
+                    return True   # re-redriven wholesale already
+            if sc["ended"] and row["live"]:
+                if self._scatter_send(job, row,
+                                      {"cmd": "stream-end"}) \
+                        is not None:
+                    return False
+            self._journal([(REC_ROUTE_PLACE,
+                            {"job_id": job.fid, "member": m.name,
+                             "mjid": row["mjid"], "gen": job.gen + 1,
+                             "epoch": epoch, "sub": k})])
+            return True
+        return False
+
+    def _scatter_abandon(self, job: _FleetJob, dead: str) -> None:
+        sc = job.scatter
+        for row in sc["subs"]:
+            if row["live"]:
+                self._scatter_cancel_sub(row)
+        self.recovered["stream_preempted"] += 1
+        self.metrics["recovered"].inc(how="stream_preempted")
+        self._cache_terminal(job, JOB_PREEMPTED, 75, (
+            f"scattered m2m stream interrupted: fleet member {dead} "
+            "died and the stream could not be re-partitioned onto "
+            "the survivors; every member's emitted sections are "
+            "durable in its section cache — re-open a stream and "
+            "re-send the records (cached targets cost no device "
+            "work)"))
+
+    def _scatter_job_dict(self, job: _FleetJob, nlive: int,
+                          nrec: int) -> dict:
+        return {"id": job.fid, "state": "running",
+                "detail": f"scattered across {nlive} member(s), "
+                          f"{nrec} record(s) assigned",
+                "client": job.client, "priority": job.priority,
+                "trace_id": job.trace_id, "stream": True,
+                "member": job.member,
+                "submitted_s": round(job.submitted_s, 3)}
+
+    def _scatter_simple(self, job: _FleetJob, cmd: str) -> dict:
+        with self._lock:
+            term = job.terminal
+        if term is not None:
+            if cmd == "cancel":
+                return protocol.ok(state=term["job"]["state"],
+                                   was="terminal")
+            if cmd == "inspect":
+                return protocol.ok(job=dict(term["job"]),
+                                   trace_id=job.trace_id,
+                                   flight=None)
+            return protocol.ok(job=dict(term["job"]))
+        sc = job.scatter
+        with sc["lock"]:
+            rows = [r for r in sc["subs"] if r["live"]]
+            nrec = sc["state"].nrec
+            if cmd == "cancel":
+                for row in rows:
+                    try:
+                        row["conn"].request({"cmd": "cancel",
+                                             "job_id": row["mjid"]})
+                    except ServiceError:
+                        pass
+                return protocol.ok(state="cancelling",
+                                   was="scatter", subs=len(rows))
+        j = self._scatter_job_dict(job, len(rows), nrec)
+        if cmd == "inspect":
+            return protocol.ok(job=j, trace_id=job.trace_id,
+                               flight=None)
+        return protocol.ok(job=j)
+
+    def _scatter_result(self, job: _FleetJob, req: dict) -> dict:
+        """Wait for every live sub's terminal, then merge: fragments
+        spliced in global arrival order (surveil/partition.py), the
+        summary re-derived, per-member m2m stats summed — one verdict,
+        served router-side like every failover verdict."""
+        wait = req.get("wait", True)
+        timeout = req.get("timeout")
+        deadline = time.monotonic() + float(timeout) \
+            if isinstance(timeout, (int, float)) else None
+        sc = job.scatter
+        while True:
+            with self._lock:
+                term = job.terminal
+            if term is not None:
+                self._note_retired(job)
+                return dict(term)
+            expired = deadline is not None \
+                and time.monotonic() >= deadline
+            with sc["lock"]:
+                ended = sc["ended"]
+                rows = [r for r in sc["subs"] if r["live"]]
+                gen = job.gen
+                nrec = sc["state"].nrec
+            if not ended:
+                if not wait or expired:
+                    return protocol.ok(
+                        job=self._scatter_job_dict(job, len(rows),
+                                                   nrec),
+                        pending=True)
+                time.sleep(0.1)
+                continue
+            results: list = []
+            lost = False
+            for row in rows:
+                with self._lock:
+                    m = self.members.get(row["member"])
+                    alive = m is not None and m.alive
+                if not alive or not row["live"]:
+                    if alive:   # row re-homed by a redrive
+                        lost = True
+                        break
+                    self._member_down(row["member"])
+                    self._scatter_redrive(job, row["member"])
+                    lost = True
+                    break
+                slice_s = 2.0
+                if deadline is not None:
+                    slice_s = min(slice_s, max(
+                        0.05, deadline - time.monotonic()))
+                try:
+                    with self._dial(m.target, timeout=60.0) as c:
+                        resp = c.result(row["mjid"],
+                                        wait=wait and not expired,
+                                        timeout=slice_s)
+                except ServiceError:
+                    self._member_down(row["member"])
+                    self._scatter_redrive(job, row["member"])
+                    lost = True
+                    break
+                if not resp.get("ok"):
+                    return resp
+                jj = resp.get("job") or {}
+                if resp.get("pending") \
+                        or jj.get("state") not in TERMINAL_STATES:
+                    if not wait or expired:
+                        return protocol.ok(
+                            job=self._scatter_job_dict(
+                                job, len(rows), nrec),
+                            pending=True)
+                    results = []
+                    break   # still running: next lap re-waits
+                results.append((row, resp))
+            if lost:
+                continue
+            if len(results) != len(rows):
+                continue
+            with sc["lock"]:
+                rows2 = [r for r in sc["subs"] if r["live"]]
+                moved = job.gen != gen
+            if moved or rows2 != rows:
+                # a redrive raced the collection: some verdicts came
+                # from the OLD placement generation — recollect
+                continue
+            self._scatter_finish(job, results)
+            continue   # the verdict is now job.terminal — serve it
+
+    def _scatter_finish(self, job: _FleetJob,
+                        results: list) -> None:
+        from pwasm_tpu_torch.surveil.partition import merge_fragments
+        sc = job.scatter
+        bad = [(row, resp) for row, resp in results
+               if (resp.get("job") or {}).get("state") != JOB_DONE]
+        if bad:
+            # severity: failed > preempted > cancelled — one sub's
+            # loss is the fleet job's loss (fragments are partial)
+            rank = {JOB_FAILED: 0, JOB_PREEMPTED: 1,
+                    JOB_CANCELLED: 2}
+            row, resp = min(bad, key=lambda b: rank.get(
+                (b[1].get("job") or {}).get("state"), 3))
+            jj = resp.get("job") or {}
+            st = jj.get("state") or JOB_FAILED
+            rc = resp.get("rc") if isinstance(resp.get("rc"), int) \
+                else (75 if st == JOB_PREEMPTED else None)
+            self._cache_terminal(
+                job, st, rc,
+                f"scattered m2m sub-stream on member "
+                f"{row['member']} landed {st}: "
+                f"{jj.get('detail') or ''}",
+                stderr_tail=str(resp.get("stderr_tail") or ""))
+            return
+        try:
+            frags, orders, sumpaths = [], [], []
+            for row, _resp in results:
+                k = sc["subs"].index(row)
+                orders.append(sc["state"].orders[k])
+                with open(row["o"], "rb") as f:
+                    frags.append(f.read())
+                if row["s"]:
+                    sumpaths.append(row["s"])
+            merged = merge_fragments(frags, orders,
+                                     sc["state"].nrec,
+                                     summary=sc["s"] is not None)
+            report, summ = merged if sc["s"] is not None \
+                else (merged, None)
+            from pwasm_tpu_torch.utils.fsio import \
+                write_durable_bytes
+            write_durable_bytes(sc["o"], report)
+            if summ is not None:
+                write_durable_bytes(sc["s"], summ)
+            for row, _resp in results:   # fragments served their
+                for p in (row["o"], row["s"]):   # purpose
+                    if p:
+                        try:
+                            os.unlink(p)
+                        except OSError:
+                            pass
+            m2m: dict = {}
+            for _row, resp in results:
+                sub = (resp.get("stats") or {}).get("m2m") or {}
+                for k2, v in sub.items():
+                    if not isinstance(v, (int, float)) \
+                            or isinstance(v, bool):
+                        continue
+                    if k2 == "resident_queries":
+                        # every sub scores against the SAME resident
+                        # set — max, not sum
+                        m2m[k2] = max(m2m.get(k2, 0), v)
+                    else:
+                        m2m[k2] = m2m.get(k2, 0) + v
+            stats = {"m2m": m2m,
+                     "scatter": {"subs": len(results),
+                                 "records": sc["state"].nrec,
+                                 "failovers": job.failovers}}
+            if sc["stats_path"]:
+                import json
+                try:
+                    write_durable_bytes(
+                        sc["stats_path"],
+                        json.dumps(stats, indent=2, sort_keys=True)
+                        .encode("ascii") + b"\n")
+                except OSError:
+                    pass
+            self.obs.event("scatter_merged", job_id=job.fid,
+                           trace_id=job.trace_id,
+                           subs=len(results),
+                           records=sc["state"].nrec)
+            self._cache_terminal(
+                job, JOB_DONE, 0,
+                f"fleet-scattered m2m: merged {len(results)} member "
+                f"fragment(s), {sc['state'].nrec} target(s), "
+                f"byte-identical to one un-scattered run",
+                stats=stats)
+        except (OSError, ValueError) as e:
+            self._cache_terminal(
+                job, JOB_FAILED, None,
+                f"scatter merge failed: {e} — the per-member "
+                "fragments are left in place for inspection")
+
     def _route_simple(self, job: _FleetJob, cmd: str) -> dict:
         """status / cancel / inspect: one forwarded frame, ids
         rewritten at the edge; a dead member answers from the cached
         failover verdict once one exists."""
+        if job.scatter is not None:
+            return self._scatter_simple(job, cmd)
         for _attempt in (0, 1):
             with self._lock:
                 term = job.terminal
@@ -2357,6 +3104,8 @@ class Router:
             "trace_id": job.trace_id, "member": job.member})
 
     def _route_result(self, job: _FleetJob, req: dict) -> dict:
+        if job.scatter is not None:
+            return self._scatter_result(job, req)
         wait = req.get("wait", True)
         timeout = req.get("timeout")
         deadline = time.monotonic() + float(timeout) \
@@ -2599,11 +3348,10 @@ class Router:
                                    if m.alive and m.quarantined),
             },
             # router HA — WAL, epoch fencing, takeover provenance and
-            # the scaler's accounting (the standby and the scaler come
-            # with slice A11b: no takeover, scaler disabled)
+            # the scaler's accounting
             "ha": {
                 "epoch": self.epoch,
-                "takeover": False,
+                "takeover": self.takeover,
                 "lease_ttl_s": self.lease_ttl_s,
                 "stream_replay_bytes": self.stream_replay_bytes,
                 "members_fenced": sum(
@@ -2616,7 +3364,8 @@ class Router:
                     "broken": self.rjournal.broken
                     if self.rjournal is not None else None,
                 },
-                "scaler": {"enabled": False},
+                "scaler": self.scaler.stats_dict()
+                if self.scaler is not None else {"enabled": False},
                 # gray-failure defense — the
                 # quarantine policy in force and the live brownout
                 # shed state (0 = admitting every tier)
@@ -2658,16 +3407,30 @@ def route_main(argv: list[str], stdout=None, stderr=None) -> int:
         else:
             stderr.write(f"{_ROUTE_USAGE}\nInvalid argument: {a}\n")
             return EXIT_USAGE
-    for flag, later in _LATER_ROUTE.items():
-        if flag in opts:
-            stderr.write(f"Error: --{flag} is not ported to "
-                         f"pwasm_tpu_torch yet; it comes with {later}\n")
-            return EXIT_USAGE
+    standby_of = opts.pop("standby-of", None)
     backends = [b for b in
                 (opts.pop("backends", "") or "").split(",") if b]
     sock = opts.pop("socket", None)
     listen = opts.pop("listen", None)
-    if not backends:
+    if standby_of is not None:
+        # a standby's whole identity comes from the primary's journal
+        # — a flag-supplied member set or endpoint would let the two
+        # disagree about the fleet, which is exactly the split-brain
+        # the journal exists to prevent.  Refuse LOUDLY.
+        if backends:
+            stderr.write(f"{_ROUTE_USAGE}\nError: --standby-of and "
+                         "--backends are mutually exclusive — the "
+                         "standby inherits the member set from the "
+                         "primary's journal (its last `members` "
+                         "record), never from flags\n")
+            return EXIT_USAGE
+        if sock or listen:
+            stderr.write(f"{_ROUTE_USAGE}\nError: --standby-of and "
+                         "--socket/--listen are mutually exclusive — "
+                         "on takeover the standby binds the "
+                         "PRIMARY's socket (that is the point)\n")
+            return EXIT_USAGE
+    elif not backends:
         stderr.write(f"{_ROUTE_USAGE}\nError: --backends=TARGET"
                      "[,TARGET...] is required\n")
         return EXIT_USAGE
@@ -2759,6 +3522,15 @@ def route_main(argv: list[str], stdout=None, stderr=None) -> int:
         else:
             stderr.write(f"{_ROUTE_USAGE}\nInvalid "
                          f"--quarantine-probation value: {val}\n")
+            return EXIT_USAGE
+    scale_policy = None
+    val = opts.pop("scale-policy", None)
+    if val is not None:
+        from pwasm_tpu_torch.fleet.scaler import load_scale_policy
+        try:
+            scale_policy = load_scale_policy(val)
+        except ValueError as e:
+            stderr.write(f"{_ROUTE_USAGE}\nError: {e}\n")
             return EXIT_USAGE
     journal_dir = opts.pop("journal-dir", None)
     result_cache = opts.pop("result-cache", None)
@@ -2859,27 +3631,32 @@ def route_main(argv: list[str], stdout=None, stderr=None) -> int:
         stderr.write(f"{_ROUTE_USAGE}\nInvalid argument: "
                      f"--{next(iter(opts))}\n")
         return EXIT_USAGE
+    router_kwargs = dict(
+        journal_dir=journal_dir,
+        max_queue=nums["max-queue"],
+        max_queue_total=nums["max-queue-total"],
+        max_results=nums["max-results"],
+        poll_interval=poll, stderr=stderr,
+        metrics_textfile=metrics_textfile,
+        log_json=log_json, trace_json=trace_json,
+        slo_rules=slo_rules,
+        result_cache=result_cache,
+        result_cache_max_bytes=result_cache_max_bytes,
+        lease_ttl_s=lease_ttl, scale_policy=scale_policy,
+        stream_replay_bytes=stream_replay_bytes,
+        priority_lanes=priority_lanes,
+        quarantine_x=quarantine_x,
+        quarantine_probation=quarantine_probation,
+        max_frame_bytes=max_frame_bytes,
+        tls=tls, member_tls=member_tls, member_token=member_token,
+        auth_tokens=auth_tokens, rate_limit=rate_limit)
+    if standby_of is not None:
+        from pwasm_tpu_torch.fleet.standby import run_standby
+        return run_standby(standby_of, stderr=stderr,
+                           router_kwargs=router_kwargs)
     try:
-        router = Router(
-            backends, socket_path=sock, listen=listen,
-            journal_dir=journal_dir,
-            max_queue=nums["max-queue"],
-            max_queue_total=nums["max-queue-total"],
-            max_results=nums["max-results"],
-            poll_interval=poll, stderr=stderr,
-            metrics_textfile=metrics_textfile,
-            log_json=log_json, trace_json=trace_json,
-            slo_rules=slo_rules,
-            result_cache=result_cache,
-            result_cache_max_bytes=result_cache_max_bytes,
-            lease_ttl_s=lease_ttl,
-            stream_replay_bytes=stream_replay_bytes,
-            priority_lanes=priority_lanes,
-            quarantine_x=quarantine_x,
-            quarantine_probation=quarantine_probation,
-            max_frame_bytes=max_frame_bytes,
-            tls=tls, member_tls=member_tls, member_token=member_token,
-            auth_tokens=auth_tokens, rate_limit=rate_limit)
+        router = Router(backends, socket_path=sock, listen=listen,
+                        **router_kwargs)
     except ValueError as e:
         stderr.write(f"{_ROUTE_USAGE}\nError: {e}\n")
         return EXIT_USAGE

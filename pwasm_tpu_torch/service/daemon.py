@@ -3083,6 +3083,13 @@ def _peer_identity(conn: socket.socket) -> str | None:
         return None
 
 
+def _socket_alive(path: str) -> bool:
+    # kept as an alias: the probe itself lives in fleet/transport.py
+    # (the single socket factory of the package)
+    from pwasm_tpu_torch.fleet.transport import socket_alive
+    return socket_alive(path)
+
+
 def serve_main(argv: list[str], stdout=None, stderr=None) -> int:
     """The ``pafreport serve`` entry point."""
     stderr = stderr if stderr is not None else sys.stderr

@@ -9,7 +9,7 @@ directory, the admission delta, the prefetch drill), each job at
 ``pwasm_tpu.cli --device=cpu``'s, byte for byte.  Served
 ``--many2many`` with a section hit and a superset splice is also held
 to the reference's daemon (under ``--slo-rules=off``) serving the same
-jobs.  The refusal tables of the later slices each name their slice.
+jobs.  No refusal table of a later slice is left.
 Each daemon is held open for seconds."""
 
 import io
@@ -541,12 +541,12 @@ def test_serve_compile_cache_dir_is_the_jobs_build_dir(tmp_path,
 
 
 def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
-    """The remaining refusals of a later slice name it (the router's
-    ``--standby-of`` and ``--scale-policy``, A11b; no subcommand is
-    left), and what the cache's, the edge's, the self-monitoring and
-    the router's slices brought is refused nowhere: the cache options
-    on the CLI and on ``serve``, ``cache-probe``, a served
-    ``--many2many``, delta streams, the edge's options,
+    """No refusal of a later slice is left: no subcommand, and no
+    option of ``route`` (``--standby-of`` and ``--scale-policy`` run
+    since slice A11b).  What the cache's, the edge's, the
+    self-monitoring and the router's slices brought is refused nowhere:
+    the cache options on the CLI and on ``serve``, ``cache-probe``, a
+    served ``--many2many``, delta streams, the edge's options,
     ``--m2m-stream``, ``top``, ``health``, ``logs``, ``route`` and
     ``serve --canary-interval/--slo-rules``."""
     from pwasm_tpu_torch import cli, native
@@ -557,8 +557,7 @@ def test_refusal_tables_name_their_slices(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     monkeypatch.setattr(native, "BUILD_DIR", native.BUILD_DIR)
     assert cli._LATER_CMDS == {}
-    assert router._LATER_ROUTE == {"standby-of": "slice A11b (router HA)",
-                                   "scale-policy": "slice A11b (router HA)"}
+    assert not hasattr(router, "_LATER_ROUTE")
     for name in ("_LATER_SERVE", "_LATER_CMDS", "DELTA_STREAMS_LATER"):
         assert not hasattr(daemon, name), name
     for name in ("_LATER_OPTS", "later_option"):

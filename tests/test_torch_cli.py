@@ -135,8 +135,9 @@ def test_cuda_request_without_cuda_exits_1(tmp_path, monkeypatch):
     ("--device=tpu", "cuda or cpu")])
 def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
     """An option the run refuses exits 1 saying why (``--m2m-stream``, a
-    job type of its own, takes no MSA output; ``route --standby-of`` and
-    ``route --scale-policy`` name the slice that brings them); the
+    job type of its own, takes no MSA output; ``route --standby-of``
+    beside ``--socket``, and ``route --scale-policy`` without
+    ``--backends``, are refused as the reference refuses them); the
     result cache and the build directory, which an earlier slice
     refused, run (``later`` None) to the flagless outputs."""
     from pwasm_tpu_torch import native
@@ -158,10 +159,14 @@ def test_later_slices_are_refused(tmp_path, monkeypatch, flag, later):
     else:
         assert rc == 1
         assert later in err.getvalue()
-    for route_flag in ("--standby-of=x.sock", "--scale-policy=p.json"):
+    for route_flag, says in (
+            ("--standby-of=x.sock", "Error: --standby-of and "
+             "--socket/--listen are mutually exclusive"),
+            ("--scale-policy=p.json", "Error: --backends=TARGET"
+             "[,TARGET...] is required")):
         err = io.StringIO()
         assert run(["route", "--socket=x", route_flag], stderr=err) == 1
-        assert "slice A11b (router HA)" in err.getvalue()
+        assert says in err.getvalue()
 
 
 def test_usage_and_parse_exit_codes(tmp_path):

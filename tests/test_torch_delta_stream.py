@@ -381,10 +381,21 @@ def case_drain_held(h, L):
     return obs, None
 
 
+def _wait_state(h, job_id, state, budget_s=60.0):
+    """Wait until the daemon holds ``job_id`` in ``state``."""
+    deadline = time.monotonic() + budget_s
+    while h.daemon.jobs[job_id].state != state:
+        assert time.monotonic() < deadline, \
+            (job_id, h.daemon.jobs[job_id].state, state)
+        time.sleep(0.01)
+
+
 def case_queue_full_promote(h, L):
     """``--max-queue=1``, one job running and one queued: the frame
     that would promote answers queue_full and is unwound (no --resume,
-    no delta); after the queue empties its verbatim resend promotes."""
+    no delta); after the queue empties its verbatim resend promotes.
+    The case waits on the busy jobs' states, and holds the gate while
+    it sends the frames, as every case does."""
     obs = {"seed": _seed_stream(h, L[:N_SEED])}
     text = _text(L)
     cut = len(_text(L[:N_SEED + 1])) + 10   # past the entry's column
@@ -392,16 +403,14 @@ def case_queue_full_promote(h, L):
     with ServiceClient(h.sock) as c:
         h.gate.clear()
         busy = []
-        for i in range(2):
+        for i, state in enumerate(("running", "queued")):
             busy.append(c.submit([os.path.join(h.dir,
                                                f"{h.name}_seedq.paf")]
                                  + _argv(h, f"busy{i}"), cwd=h.dir))
             assert busy[-1].get("ok"), busy
             # the first runs (held at the gate), the second queues
-            deadline = time.monotonic() + 30
-            while i == 0 and h.daemon.queue.depth() \
-                    and time.monotonic() < deadline:
-                time.sleep(0.01)
+            _wait_state(h, busy[-1]["job_id"], state)
+        assert h.daemon.queue.depth() == 1
         f = _Frames(h, c)
         r = f.data(first)
         obs["retry_hint"] = r.get("retry_after_s", 0) > 0
@@ -411,9 +420,13 @@ def case_queue_full_promote(h, L):
         h.gate.set()
         for b in busy:
             assert c.result(b["job_id"], timeout=120).get("rc") == 0
+        # the gate again while the frames go: the promoted job must not
+        # consume its feed before the answers report ``buffered``
+        h.gate.clear()
         f.data(first)
         f.data(second)
         f.end()
+        h.gate.set()
         obs.update(_verdict(h, c, f.job_id))
     obs["answers"] = f.answers
     assert f.answers[1][2] == "queue_full", f.answers

@@ -4,8 +4,7 @@ ledger against the JAX package's, on the CPU.
 Ports of the router cases of ``tests/test_fleet.py``: the ledger on one
 seeded reserve, move and retire sequence through both packages;
 ``route_main``'s flag checks, each refusal's message equal to the
-reference's (``--standby-of`` and ``--scale-policy`` name slice A11b);
-routing, placement, the fleet quota, aggregated stats, stream verbs
+reference's; routing, placement, the fleet quota, aggregated stats, stream verbs
 and the drain over in-process port daemons with the stubbed runner;
 every failover verdict (resume, requeue, spool, cancel, stream, no
 journal, no sibling, orphan rescue) reached by both routers on the same
@@ -309,29 +308,16 @@ def test_route_main_refusals_equal_the_reference(tmp_path):
     assert not os.path.exists(os.path.join(d, "r"))
 
 
-@pytest.mark.parametrize("flag", ["--standby-of=/p.sock",
-                                  "--scale-policy=pol.json"])
-def test_route_main_names_slice_a11b(tmp_path, flag):
-    """``--standby-of`` and ``--scale-policy`` exit 1 naming the slice
-    that brings them, with or without the other flags."""
-    for extra in ([], ["--backends=a.sock", f"--socket={tmp_path}/r"]):
-        err = io.StringIO()
-        assert route_main([flag] + extra, stderr=err) == 1
-        name = flag.split("=")[0]
-        assert err.getvalue() == (
-            f"Error: {name} is not ported to pwasm_tpu_torch yet; it "
-            "comes with slice A11b (router HA)\n")
-    assert not os.path.exists(tmp_path / "r")
-
-
 def test_route_process_refuses_and_routes(tmp_path):
     """``python -m pwasm_tpu_torch route`` is the router: a refusal
     exits 1 in a process too."""
     env = dict(os.environ, PYTHONPATH=REPO)
     p = subprocess.run([sys.executable, "-m", "pwasm_tpu_torch", "route",
-                        "--standby-of=/x.sock"], env=env,
-                       capture_output=True, text=True, timeout=60)
-    assert p.returncode == 1 and "slice A11b" in p.stderr
+                        "--standby-of=/x.sock", "--socket=/x/r.sock"],
+                       env=env, capture_output=True, text=True, timeout=60)
+    assert p.returncode == 1
+    assert "--standby-of and --socket/--listen are mutually exclusive" \
+        in p.stderr
     p = subprocess.run([sys.executable, "-m", "pwasm_tpu_torch", "route",
                         "--backends=a.sock"], env=env,
                        capture_output=True, text=True, timeout=60)

@@ -7,8 +7,8 @@ journal replay, a torn tail among them), the router's replay and
 compaction of one journal, the journal path, the epoch lease and the
 re-admission guard, the bounded stream replay window, the router's WAL
 replay after a kill -9, a member self-fencing on lease expiry, and the
-zombie drill with a short lease.  The warm standby and the scaler come
-with slice A11b, and so do their drills.
+zombie drill with a short lease.  The warm standby's and the scaler's
+cases are in ``test_torch_standby.py`` and ``test_torch_scaler.py``.
 """
 
 import io

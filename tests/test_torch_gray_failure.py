@@ -157,8 +157,7 @@ def test_fleet_stats_blocks_and_top_equal_the_reference():
         st1 = r._fleet_stats()
         got[pkg] = [_mask(st, TIMES | {"path", "records"}) for st in
                     (st0, st1)]
-    # the scaler is A11b's: disabled in the port, stats_dict() in the
-    # reference only with --scale-policy
+    # no --scale-policy: ha.scaler is {"enabled": false} in both
     assert got["port"] == got["ref"]
     st0, st1 = got["port"]
     row = [m for m in st0["fleet"]["members"] if m["name"] == "m2.sock"]

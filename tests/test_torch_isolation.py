@@ -3,11 +3,14 @@ import neither jax nor anything of the JAX package, at run time and in
 their source; its state tables and its corpus generator equal the
 reference's."""
 
+import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -74,7 +77,8 @@ def test_port_sources_never_name_jax_or_the_reference():
         "__init__", "cache", "client", "daemon", "journal", "leases",
         "protocol", "queue")} <= rel
     assert {f"pwasm_tpu_torch/fleet/{m}.py" for m in (
-        "__init__", "fencing", "ledger", "router", "transport")} <= rel
+        "__init__", "fencing", "ledger", "router", "scaler", "standby",
+        "transport")} <= rel
     assert "pwasm_tpu_torch/obs/flight.py" in rel
     # and self-monitoring and surveillance
     assert {"pwasm_tpu_torch/obs/slo.py", "pwasm_tpu_torch/obs/logquery.py",
@@ -149,6 +153,8 @@ def test_cli_run_imports_neither_jax_nor_the_reference(tmp_path):
         "import pwasm_tpu_torch.fleet.fencing\n"
         "import pwasm_tpu_torch.fleet.ledger\n"
         "import pwasm_tpu_torch.fleet.router\n"
+        "import pwasm_tpu_torch.fleet.scaler\n"
+        "import pwasm_tpu_torch.fleet.standby\n"
         "import pwasm_tpu_torch.fleet.transport\n"
         "import pwasm_tpu_torch.service.cache\n"
         "import pwasm_tpu_torch.service.journal\n"
@@ -211,7 +217,9 @@ def test_client_processes_import_no_torch(tmp_path):
     ``python -m pwasm_tpu_torch`` runs it, against a live port daemon
     (and ``logs`` on a file with no daemon), stays light: it loads no
     torch, no jax and nothing of the reference.  So does a ``route``
-    process over that daemon, which routes a job and drains (exit 0)."""
+    process over that daemon with its SLO scaler armed, which routes a
+    job and drains (exit 0), and a ``route --standby-of`` process
+    tailing it, which stands by until SIGTERM (exit 0)."""
     for name in ("in.paf", "q.fa"):
         shutil.copy(os.path.join(REPO, "tests", "golden", name), tmp_path)
     sock = str(tmp_path / "s.sock")
@@ -232,9 +240,15 @@ def test_client_processes_import_no_torch(tmp_path):
              ["submit", f"--socket={rsock}", "--", "in.paf", "-r", "q.fa",
               "-o", "routed.dfa", "--device=cpu"],
              ["svc-stats", f"--socket={rsock}", "--drain"]]
+    # a policy whose bound is the one member: the scaler ticks, never
+    # spawns
+    pol = tmp_path / "pol.json"
+    pol.write_text(json.dumps({"min_members": 1, "max_members": 1,
+                               "spawn": {"socket_dir": str(tmp_path)}}))
     route = [["route", f"--backends={sock}", f"--socket={rsock}",
-              "--poll-interval=0.1"]]
-    router = None
+              "--poll-interval=0.1", f"--scale-policy={pol}"]]
+    standby = [["route", f"--standby-of={rsock}", "--poll-interval=0.1"]]
+    router = stand = None
     try:
         from pwasm_tpu_torch.service.client import wait_for_socket
         assert wait_for_socket(sock, 60)
@@ -243,16 +257,34 @@ def test_client_processes_import_no_torch(tmp_path):
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         assert wait_for_socket(rsock, 60)
+        sb_err = tmp_path / "sb.err"
+        with open(sb_err, "w") as ef:
+            stand = subprocess.Popen(
+                [sys.executable, "-c", _verbs_code(standby)],
+                cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+                stderr=ef, text=True)
+        deadline = time.monotonic() + 60
+        while "standing by" not in sb_err.read_text():
+            assert time.monotonic() < deadline, sb_err.read_text()
+            time.sleep(0.05)
+        time.sleep(0.5)              # past its signal handler's install
+        stand.send_signal(signal.SIGTERM)
+        sout, _ = stand.communicate(timeout=60)
+        serr = sb_err.read_text()
         out = subprocess.run([sys.executable, "-c", _verbs_code(verbs)],
                              cwd=str(tmp_path), env=env,
                              capture_output=True, text=True, timeout=240)
         rout, rerr = router.communicate(timeout=60)
     finally:
-        if router is not None and router.poll() is None:
-            router.kill()
-            router.wait()
+        for p in (router, stand):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
         daemon.terminate()
         daemon.wait(60)
+    assert stand.returncode == 0, serr[-2000:]
+    assert "RCS [0]" in sout and "BAD []" in sout, sout + serr
+    assert "standby drained before any takeover" in serr
     assert out.returncode == 0, out.stderr[-2000:]
     assert "RCS [0, 0, 0, 0, 0, 0, 0]" in out.stdout, \
         out.stdout + out.stderr

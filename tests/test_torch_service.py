@@ -903,7 +903,9 @@ def test_serve_subprocess_sigterm_drains_exit75_resumable(tmp_path):
      "cannot load --tls-ca=c"),
     (["health", "--socket=/x"], "cannot connect"),
     (["logs", "--socket=/x"], "cannot connect"),
-    (["route", "--socket=/x", "--standby-of=/y"], "slice A11"),
+    pytest.param(["route", "--socket=/x", "--standby-of=/y"],
+                 "--socket/--listen are mutually exclusive",
+                 id="argv15-slice A11"),
     (["submit", "--socket=/nonexistent.sock", "--", "x", "-o", "y"],
      "cannot connect")])
 def test_cli_dispatch_usage_errors(argv, says):

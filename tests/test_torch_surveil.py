@@ -18,8 +18,8 @@ package's, on the CPU.
 - Nothing falls back: ``--device=cuda`` without CUDA exits 1 once a
   pair is owed.
 
-The router's scatter cases of ``tests/test_surveil.py`` wait for the
-port's fleet router.
+The router's scatter cases of ``tests/test_surveil.py`` are in
+``test_torch_scatter.py``.
 """
 
 import io
