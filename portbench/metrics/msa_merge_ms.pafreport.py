@@ -1,0 +1,13 @@
+"""msa_merge_ms: the mean over the window's rc-0 jobs of the ``msa_merge``
+span's seconds in the ``stages`` block of their ``--stats``, in ms: the
+engine's merge of the job's alignments into the MSA (its
+``pw_msa_add_batch`` crossings).  None where no job's stats carry the
+stage (a program without the stage table)."""
+
+STAGE = "msa_merge"
+
+
+def read(ctx):
+    d = [float(r["stats"]["stages"][STAGE]["s"]) for r in ctx.records
+         if r["rc"] == 0 and STAGE in (r["stats"].get("stages") or {})]
+    return 1e3 * sum(d) / len(d) if d else None

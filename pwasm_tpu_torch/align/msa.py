@@ -17,13 +17,13 @@ behavior):
 from __future__ import annotations
 
 import sys
-import time
 from typing import IO
 
 import numpy as np
 
 from pwasm_tpu_torch.align.gapseq import FLAG_BAD_ALN, FLAG_PREPPED, GapSeq
 from pwasm_tpu_torch.core.errors import PwasmError, ZeroCoverageError
+from pwasm_tpu_torch.obs import NULL_OBS
 from pwasm_tpu_torch.resilience.guardrails import check_consensus
 
 # column buckets, exactly this order (GapAssem.h:257-264)
@@ -533,7 +533,6 @@ class Msa:
 
     def refine_msa(self, device, remove_cons_gaps: bool = True,
                    refine_clipping: bool = True,
-                   times: dict | None = None,
                    supervisor=None) -> None:
         """Consensus construction + clipping refinement
         (GSeqAlign::refineMSA, GapAssem.cpp:1133-1183) on ``device`` (a
@@ -542,28 +541,29 @@ class Msa:
         clip refinement runs there too.  The two flags are the
         reference's MSAColumns statics; pafreport runs with
         remove_cons_gaps=False (SURVEY.md §2.5.8).  With a mesh for
-        ``device`` both shard over it (``pafreport --shard``).  ``times``
-        accumulates the ``consensus`` and ``refine`` stage seconds;
-        ``supervisor`` supervises the device dispatches."""
-        t0 = time.perf_counter()
-        self.build_msa(device, supervisor)
-        cols = self.msacolumns
-        votes = self._vote_chars[cols.mincol:cols.maxcol + 1]
-        cols_removed = 0
-        consensus = bytearray()
-        for col in range(cols.mincol, cols.maxcol + 1):
-            c = int(votes[col - cols.mincol])
-            if c == 0:
-                self._err_zero_cov(col)
-            if c in (ord("-"), ord("*")):
-                if remove_cons_gaps:
-                    self.remove_column(col - cols_removed)
-                    cols_removed += 1
-                    continue
-                c = ord("*")
-            consensus.append(c)
-        self.consensus = consensus
-        t1 = time.perf_counter()
+        ``device`` both shard over it (``pafreport --shard``).
+        ``supervisor`` supervises the device dispatches, and its
+        observability bundle times the ``consensus`` and ``refine``
+        stages."""
+        obs = supervisor.obs if supervisor is not None else NULL_OBS
+        with obs.span("consensus", items=len(self.seqs)):
+            self.build_msa(device, supervisor)
+            cols = self.msacolumns
+            votes = self._vote_chars[cols.mincol:cols.maxcol + 1]
+            cols_removed = 0
+            consensus = bytearray()
+            for col in range(cols.mincol, cols.maxcol + 1):
+                c = int(votes[col - cols.mincol])
+                if c == 0:
+                    self._err_zero_cov(col)
+                if c in (ord("-"), ord("*")):
+                    if remove_cons_gaps:
+                        self.remove_column(col - cols_removed)
+                        cols_removed += 1
+                        continue
+                    c = ord("*")
+                consensus.append(c)
+            self.consensus = consensus
         # X-drop clipping refinement: one 2-D pass over all members
         # (refineMSA's member loop, GapAssem.cpp:1169-1180; members are
         # independent given the fixed consensus, so batching is exact)
@@ -572,26 +572,23 @@ class Msa:
         def _cpos(s):
             return s.offset - self.minoffset - cols.mincol
 
-        if refine_clipping:
-            refine_clipping_batch(
-                self.seqs, bytes(self.consensus),
-                [_cpos(s) for s in self.seqs], device,
-                supervisor=supervisor)
-        second: list = []
-        for s in self.seqs:
-            grem = s.remove_clip_gaps() if remove_cons_gaps else 0
-            if grem != 0 and refine_clipping:
-                second.append(s)
-        if second:
-            refine_clipping_batch(
-                second, bytes(self.consensus),
-                [_cpos(s) for s in second], device, skip_dels=True,
-                supervisor=supervisor)
+        with obs.span("refine"):
+            if refine_clipping:
+                refine_clipping_batch(
+                    self.seqs, bytes(self.consensus),
+                    [_cpos(s) for s in self.seqs], device,
+                    supervisor=supervisor)
+            second: list = []
+            for s in self.seqs:
+                grem = s.remove_clip_gaps() if remove_cons_gaps else 0
+                if grem != 0 and refine_clipping:
+                    second.append(s)
+            if second:
+                refine_clipping_batch(
+                    second, bytes(self.consensus),
+                    [_cpos(s) for s in second], device, skip_dels=True,
+                    supervisor=supervisor)
         self.refined = True
-        if times is not None:
-            times["consensus"] = times.get("consensus", 0.0) + t1 - t0
-            times["refine"] = times.get("refine", 0.0) \
-                + time.perf_counter() - t1
 
     # ---- clipping transaction (library capability) ---------------------
     def eval_clipping(self, seq: GapSeq, c5: int, c3: int, clipmax: float,

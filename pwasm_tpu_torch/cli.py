@@ -689,6 +689,17 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
         return _serve_cache_hit(cache.hit, opts, stderr,
                                 verbose=bool(opts.get("v")))
     run_stats = RunStats()
+    # the job's set-up (the device check, the input, FASTA and output
+    # opens, the observability bundle and the drain) is its first stage,
+    # timed into the stage table the run's bundle takes over: the sinks
+    # the flags ask for open at its end, so a set-up that fails leaves
+    # none of their files behind
+    from pwasm_tpu_torch.obs import (Observability, StageTable,
+                                     make_observability)
+    stages = StageTable()
+    setup = Observability(flight=getattr(warm, "flight", None),
+                          stages=stages).span("setup")
+    setup.__enter__()
     device = resolve_device(cfg.device, run_stats)
     # nvcc's libraries and the C++ engine build in the flag's
     # directory, else the package's; a served job in its daemon's
@@ -788,7 +799,6 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
     if pool is not None:
         device = pool[0]
     mesh = _run_mesh(shard, device, stderr, cfg.verbose, pool)
-    from pwasm_tpu_torch.obs import make_observability
     from pwasm_tpu_torch.utils.profiling import device_trace
 
     # --trace-json / --log-json / --metrics-textfile: the observability
@@ -796,7 +806,9 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
     # stream, so the outputs are the same bytes with the flags on or off
     # a served job carries the daemon-minted trace_id (stamped on every
     # event line as the run id) and its flight recorder (the run's
-    # spans accumulate phase walls there)
+    # spans accumulate phase walls there); its stage table, the
+    # set-up's, is what its --stats, its host and device walls and
+    # stats["times"] are read from
     try:
         obs = make_observability(
             cfg.trace_json or None, cfg.log_json or None,
@@ -804,7 +816,7 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
             trace_max_events=cfg.trace_max_events or None,
             log_json_max_bytes=cfg.log_json_max_bytes or None,
             run_id=getattr(warm, "trace_id", None),
-            flight=getattr(warm, "flight", None))
+            flight=getattr(warm, "flight", None), stages=stages)
     except OSError:
         raise PwasmError(f"Cannot open file {cfg.log_json} for writing!\n")
     if obs.enabled:
@@ -827,6 +839,7 @@ def _run(argv, stdout, stderr, stats, opened, warm=None,
                   "budget spent",))
         deadline_timer.daemon = True
         deadline_timer.start()
+    setup.__exit__(None, None, None)
     try:
         with device_trace(cfg.profile_dir, stderr, device=device.type), \
                 drain_cm as drain, obs.span("run", device=cfg.device):
@@ -1358,8 +1371,7 @@ def _lane_device_scope(cfg: Config, warm, stderr=None):
 
 
 def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
-                        stderr, stats: dict, times: dict,
-                        supervisor) -> None:
+                        stderr, stats: dict, supervisor) -> None:
     """End-of-run MSA outputs of the C++ engine: the ``-D`` layout, the
     unrefined ``-w``, then, for the consensus outputs, the engine's
     rendered pileup counted and voted by the consensus launch on
@@ -1368,7 +1380,8 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
     in the engine (``refine_external``, which also runs the X-drop clip
     refinement), and the ace/info/cons writers.  The consensus launch
     is one ``consensus`` dispatch through ``supervisor``, its output
-    checked by ``check_consensus``."""
+    checked by ``check_consensus``; the supervisor's observability
+    bundle times the ``write``, ``consensus`` and ``refine`` stages."""
     import os
     import tempfile
 
@@ -1377,73 +1390,73 @@ def _native_msa_outputs(nmsa, cfg: Config, mesh, fmsa, cons_outs: dict,
     from pwasm_tpu_torch.align.msa import device_counts_votes
     from pwasm_tpu_torch.resilience.guardrails import check_consensus
 
-    t0 = time.perf_counter()
-    built = nmsa.count() > 0
-    if cfg.debug and built:
-        print(f">MSA ({nmsa.count()})", file=stderr)
-        fd, tmp = tempfile.mkstemp(prefix="pwasm_layout_")
-        os.close(fd)
-        try:
-            nmsa.write("layout", tmp)
-            with open(tmp) as f:
-                stderr.write(f.read())
-        finally:
-            os.unlink(tmp)
-    if fmsa is not None:
-        fmsa.close()
-        if built:
-            nmsa.write("mfa", fmsa.name)
-    t1 = time.perf_counter()
-    times["write"] += t1 - t0
+    obs = supervisor.obs
+    with obs.span("write"):
+        built = nmsa.count() > 0
+        if cfg.debug and built:
+            print(f">MSA ({nmsa.count()})", file=stderr)
+            fd, tmp = tempfile.mkstemp(prefix="pwasm_layout_")
+            os.close(fd)
+            try:
+                nmsa.write("layout", tmp)
+                with open(tmp) as f:
+                    stderr.write(f.read())
+            finally:
+                os.unlink(tmp)
+        if fmsa is not None:
+            fmsa.close()
+            if built:
+                nmsa.write("mfa", fmsa.name)
     if not (cons_outs and built):
         return
-    nmsa.prepare_device()
-    depth, length = nmsa.dims()
-    stats["pileup"] = (depth, length)
-    pile = np.empty((depth, length), dtype=np.int8)
-    nmsa.render_pileup(pile)
-    chars, counts = supervisor.run(
-        "consensus", lambda: device_counts_votes(pile, mesh),
-        validate=lambda r: check_consensus(r[0], r[1], pile))
-    t2 = time.perf_counter()
-    times["consensus"] += t2 - t1
-    nmsa.refine_external(counts, chars, cfg.remove_cons_gaps,
-                         cfg.refine_clipping)
-    t3 = time.perf_counter()
-    times["refine"] += t3 - t2
-    contig = nmsa.contig()
-    for kind in ("ace", "info", "cons"):
-        if kind in cons_outs:
-            f = cons_outs[kind]
-            f.close()
-            nmsa.write(kind, f.name, contig, cfg.remove_cons_gaps,
-                       cfg.refine_clipping)
-    times["write"] += time.perf_counter() - t3
+    with obs.span("consensus") as span:
+        nmsa.prepare_device()
+        depth, length = nmsa.dims()
+        span.args["items"] = depth
+        stats["pileup"] = (depth, length)
+        pile = np.empty((depth, length), dtype=np.int8)
+        nmsa.render_pileup(pile)
+        chars, counts = supervisor.run(
+            "consensus", lambda: device_counts_votes(pile, mesh),
+            validate=lambda r: check_consensus(r[0], r[1], pile))
+    with obs.span("refine"):
+        nmsa.refine_external(counts, chars, cfg.remove_cons_gaps,
+                             cfg.refine_clipping)
+    with obs.span("write"):
+        contig = nmsa.contig()
+        for kind in ("ace", "info", "cons"):
+            if kind in cons_outs:
+                f = cons_outs[kind]
+                f.close()
+                nmsa.write(kind, f.name, contig, cfg.remove_cons_gaps,
+                           cfg.refine_clipping)
 
 
 def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
                         cons_outs: dict, stderr, stats: dict,
-                        times: dict, supervisor) -> None:
+                        supervisor) -> None:
     """End-of-run MSA outputs of the Python engine (``align/msa.py``):
     the ``-D`` layout, the unrefined ``-w``, then refine once (the
     consensus launch over ``Msa.pileup_matrix`` over the run's
     ``mesh``, the clip refinement as torch ops there; both dispatches
-    through ``supervisor``) and the ace/info/cons writers."""
-    t0 = time.perf_counter()
-    if cfg.debug:
-        print(f">MSA ({ref_msa.count()})", file=stderr)
-        ref_msa.print_layout(stderr, "v")
-    if fmsa is not None:
-        ref_msa.write_msa(fmsa)
-    if cons_outs:
-        ref_msa.finalize()
-        times["write"] += time.perf_counter() - t0
-        stats["pileup"] = (ref_msa.count(), ref_msa.length)
-        ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
-                           refine_clipping=cfg.refine_clipping,
-                           device=mesh, times=times,
-                           supervisor=supervisor)
-        t0 = time.perf_counter()
+    through ``supervisor``, whose observability bundle times the
+    stages) and the ace/info/cons writers."""
+    obs = supervisor.obs
+    with obs.span("write"):
+        if cfg.debug:
+            print(f">MSA ({ref_msa.count()})", file=stderr)
+            ref_msa.print_layout(stderr, "v")
+        if fmsa is not None:
+            ref_msa.write_msa(fmsa)
+        if cons_outs:
+            ref_msa.finalize()
+    if not cons_outs:
+        return
+    stats["pileup"] = (ref_msa.count(), ref_msa.length)
+    ref_msa.refine_msa(remove_cons_gaps=cfg.remove_cons_gaps,
+                       refine_clipping=cfg.refine_clipping,
+                       device=mesh, supervisor=supervisor)
+    with obs.span("write"):
         contig = ref_msa.seqs[0].name if ref_msa.seqs else "contig"
         if "ace" in cons_outs:
             ref_msa.write_ace(cons_outs["ace"], contig)
@@ -1451,7 +1464,6 @@ def _python_msa_outputs(ref_msa, cfg: Config, mesh, fmsa,
             ref_msa.write_info(cons_outs["info"], contig)
         if "cons" in cons_outs:
             ref_msa.write_cons(cons_outs["cons"], contig)
-    times["write"] += time.perf_counter() - t0
 
 
 def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
@@ -1521,9 +1533,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         # and fault clock; restored after the lane's state, because the
         # job's own checkpoint is the more specific fact
         supervisor.restore_state(resume_state)
-    times = dict.fromkeys(("parse_extract", "ctx_scan", "msa_merge",
-                           "consensus", "refine", "write")
-                          + (("realign",) if cfg.realign else ()), 0.0)
     summary = Summary() if fsummary is not None else None
     alnpairs: dict[str, int] = {}   # gene-mode (query~target) dedup counts
     ref_cache: dict[str, bytes] = {}
@@ -1555,7 +1564,18 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     # records whose rows the report holds, the resumed ones included
     emitted = resume_skip
 
+    def sync_host_stages() -> None:
+        """``host.extract_s`` and ``analyze_s`` are the ``extract`` and
+        ``flush_submit`` spans' seconds, ``format_s`` the
+        ``flush_format`` and ``checkpoint`` spans' (``parse_s`` is
+        summed a line, where a span would cost more than the parse)."""
+        run_stats.host_extract_s = obs.stage_seconds("extract")
+        run_stats.host_analyze_s = obs.stage_seconds("flush_submit")
+        run_stats.host_format_s = obs.stage_seconds("flush_format") \
+            + obs.stage_seconds("checkpoint")
+
     def fold_host_stages() -> None:
+        sync_host_stages()
         for k in host_folded:
             v = getattr(run_stats, f"host_{k}_s")
             d = v - host_folded[k]
@@ -1564,17 +1584,18 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             host_folded[k] = v
 
     def note_batch_done(nrec: int) -> None:
-        """A report batch is written: fold the host stages, then make
-        the report's prefix durable and checkpoint it (every ``-o``
-        run, as the reference does)."""
+        """A report batch is written: make the report's prefix durable
+        and checkpoint it (every ``-o`` run, as the reference does),
+        then fold the host stages, this batch's included."""
         nonlocal emitted
         emitted += nrec
+        if report_path is not None:
+            with obs.span("checkpoint", n=nrec):
+                if _write_checkpoint(freport, report_path, emitted,
+                                     supervisor.export_state()):
+                    run_stats.res_checkpoints += 1
+                    obs.event("ckpt_write", records=emitted, batch=nrec)
         fold_host_stages()
-        if report_path is not None \
-                and _write_checkpoint(freport, report_path, emitted,
-                                      supervisor.export_state()):
-            run_stats.res_checkpoints += 1
-            obs.event("ckpt_write", records=emitted, batch=nrec)
 
     def flush_pending(drain: bool = False) -> None:
         """Submit the pending report batch, then format the OLDEST
@@ -1583,7 +1604,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         in-flight batch at end of input."""
         if not pending and not inflight:
             return   # nothing buffered
-        t0 = time.perf_counter()
         batch, pending[:] = pending[:], []
         if batch:
             with obs.span("flush_submit", n=len(batch)):
@@ -1593,8 +1613,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                     supervisor=supervisor),
                     len(batch)))
             run_stats.device_batches += 1
-        t1 = time.perf_counter()
-        run_stats.host_analyze_s += t1 - t0
         while len(inflight) > (0 if drain else 2):
             fin, nrec = inflight.pop(0)
             try:
@@ -1607,9 +1625,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 inflight.clear()
                 raise
             note_batch_done(nrec)
-        t2 = time.perf_counter()
-        run_stats.host_format_s += t2 - t1
-        times["ctx_scan"] += t2 - t0
 
     def drop_msa(key: str, tlabel: str, realigned: bool) -> None:
         """--skip-bad-lines: exclude an alignment the layout cannot hold
@@ -1632,7 +1647,6 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         or under --skip-bad-lines is dropped from the MSA."""
         if not msa_pending:
             return
-        t0 = time.perf_counter()
         items, msa_pending[:] = msa_pending[:], []
         msa_pending_keys.clear()
         rid, r_len, refseq_b = items[0][:3]
@@ -1642,9 +1656,9 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 raise PwasmError(msg)
             drop_msa(*items[idx][4:])
 
-        nmsa.add_batch(rid, refseq_b, r_len, [it[3] for it in items],
-                       on_drop)
-        times["msa_merge"] += time.perf_counter() - t0
+        with obs.span("msa_merge", n=len(items)):
+            nmsa.add_batch(rid, refseq_b, r_len,
+                           [it[3] for it in items], on_drop)
 
     def msa_add(aln, tlabel: str, refseq_b: bytes, ord_num: int,
                 realigned: bool = False) -> None:
@@ -1661,39 +1675,38 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             if len(msa_pending) >= cfg.batch:
                 flush_msa_pending()
             return
-        t0 = time.perf_counter()
-        taseq = GapSeq(tlabel, "", aln.tseq, offset=al.r_alnstart,
-                       revcompl=aln.reverse)
-        first_ref_aln = ref_gseq is None
-        if first_ref_aln:
-            rseq = GapSeq(al.r_id, "", refseq_b)
-            rseq.set_flag(FLAG_IS_REF)
-        else:
-            # bare instance of refseq for this alignment
-            rseq = GapSeq(al.r_id, "", b"", seqlen=al.r_len)
-        # once a gap, always a gap: propagate this alignment's gaps.
-        # rseq/taseq are fresh, so a gap the layout cannot hold (fatal,
-        # GapAssem.cpp:105-107) fails before any MSA mutation and is
-        # skippable under --skip-bad-lines
-        try:
-            for g in aln.rgaps:
-                rseq.set_gap(g.pos, g.len)
-            for g in aln.tgaps:
-                taseq.set_gap(g.pos, g.len)
-        except PwasmError:
-            if not cfg.skip_bad_lines:
-                raise
-            drop_msa(key, tlabel, realigned)
-            return
-        newmsa = Msa(rseq, taseq)
-        if first_ref_aln:
-            newmsa.ordnum = ord_num
-            ref_msa = newmsa
-            ref_gseq = rseq
-        else:
-            ref_gseq.msa.add_align(ref_gseq, newmsa, rseq)
-            ref_msa = ref_gseq.msa
-        times["msa_merge"] += time.perf_counter() - t0
+        with obs.span("msa_merge", n=1):
+            taseq = GapSeq(tlabel, "", aln.tseq, offset=al.r_alnstart,
+                           revcompl=aln.reverse)
+            first_ref_aln = ref_gseq is None
+            if first_ref_aln:
+                rseq = GapSeq(al.r_id, "", refseq_b)
+                rseq.set_flag(FLAG_IS_REF)
+            else:
+                # bare instance of refseq for this alignment
+                rseq = GapSeq(al.r_id, "", b"", seqlen=al.r_len)
+            # once a gap, always a gap: propagate this alignment's
+            # gaps.  rseq/taseq are fresh, so a gap the layout cannot
+            # hold (fatal, GapAssem.cpp:105-107) fails before any MSA
+            # mutation and is skippable under --skip-bad-lines
+            try:
+                for g in aln.rgaps:
+                    rseq.set_gap(g.pos, g.len)
+                for g in aln.tgaps:
+                    taseq.set_gap(g.pos, g.len)
+            except PwasmError:
+                if not cfg.skip_bad_lines:
+                    raise
+                drop_msa(key, tlabel, realigned)
+                return
+            newmsa = Msa(rseq, taseq)
+            if first_ref_aln:
+                newmsa.ordnum = ord_num
+                ref_msa = newmsa
+                ref_gseq = rseq
+            else:
+                ref_gseq.msa.add_align(ref_gseq, newmsa, rseq)
+                ref_msa = ref_gseq.msa
 
     # --realign: buffer MSA insertions and re-align each buffered target
     # with the batched banded-DP traceback (ops/realign.py), replacing
@@ -1707,26 +1720,30 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         if not re_pending:
             return
         from pwasm_tpu_torch.ops.realign import ops_to_gaps, realign_pairs
-        t0 = time.perf_counter()
         items, re_pending[:] = re_pending[:], []
-        results = realign_pairs(
-            [(q_seg, bytes(aln.tseq)) for aln, _t, _r, _o, q_seg in items],
-            band=cfg.band, device=mesh, supervisor=supervisor)
-        times["realign"] += time.perf_counter() - t0
-        for (aln, tlabel, refseq_b, ordn, _q), res in zip(items, results):
+        with obs.span("realign", n=len(items)):
+            results = realign_pairs(
+                [(q_seg, bytes(aln.tseq))
+                 for aln, _t, _r, _o, q_seg in items],
+                band=cfg.band, device=mesh, supervisor=supervisor)
+        # the traceback's edit ops as the MSA's gap lists
+        with obs.span("realign_gaps", n=len(items)):
+            gaps = [None if res is None else ops_to_gaps(
+                res[1], aln.offset, aln.alninfo.r_len,
+                aln.alninfo.t_alnend - aln.alninfo.t_alnstart, aln.reverse)
+                for (aln, *_), res in zip(items, results)]
+        for (aln, tlabel, refseq_b, ordn, _q), g in zip(items, gaps):
             al = aln.alninfo
-            if res is None:  # outside realignment resource bounds:
+            if g is None:  # outside realignment resource bounds:
                 # keep the PAF's own gap structure for this alignment
                 print(f"Warning: {al.r_id}~{al.t_id} not re-aligned "
                       "(no band up to the escalation ceiling covered "
                       "its optimal path, and it is too large for the "
                       "host oracle); keeping PAF gaps", file=stderr)
             else:
-                aln.rgaps, aln.tgaps = ops_to_gaps(
-                    res[1], aln.offset, al.r_len,
-                    al.t_alnend - al.t_alnstart, aln.reverse)
+                aln.rgaps, aln.tgaps = g
                 run_stats.realigned += 1
-            msa_add(aln, tlabel, refseq_b, ordn, realigned=res is not None)
+            msa_add(aln, tlabel, refseq_b, ordn, realigned=g is not None)
 
     def consume_aln(rec, aln, refseq_b: bytes, refseq_aln: bytes,
                     ordnum: int) -> None:
@@ -1767,151 +1784,149 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
         were consumed."""
         if not ex_pending:
             return
-        t0 = time.perf_counter()
         items, ex_pending[:] = ex_pending[:], []
-        if len(items) == 1:
-            alns, err = [extract_alignment(items[0][0], items[0][1])], None
-        else:
-            alns, err = native.extract_batch_native(
-                [it[0] for it in items], [it[1] for it in items])
-        dt = time.perf_counter() - t0
-        run_stats.host_extract_s += dt
-        times["parse_extract"] += dt
+        with obs.span("extract", n=len(items)):
+            if len(items) == 1:
+                alns, err = [extract_alignment(items[0][0],
+                                               items[0][1])], None
+            else:
+                alns, err = native.extract_batch_native(
+                    [it[0] for it in items], [it[1] for it in items])
         for aln, (rec, refseq_aln, refseq_b, ordnum) in zip(alns, items):
             consume_aln(rec, aln, refseq_b, refseq_aln, ordnum)
         if err is not None:
             raise err
 
-    t_loop = obs.clock()   # the parse/extract/flush phase span
-    try:
-        file_line = 0
-        for line in inf:
-            if drain.requested:
-                # graceful drain: stop consuming input here; the
-                # finally below completes the in-flight batches and
-                # checkpoints them, and the run exits 75 (the next
-                # --resume continues exactly here)
-                break
-            file_line += 1
-            line = line.rstrip("\n")
-            if not line or line.startswith("#"):
-                continue
-            run_stats.lines += 1
-            t0 = time.perf_counter()
-            try:
-                rec = parse_paf_line(line)
-            except PwasmError:
-                if not cfg.skip_bad_lines:
-                    raise
-                run_stats.skipped_bad += 1
-                print(f"Warning: skipping malformed PAF line {file_line}",
-                      file=stderr)
-                continue
-            finally:
-                run_stats.host_parse_s += time.perf_counter() - t0
-            al = rec.alninfo
-            if al.r_id == al.t_id:
-                run_stats.skipped_self += 1
-                if cfg.verbose:
-                    print("Skipping alignment of qry seq to itself.",
-                          file=stderr)
-                continue
-            new_pair = None
-            if not cfg.fullgenome:  # gene CDS mode: first q~t alignment only
-                key = f"{al.r_id}~{al.t_id}"
-                if key in msa_pending_keys:
-                    # the engine decides a buffered insert of this pair
-                    # (a dropped one frees its slot) before its
-                    # duplicate is judged
-                    flush_msa_pending()
-                if key in alnpairs:
-                    alnpairs[key] += 1
-                    run_stats.skipped_dedup += 1
-                    if alnpairs[key] == 1:
-                        print(f"Warning: alignment {al.r_id} to {al.t_id} "
-                              f"already seen, ignoring ", file=stderr)
-                    continue
-                alnpairs[key] = 0
-                new_pair = key
-            numalns += 1
-            if not build_msa_out and not cfg.skip_bad_lines \
-                    and run_stats.resumed_past < resume_skip:
-                # --resume fast path: this alignment is already in the
-                # report; advance the cursor on parse-level information
-                # alone (no refseq fetch, no extraction).  Not under
-                # --skip-bad-lines, where a line that parses may have
-                # been skipped at extraction in the first run
-                run_stats.resumed_past += 1
-                run_stats.alignments += 1
-                run_stats.aligned_bases += al.t_alnend - al.t_alnstart
-                continue
-            if refseq_id is None or refseq_id != al.r_id:
-                # consume the buffered extractions, then merge the
-                # buffered re-alignments and inserts into this query's
-                # MSA before the layout state resets
-                flush_extract()
-                flush_realign()
-                flush_msa_pending()
-                if al.r_id in ref_cache:
-                    refseq = ref_cache[al.r_id]
-                else:
-                    fetched = qfasta.fetch(al.r_id)
-                    if fetched is None:
-                        raise PwasmError(
-                            f"Error: could not retrieve sequence for "
-                            f"{al.r_id} !\n")
-                    refseq = bytes(fetched).upper()
-                    ref_cache[al.r_id] = refseq
-                refseq_rc = revcomp(refseq)
-                refseq_id = al.r_id
-                ref_gseq = None   # a new query starts a new MSA
-                if nmsa is not None:
-                    nmsa.reset()
-            if al.r_len != len(refseq):
-                raise PwasmError(
-                    f"Error: ref seq len in this PAF line ({al.r_len}) "
-                    f"differs from loaded sequence length({len(refseq)})!"
-                    f"\n{line}\n")
-            refseq_aln = refseq_rc if al.reverse else refseq
-            times["parse_extract"] += time.perf_counter() - t0
-            if use_ex_batch:
-                # batched native extraction: this record is extracted
-                # and consumed, in input order, at the next flush
-                ex_pending.append((rec, refseq_aln, refseq, numalns))
-                if len(ex_pending) >= cfg.batch:
-                    flush_extract()
-                continue
-            t0 = time.perf_counter()
-            try:
-                aln = extract_alignment(rec, refseq_aln)
-            except PwasmError:
-                if not cfg.skip_bad_lines:
-                    raise
-                numalns -= 1
-                if new_pair is not None:
-                    # a skipped line must not make later valid
-                    # alignments of the same (q,t) pair look like
-                    # duplicates
-                    del alnpairs[new_pair]
-                run_stats.skipped_bad += 1
-                print(f"Warning: skipping malformed PAF line {file_line}",
-                      file=stderr)
-                continue
-            finally:
-                dt = time.perf_counter() - t0
-                run_stats.host_extract_s += dt
-                times["parse_extract"] += dt
-            consume_aln(rec, aln, refseq, refseq_aln, numalns)
-    finally:
-        # consume the records buffered for extraction, then emit the
-        # buffered rows, also when a later line raises, so the report
-        # keeps every earlier alignment
+    # the parse/extract/flush phase
+    with obs.span("input_loop") as loop_span:
         try:
-            flush_extract()
+            file_line = 0
+            for line in inf:
+                if drain.requested:
+                    # graceful drain: stop consuming input here; the
+                    # finally below completes the in-flight batches and
+                    # checkpoints them, and the run exits 75 (the next
+                    # --resume continues exactly here)
+                    break
+                file_line += 1
+                line = line.rstrip("\n")
+                if not line or line.startswith("#"):
+                    continue
+                run_stats.lines += 1
+                t0 = time.perf_counter()
+                try:
+                    rec = parse_paf_line(line)
+                except PwasmError:
+                    if not cfg.skip_bad_lines:
+                        raise
+                    run_stats.skipped_bad += 1
+                    print("Warning: skipping malformed PAF line "
+                          f"{file_line}", file=stderr)
+                    continue
+                finally:
+                    run_stats.host_parse_s += time.perf_counter() - t0
+                al = rec.alninfo
+                if al.r_id == al.t_id:
+                    run_stats.skipped_self += 1
+                    if cfg.verbose:
+                        print("Skipping alignment of qry seq to itself.",
+                              file=stderr)
+                    continue
+                new_pair = None
+                if not cfg.fullgenome:
+                    # gene CDS mode: first q~t alignment only
+                    key = f"{al.r_id}~{al.t_id}"
+                    if key in msa_pending_keys:
+                        # the engine decides a buffered insert of this
+                        # pair (a dropped one frees its slot) before its
+                        # duplicate is judged
+                        flush_msa_pending()
+                    if key in alnpairs:
+                        alnpairs[key] += 1
+                        run_stats.skipped_dedup += 1
+                        if alnpairs[key] == 1:
+                            print(f"Warning: alignment {al.r_id} to "
+                                  f"{al.t_id} already seen, ignoring ",
+                                  file=stderr)
+                        continue
+                    alnpairs[key] = 0
+                    new_pair = key
+                numalns += 1
+                if not build_msa_out and not cfg.skip_bad_lines \
+                        and run_stats.resumed_past < resume_skip:
+                    # --resume fast path: this alignment is already in
+                    # the report; advance the cursor on parse-level
+                    # information alone (no refseq fetch, no extraction).
+                    # Not under --skip-bad-lines, where a line that parses
+                    # may have been skipped at extraction in the first run
+                    run_stats.resumed_past += 1
+                    run_stats.alignments += 1
+                    run_stats.aligned_bases += al.t_alnend - al.t_alnstart
+                    continue
+                if refseq_id is None or refseq_id != al.r_id:
+                    # consume the buffered extractions, then merge the
+                    # buffered re-alignments and inserts into this
+                    # query's MSA before the layout state resets
+                    flush_extract()
+                    flush_realign()
+                    flush_msa_pending()
+                    if al.r_id in ref_cache:
+                        refseq = ref_cache[al.r_id]
+                    else:
+                        fetched = qfasta.fetch(al.r_id)
+                        if fetched is None:
+                            raise PwasmError(
+                                f"Error: could not retrieve sequence for "
+                                f"{al.r_id} !\n")
+                        refseq = bytes(fetched).upper()
+                        ref_cache[al.r_id] = refseq
+                    refseq_rc = revcomp(refseq)
+                    refseq_id = al.r_id
+                    ref_gseq = None   # a new query starts a new MSA
+                    if nmsa is not None:
+                        nmsa.reset()
+                if al.r_len != len(refseq):
+                    raise PwasmError(
+                        "Error: ref seq len in this PAF line "
+                        f"({al.r_len}) differs from loaded sequence "
+                        f"length({len(refseq)})!\n{line}\n")
+                refseq_aln = refseq_rc if al.reverse else refseq
+                if use_ex_batch:
+                    # batched native extraction: this record is extracted
+                    # and consumed, in input order, at the next flush
+                    ex_pending.append((rec, refseq_aln, refseq, numalns))
+                    if len(ex_pending) >= cfg.batch:
+                        flush_extract()
+                    continue
+                try:
+                    with obs.span("extract", n=1):
+                        aln = extract_alignment(rec, refseq_aln)
+                except PwasmError:
+                    if not cfg.skip_bad_lines:
+                        raise
+                    numalns -= 1
+                    if new_pair is not None:
+                        # a skipped line must not make later valid
+                        # alignments of the same (q,t) pair look like
+                        # duplicates
+                        del alnpairs[new_pair]
+                    run_stats.skipped_bad += 1
+                    print("Warning: skipping malformed PAF line "
+                          f"{file_line}", file=stderr)
+                    continue
+                consume_aln(rec, aln, refseq, refseq_aln, numalns)
         finally:
-            flush_pending(drain=True)
-        obs.span_complete("input_loop", t_loop, lines=run_stats.lines,
-                          alignments=run_stats.alignments)
+            # consume the records buffered for extraction, then emit
+            # the buffered rows, also when a later line raises, so the
+            # report keeps every earlier alignment
+            try:
+                flush_extract()
+            finally:
+                try:
+                    flush_pending(drain=True)
+                finally:
+                    loop_span.args.update(lines=run_stats.lines,
+                                          alignments=run_stats.alignments)
 
     # a drain requested during the final flushes still counts: the
     # batches completed (and were checkpointed) above, and the MSA tail
@@ -1928,21 +1943,20 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
                 if nmsa is not None:
                     flush_msa_pending()
                     _native_msa_outputs(nmsa, cfg, mesh, fmsa, cons_outs,
-                                        stderr, stats, times, supervisor)
+                                        stderr, stats, supervisor)
                 elif ref_msa is not None:
                     _python_msa_outputs(ref_msa, cfg, mesh, fmsa,
-                                        cons_outs, stderr, stats, times,
+                                        cons_outs, stderr, stats,
                                         supervisor)
         except PreemptedError:
             preempted = True
     if preempted and nmsa is not None:
         nmsa.close()
-    t0 = time.perf_counter()
     if summary is not None:
         # on a preempted run the summary of the batches that completed;
         # a resumed -s covers the resumed portion
-        summary.write(fsummary)
-    times["write"] += time.perf_counter() - t0
+        with obs.span("write"):
+            summary.write(fsummary)
     if report_path is not None:
         freport.close()
         if not preempted:
@@ -1957,6 +1971,14 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             k: v for k, v in supervisor.export_state().items()
             if k != "fault_calls"}
     run_stats.preempted = preempted
+    sync_host_stages()
+    # the stage seconds of cli.run's stats, read from the stage table
+    times = {"parse_extract": run_stats.host_parse_s
+             + run_stats.host_extract_s,
+             "ctx_scan": run_stats.host_analyze_s + run_stats.host_format_s}
+    for name in ("msa_merge", "consensus", "refine", "write") \
+            + (("realign",) if cfg.realign else ()):
+        times[name] = obs.stage_seconds(name)
     stats.update(times=times, wall_s=time.perf_counter() - t_run,
                  alignments=numalns, device=str(mesh.devices.flat[0]))
     if cfg.realign:
@@ -1979,7 +2001,9 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
     if cfg.stats_path:
         try:
             with open(cfg.stats_path, "w") as f:
-                run_stats.write(f)
+                # the stage table beside the reference's schema: an
+                # additive block, so the schema keeps its version
+                run_stats.write(f, stages=obs.stages_dict())
         except OSError:
             raise PwasmError(
                 f"Cannot open file {cfg.stats_path} for writing!\n")

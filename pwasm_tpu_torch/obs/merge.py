@@ -12,6 +12,14 @@ chrome://tracing / Perfetto, where a job's full
 client→queue→lease→device→spool life reads as one timeline (grep the
 ``trace_id`` span args to isolate one job).
 
+A ``--profile`` trace (``utils/profiling.py``, torch.profiler's Chrome
+trace) merges too: its ``ts`` microseconds count from its
+``baseTimeNanoseconds``, a Unix time, so ``baseTimeNanoseconds / 1e9``
+is its anchor.  A served job's daemon spans, its run's stage spans and
+the kernels its stages launched then read on one axis; each stage span
+of ``--trace-json`` sits beside its ``record_function`` twin in the
+profile.
+
 Anchor caveat: the shift is exact only as far as the two hosts' wall
 clocks agree — on one machine (the unix-socket serving case) that is
 microseconds; across NTP-disciplined hosts, milliseconds.  Span
@@ -20,7 +28,7 @@ shift per document), so the monotonic-nesting schema property
 survives the merge.
 
 Counterpart of ``pwasm_tpu/obs/merge.py``: the same merge, byte for
-byte, of the same documents.
+byte, of the same ``--trace-json`` documents.
 """
 
 from __future__ import annotations
@@ -33,11 +41,25 @@ _MERGE_USAGE = """Usage:
  pwasm-tpu trace-merge FILE.json [FILE.json ...] [-o OUT.json]
 
    Merge two or more --trace-json documents (e.g. a submit client's
-   trace and the serve daemon's serve --trace-json) onto one wall-
-   anchored timeline.  Writes Chrome trace-event JSON to OUT.json
-   (default: stdout) — load it in chrome://tracing or Perfetto and
-   filter on a trace_id to follow one job across both processes.
+   trace and the serve daemon's serve --trace-json), and --profile
+   traces (DIR/trace.json), onto one wall-anchored timeline.  Writes
+   Chrome trace-event JSON to OUT.json (default: stdout) — load it
+   in chrome://tracing or Perfetto and filter on a trace_id to follow
+   one job across both processes.
 """
+
+
+def trace_anchor(doc: dict) -> float | None:
+    """The wall time (Unix seconds) of ``ts`` 0 in ``doc``: a
+    ``--trace-json`` document's ``otherData.anchor_wall_s``, a
+    torch.profiler trace's ``baseTimeNanoseconds / 1e9``, else None."""
+    a = (doc.get("otherData") or {}).get("anchor_wall_s")
+    if isinstance(a, (int, float)):
+        return float(a)
+    base = doc.get("baseTimeNanoseconds")
+    if isinstance(base, (int, float)) and not isinstance(base, bool):
+        return base / 1e9
+    return None
 
 
 def merge_traces(docs: list[tuple[str, dict]]) -> dict:
@@ -49,11 +71,7 @@ def merge_traces(docs: list[tuple[str, dict]]) -> dict:
     remapped so two processes that happened to share a pid (or two
     captures of one process) stay separate tracks; a ``process_name``
     metadata event labels each track with its source file."""
-    anchors = []
-    for _label, doc in docs:
-        od = doc.get("otherData") or {}
-        a = od.get("anchor_wall_s")
-        anchors.append(float(a) if isinstance(a, (int, float)) else 0.0)
+    anchors = [trace_anchor(doc) or 0.0 for _label, doc in docs]
     base = min(anchors) if anchors else 0.0
     events: list[dict] = []
     used_pids: set = set()
@@ -79,8 +97,11 @@ def merge_traces(docs: list[tuple[str, dict]]) -> dict:
             if not isinstance(e, dict):
                 continue
             e2 = dict(e)
-            if isinstance(e2.get("ts"), (int, float)):
-                e2["ts"] = int(e2["ts"]) + shift_us
+            ts = e2.get("ts")
+            if isinstance(ts, (int, float)):
+                # a profile's fractional microseconds stay fractional
+                e2["ts"] = (ts if isinstance(ts, float) else int(ts)) \
+                    + shift_us
             if e2.get("pid") in remap:
                 e2["pid"] = remap[e2["pid"]]
             events.append(e2)
@@ -140,8 +161,7 @@ def trace_merge_main(argv: list[str], stdout=None, stderr=None) -> int:
             stderr.write(f"Error: {p} is not a Chrome trace-event "
                          "document\n")
             return 1
-        if not isinstance((doc.get("otherData") or {})
-                          .get("anchor_wall_s"), (int, float)):
+        if trace_anchor(doc) is None:
             stderr.write(f"pwasm: warning: {p} carries no wall-clock "
                          "anchor (an older trace?); merging on a "
                          "zero anchor — cross-process alignment will "

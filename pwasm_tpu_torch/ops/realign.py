@@ -904,6 +904,10 @@ def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
         q_lens[k] = len(qc)
         t_lens[k] = len(tc)
 
+    # lanes launched and lanes the card resolved, into the caller's
+    # open span's row: what band escalation re-launches is their
+    # difference
+    obs = supervisor.obs if supervisor is not None else None
     todo = np.arange(T)
     cur_band = max(1, band)
     first = True
@@ -933,6 +937,9 @@ def _realign_group(enc, idxs: list[int], m_max: int, n: int, band: int,
                         *r, q_lens=q_lens[sub], t_lens=t_lens[sub],
                         match_score=params.match))
             scores, leads, iy_runs, ops_rows, ok = res
+            if obs is not None:
+                obs.tally(lane_dispatches=len(sub),
+                          lanes_done=int(np.count_nonzero(ok)))
             for idx, k in enumerate(sub):
                 if ok[idx]:
                     out[idxs[k]] = (int(scores[idx]),

@@ -220,46 +220,38 @@ class BatchSupervisor:
                                         * self._rng.random()),
                                self.policy.backoff_cap_s))
                 delay *= 2
-            # every attempt lands ONE wall observation, at its own
-            # boundary (not in a finally: the OOM path runs the halves
-            # before this attempt unwinds)
-            t_att = time.perf_counter()
-
-            def _attempt_wall(_t0=t_att) -> None:
-                wall = time.perf_counter() - _t0
-                self.obs.observe("batch_attempt_seconds", wall,
-                                 site=site)
-                if self.stats is not None:
-                    # a site's first attempt is the compile-inclusive one
-                    self.stats.note_attempt_wall(site, wall)
-
+            # every attempt lands ONE wall observation, its
+            # device_batch span's, at its own boundary (not in a
+            # finally: the OOM path runs the halves before this attempt
+            # unwinds)
+            span = self.obs.span("device_batch", site=site, attempt=k,
+                                 items=size)
             try:
                 if self.stats is not None:
                     # every supervised attempt is one device round-trip:
                     # the launch and the host-blocking fetch it ends in
                     self.stats.note_dispatch(site)
                     self.stats.note_flush()
-                with self.obs.span("device_batch", site=site,
-                                   attempt=k, items=size):
+                with span:
                     result = self._attempt_once(site, attempt, size)
                     if validate is not None:
                         validate(result)
-                _attempt_wall()
+                self._note_attempt(site, span.dur_s)
                 self._consecutive[site] = 0
                 self._note_clean_flush(site, size)
                 return result
             except GuardrailViolation as e:
-                _attempt_wall()
+                self._note_attempt(site, span.dur_s)
                 self._count("res_guardrail_rejects")
                 self._warn(f"{site}: device output rejected by "
                            f"guardrail ({e}); re-executing")
                 last = e
             except DeadlineExceeded as e:
-                _attempt_wall()
+                self._note_attempt(site, span.dur_s)
                 self._count("res_deadline_timeouts")
                 last = e
             except Exception as e:
-                _attempt_wall()
+                self._note_attempt(site, span.dur_s)
                 if is_oom_error(e):
                     # an allocation failure: the same shape fails again
                     # and the card is healthy, so bisect, outside the
@@ -269,6 +261,14 @@ class BatchSupervisor:
             if self._note_failure(site, last):
                 break   # a breaker opened: stop burning retries
         self._degrade(site, _detail(last), last)
+
+    def _note_attempt(self, site: str, wall: float) -> None:
+        """One attempt's wall (its ``device_batch`` span): the attempt
+        histogram, and ``device.compile_s`` for the site's first attempt
+        of the run, ``device.steady_s`` for the rest."""
+        self.obs.observe("batch_attempt_seconds", wall, site=site)
+        if self.stats is not None:
+            self.stats.note_attempt_wall(site, wall)
 
     # ---- OOM: bisect, never trip ---------------------------------------
     def _handle_oom(self, site: str, err: BaseException,

@@ -5,10 +5,14 @@ wraps a region in a ``torch.profiler`` trace when a directory is given
 and writes one Chrome trace-event JSON, ``DIR/trace.json``, viewable in
 chrome://tracing or Perfetto beside the ``--trace-json`` host spans.
 It records the host's torch ops and, on a CUDA run, every kernel and
-copy the card ran inside the region (the CUPTI activities), and marks
-the region itself as one ``run`` annotation, so a reader can take the
-card's busy share of the run from the file alone.  With no directory it
-is a no-op and no profiler is made.
+copy the card ran inside the region (the CUPTI activities).  The run's
+stage spans (``obs.Observability.span``) are ``record_function`` ranges
+while it profiles, so the trace carries one ``run`` annotation (the
+CLI's ``run`` span) with the stages inside it among the kernels: a
+reader can take the card's busy share of the run, and of each stage,
+from the file alone.  ``trace-merge`` puts the file on the wall axis of
+``--trace-json`` traces (``obs/merge.py``).  With no directory it is a
+no-op and no profiler is made.
 
 The reference writes a ``jax.profiler`` TensorBoard directory instead;
 the port's trace is one file in the directory.
@@ -42,7 +46,7 @@ def device_trace(profile_dir: str | None, stderr=None,
         yield
         return
     stderr = stderr or sys.stderr
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device == "cuda":
@@ -55,8 +59,7 @@ def device_trace(profile_dir: str | None, stderr=None,
         prof = profile(activities=activities)
         prof.start()
         try:
-            with record_function("run"):
-                yield
+            yield
         finally:
             prof.stop()
             prof.export_chrome_trace(os.path.join(profile_dir,

@@ -12,7 +12,8 @@ Where the port counts:
 - the input counters in ``cli.py::_main_loop``, as the reference's;
 - ``device.*`` at each supervised attempt, in
   ``resilience/supervisor.py::BatchSupervisor.run`` (one
-  ``note_dispatch``/``note_flush`` and one attempt wall an attempt),
+  ``note_dispatch``/``note_flush`` an attempt, and its
+  ``device_batch`` span's wall into ``compile_s`` or ``steady_s``),
   and ``device_batches`` once a ctx_scan flush;
 - ``device.pad_*`` where the ctx_scan event axis is padded to its
   power-of-two bucket (``report/device_report.py``);
@@ -24,11 +25,15 @@ Where the port counts:
   supervisor, and ``backend.*`` around the bounded CUDA probe
   (``device.py::resolve_device``).
 
-The ``host`` block maps the port's own stage timers: ``parse_s`` is
-the time in ``parse_paf_line``, ``extract_s`` the event extraction
-(the engine's batched crossing, or the one-record call), ``analyze_s``
-the ctx_scan submit (pack, upload, launch) and ``format_s`` its finish
-(fetch, assembly and row formatting).
+The ``host`` block maps the port's own stages: ``parse_s`` is the
+time in ``parse_paf_line``, summed a line; the rest are the seconds of
+the run's spans (``obs.StageTable``): ``extract_s`` the ``extract``
+span (the engine's batched crossing, or the one-record call),
+``analyze_s`` ``flush_submit`` (the ctx_scan submit: pack, upload,
+launch) and ``format_s`` ``flush_format`` (its finish: fetch, assembly,
+row formatting) with ``checkpoint`` (the batch's checkpoint).  The
+table itself is written beside this schema as the ``stages`` block
+(:meth:`write`).
 
 Counters of the reference's degradations stay 0 under its keys: the
 port never moves device work to the host, so ``fallback_batches``,
@@ -214,9 +219,15 @@ class RunStats:
             "aligned_bases_per_s": round(self.rate(), 1),
         }
 
-    def write(self, f: IO[str]) -> None:
-        json.dump(self.as_dict(), f)
-        f.write("\n")
+    def write(self, f: IO[str], stages: dict | None = None) -> None:
+        """The ``--stats`` JSON: :meth:`as_dict`, and beside it the run's
+        ``stages`` block when given (``obs.StageTable``)."""
+        d = self.as_dict()
+        if stages is not None:
+            d["stages"] = stages
+        # json.dumps encodes in C; json.dump would encode in Python and
+        # write a piece at a time (the same text, a third of the time)
+        f.write(json.dumps(d) + "\n")
 
     def brief(self) -> str:
         """One human line for -v stderr output (the wall rounded to 3

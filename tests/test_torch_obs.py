@@ -397,7 +397,6 @@ def test_observability_facade_null_hooks():
     NULL_OBS.observe("batch_attempt_seconds", 0.1, site="s")
     NULL_OBS.set_gauge("breaker_state", 2)
     NULL_OBS.count("host_stage_seconds", 1.0, stage="parse")
-    NULL_OBS.span_complete("y", NULL_OBS.clock())
     # a supervisor made without an obs bundle traces into the null one
     sup = BatchSupervisor()
     assert sup.obs is NULL_OBS and sup.run("ctx_scan", lambda: 4) == 4
@@ -659,10 +658,17 @@ def test_cli_exposition_matches_the_reference(cli_runs):
             "resilience"]["checkpoints"])
 
 
-def _trace_shape(path):
-    """(name, ph, innermost enclosing span, arg names) of every event,
-    with device_batch's site/attempt/items values."""
-    evs = json.loads(path.read_text())["traceEvents"]
+# the port's stage spans the reference does not emit (obs.StageTable)
+PORT_STAGES = frozenset(("extract", "checkpoint", "msa_merge", "realign",
+                         "realign_gaps", "consensus", "refine", "write"))
+
+
+def _trace_shape(path, drop=frozenset()):
+    """(name, ph, innermost enclosing span, arg names) of every event but
+    the spans named in ``drop``, with device_batch's site/attempt/items
+    values."""
+    evs = [e for e in json.loads(path.read_text())["traceEvents"]
+           if not (e["ph"] == "X" and e["name"] in drop)]
     spans = [e for e in evs if e["ph"] == "X"]
     shape = []
     for e in evs:
@@ -680,10 +686,14 @@ def _trace_shape(path):
 
 
 def test_cli_trace_matches_the_reference(cli_runs):
+    """The reference's spans and marks, nested as the reference nests
+    them, plus exactly the port's own stage spans."""
     d = cli_runs[0]
-    port = _trace_shape(d / "on.trace")
+    port = _trace_shape(d / "on.trace", drop=PORT_STAGES)
     ref = _trace_shape(d / "ref.trace")
     assert Counter(port) == Counter(ref)
+    assert {s[0] for s in _trace_shape(d / "on.trace")} \
+        - {s[0] for s in ref} == PORT_STAGES - {"realign", "realign_gaps"}
     names = {s[0] for s in port}
     assert {"run", "input_loop", "flush_submit", "flush_format",
             "device_batch", "msa_tail", "run_start", "ckpt_write",
