@@ -1657,8 +1657,9 @@ def _main_loop(cfg: Config, mesh, inf, freport, fmsa, fsummary,
             drop_msa(*items[idx][4:])
 
         with obs.span("msa_merge", n=len(items)):
-            nmsa.add_batch(rid, refseq_b, r_len,
-                           [it[3] for it in items], on_drop)
+            gap_cols, member_steps = nmsa.add_batch(
+                rid, refseq_b, r_len, [it[3] for it in items], on_drop)
+            obs.tally(msa_gap_cols=gap_cols, msa_member_steps=member_steps)
 
     def msa_add(aln, tlabel: str, refseq_b: bytes, ord_num: int,
                 realigned: bool = False) -> None:

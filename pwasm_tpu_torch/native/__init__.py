@@ -20,8 +20,9 @@ A failed build raises with g++'s output; nothing falls back quietly.
 ``pafreport_main.cpp`` links the same engine into a standalone
 ``pafreport`` binary, the ``--device=cpu`` path of the port's CLI with
 the same report, summary and MSA bytes, and the engine's test hooks
-(``--refine-selftest``, ``--clip-selftest``).  ``native_cli_path``
-builds it into ``_build/pafreport-<hash>`` the same way.  The
+(``--refine-selftest``, ``--clip-selftest``, ``--merge-selftest``).
+``native_cli_path`` builds it into ``_build/pafreport-<hash>`` the same
+way.  The
 ``Makefile`` beside the sources builds it too, and its ``memcheck``
 target runs the engine under ASan/UBSan (``selftest.cpp``,
 ``msa_bridge_san.cpp`` and the binary); every product lands in
@@ -108,7 +109,7 @@ _SIGS = {
         _I64,                # rid, refseq(+len), r_len
         _P, _P,              # rgaps + pair offsets
         _P, _P,              # tgaps + pair offsets
-        _P,                  # done_out
+        _P, _P,              # done_out, counts_out
         _S, _I32]),
     "pw_msa_refine": (ctypes.c_int, [_P, _I32, _I32, _S, _S, _I32]),
     "pw_msa_write": (ctypes.c_int, [
@@ -752,7 +753,7 @@ class NativeMsa:
         return True
 
     def add_batch(self, rid: str, refseq: bytes, r_len: int, items,
-                  on_drop) -> None:
+                  on_drop) -> tuple[int, int]:
         """Insert a flush of alignments of ONE query through one
         ``pw_msa_add_batch`` crossing.  ``items`` holds ``(tlabel, tseq,
         t_offset, reverse, rgaps, tgaps, ord_num)`` in insertion order.
@@ -760,10 +761,11 @@ class NativeMsa:
         gap structure the layout cannot hold (nothing of it is merged):
         ``on_drop(idx, msg)`` then fires; it raises to abort the run, or
         returns to skip the item and go on.  Other engine errors
-        raise."""
+        raise.  Returns the merges' gap columns and the member bases
+        their passes walked."""
         n = len(items)
         if n == 0:
-            return
+            return 0, 0
         label_bs = [it[0].encode() for it in items]
         labels = b"".join(label_bs)
         label_off = np.zeros(n + 1, dtype=np.int64)
@@ -791,6 +793,8 @@ class NativeMsa:
         rg = np.asarray(rg_flat, dtype=np.int32)
         tg = np.asarray(tg_flat, dtype=np.int32)
         done = np.zeros(1, dtype=np.int64)
+        counts = np.zeros(2, dtype=np.int64)
+        gap_cols = member_steps = 0
         rid_b = rid.encode()
         start = 0
         while start < n:
@@ -807,15 +811,19 @@ class NativeMsa:
                 tg.ctypes.data_as(ctypes.c_void_p),
                 tg_off.ctypes.data_as(ctypes.c_void_p),
                 done.ctypes.data_as(ctypes.c_void_p),
+                counts.ctypes.data_as(ctypes.c_void_p),
                 self._err, len(self._err))
             start += int(done[0])
+            gap_cols += int(counts[0])
+            member_steps += int(counts[1])
             if rc == 0:
-                return
+                return gap_cols, member_steps
             if rc == 1:
                 on_drop(start, self._err.value.decode("utf-8", "replace"))
                 start += 1
                 continue
             self._raise(rc)
+        return gap_cols, member_steps
 
     def refine(self, remove_cons_gaps: bool, refine_clipping: bool) -> None:
         """Count, vote and refine on the host."""

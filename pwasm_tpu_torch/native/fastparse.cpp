@@ -874,14 +874,16 @@ void pw_msa_contig(void* h, char* buf, int32_t cap) {
 // of a query; later adds build a bare layout instance of length r_len).
 // rgaps/tgaps are (pos,len) int32 pairs.  Returns 0 ok; 1 out-of-layout
 // gap structure (nothing mutated — the caller handles --skip-bad-lines);
-// -1 other engine error (errbuf).
+// -1 other engine error (errbuf).  A merge adds its gap columns and
+// member bases walked to counts[0] and counts[1] (when not NULL).
 static int msa_add_one(MsaBridge* b, const char* tlabel,
                        const uint8_t* tseq, int64_t tseq_len,
                        int64_t t_offset, int32_t reverse, const char* rid,
                        const uint8_t* refseq, int64_t refseq_len,
                        int64_t r_len, const int32_t* rgaps, int64_t n_rgaps,
                        const int32_t* tgaps, int64_t n_tgaps,
-                       int64_t ord_num, char* errbuf, int32_t errcap) {
+                       int64_t ord_num, char* errbuf, int32_t errcap,
+                       int64_t* counts = nullptr) {
   try {
     b->seq_arena.push_back(std::make_unique<pwnative::GapSeq>(
         tlabel, std::string((const char*)tseq, (size_t)tseq_len), -1,
@@ -931,7 +933,12 @@ static int msa_add_one(MsaBridge* b, const char* tlabel,
       b->ref_msa = newmsa;
       b->ref_gseq = rseq;
     } else {
-      b->ref_gseq->msa->add_align(b->ref_gseq, newmsa, rseq);
+      pwnative::Msa::MergeCounts c =
+          b->ref_gseq->msa->add_align(b->ref_gseq, newmsa, rseq);
+      if (counts) {
+        counts[0] += c.gap_cols;
+        counts[1] += c.member_steps;
+      }
       b->ref_msa = b->ref_gseq->msa;
     }
     return 0;
@@ -969,7 +976,8 @@ int pw_msa_add(void* h, const char* tlabel, const uint8_t* tseq,
 // the count inserted before the failing item and returns that item's
 // code (1 out-of-layout, nothing mutated for it; -1 fatal) with its
 // message in errbuf.  The caller handles the item (skip or raise) and
-// re-enters at start = done + 1.
+// re-enters at start = done + 1.  counts_out[0] and [1] are the gap
+// columns the call's merges applied and the member bases they walked.
 int pw_msa_add_batch(void* h, int64_t n, int64_t start,
                      const char* labels, const int64_t* label_off,
                      const uint8_t* tseq_blob, const int64_t* tseq_off,
@@ -979,9 +987,10 @@ int pw_msa_add_batch(void* h, int64_t n, int64_t start,
                      int64_t r_len, const int32_t* rgaps,
                      const int64_t* rgap_off, const int32_t* tgaps,
                      const int64_t* tgap_off, int64_t* done_out,
-                     char* errbuf, int32_t errcap) {
+                     int64_t* counts_out, char* errbuf, int32_t errcap) {
   MsaBridge* b = (MsaBridge*)h;
   *done_out = 0;
+  counts_out[0] = counts_out[1] = 0;
   for (int64_t i = start; i < n; ++i) {
     const std::string label(labels + label_off[i],
                             (size_t)(label_off[i + 1] - label_off[i]));
@@ -990,7 +999,8 @@ int pw_msa_add_batch(void* h, int64_t n, int64_t start,
         tseq_off[i + 1] - tseq_off[i], t_offsets[i], reverses[i], rid,
         refseq, refseq_len, r_len, rgaps + 2 * rgap_off[i],
         rgap_off[i + 1] - rgap_off[i], tgaps + 2 * tgap_off[i],
-        tgap_off[i + 1] - tgap_off[i], ord_nums[i], errbuf, errcap);
+        tgap_off[i + 1] - tgap_off[i], ord_nums[i], errbuf, errcap,
+        counts_out);
     if (rc != 0) return rc;
     ++*done_out;
   }

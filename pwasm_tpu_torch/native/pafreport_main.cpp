@@ -849,6 +849,37 @@ void parse_gap_list(const std::string& gs, GapSeq& s) {
   }
 }
 
+// Shared by the MSA selftest hooks: one SEQ line (name, revcompl,
+// offset, clp5, clp3, comma-joined gaps, seqlen, optional bases) as a
+// member of `msa` — the first two seed it, later ones join at their
+// offsets.
+void add_selftest_seq(const std::vector<std::string>& fld,
+                      std::vector<std::unique_ptr<GapSeq>>& arena, Msa& msa,
+                      const char* hook) {
+  if (fld.size() != 8 && fld.size() != 9)
+    throw PwErr(sformat("%s: bad SEQ line\n", hook));
+  long seqlen = atol(fld[7].c_str());
+  // optional 9th field: the bases, enabling WRITE commands
+  std::string bases = fld.size() == 9 ? fld[8] : std::string();
+  if (!bases.empty() && (long)bases.size() != seqlen)
+    throw PwErr(sformat("%s: bases/seqlen mismatch\n", hook));
+  arena.push_back(std::make_unique<GapSeq>(
+      fld[1], bases, seqlen, atol(fld[3].c_str()),
+      (int)atol(fld[2].c_str())));
+  GapSeq* s = arena.back().get();
+  s->clp5 = atol(fld[4].c_str());
+  s->clp3 = atol(fld[5].c_str());
+  parse_gap_list(fld[6], *s);
+  if (msa.count() == 0) {
+    msa.seqs.push_back(s);  // waiting for its pairwise partner
+    s->msa = &msa;
+  } else if (msa.count() == 1) {
+    msa.seed_pair(msa.seqs[0], s);
+  } else {
+    msa.add_seq(s, s->offset, s->ng_ofs);
+  }
+}
+
 // Hidden test hook: exercise the X-drop clip refinement with nonzero
 // clips (unreachable from the CLI flow, where nothing sets clp5/clp3 —
 // clipmax is parsed but evalClipping is never called, mirroring the
@@ -912,28 +943,7 @@ int run_clip_selftest(const std::string& path) {
     if (line.empty()) continue;
     std::vector<std::string> fld = split_tabs(line);
     if (fld[0] == "SEQ") {
-      if (fld.size() != 8 && fld.size() != 9)
-        throw PwErr("clip-selftest: bad SEQ line\n");
-      long seqlen = atol(fld[7].c_str());
-      // optional 9th field: the bases, enabling WRITE commands below
-      std::string bases = fld.size() == 9 ? fld[8] : std::string();
-      if (!bases.empty() && (long)bases.size() != seqlen)
-        throw PwErr("clip-selftest: bases/seqlen mismatch\n");
-      arena.push_back(std::make_unique<GapSeq>(
-          fld[1], bases, seqlen, atol(fld[3].c_str()),
-          (int)atol(fld[2].c_str())));
-      GapSeq* s = arena.back().get();
-      s->clp5 = atol(fld[4].c_str());
-      s->clp3 = atol(fld[5].c_str());
-      parse_gap_list(fld[6], *s);
-      if (msa.count() == 0) {
-        msa.seqs.push_back(s);  // waiting for its pairwise partner
-        s->msa = &msa;
-      } else if (msa.count() == 1) {
-        msa.seed_pair(msa.seqs[0], s);
-      } else {
-        msa.add_seq(s, s->offset, s->ng_ofs);
-      }
+      add_selftest_seq(fld, arena, msa, "clip-selftest");
     } else if (fld[0] == "EVAL") {
       if (fld.size() != 4) throw PwErr("clip-selftest: bad EVAL line\n");
       size_t idx = (size_t)atol(fld[1].c_str());
@@ -967,8 +977,63 @@ int run_clip_selftest(const std::string& path) {
   return 0;
 }
 
+// Hidden test hook for the progressive merge (addAlign) on MSAs the
+// CLI flow never builds: members at any offset and strand, and the
+// strand flip of the incoming MSA (the CLI's query instances are all
+// forward, so it never flips).  Input, case after case: SEQ lines (as
+// in --clip-selftest) build the MSA merged into, NEXT starts the
+// incoming one, "MERGE\tia\tib" merges it through the first's member
+// ia and its own member ib, then prints the first MSA's length and
+// minoffset, one line per member (name, revcompl, offset, comma-joined
+// gaps) and the merge's counters, and starts the next case.
+// tests/test_torch_native_cli.py fuzzes this against the reference's
+// Python engine.
+int run_merge_selftest(const std::string& path) {
+  FILE* f = fopen(path.c_str(), "rb");
+  if (!f) throw PwErr("Cannot open input file " + path + "!\n");
+  LineReader reader(f);
+  std::vector<std::unique_ptr<GapSeq>> arena;
+  auto msa = std::make_unique<Msa>(), omsa = std::make_unique<Msa>();
+  Msa* cur = msa.get();
+  std::string line;
+  while (reader.next(line)) {
+    if (line.empty()) continue;
+    std::vector<std::string> fld = split_tabs(line);
+    if (fld[0] == "SEQ") {
+      add_selftest_seq(fld, arena, *cur, "merge-selftest");
+    } else if (fld[0] == "NEXT") {
+      cur = omsa.get();
+    } else if (fld[0] == "MERGE") {
+      if (fld.size() != 3) throw PwErr("merge-selftest: bad MERGE line\n");
+      size_t ia = (size_t)atol(fld[1].c_str());
+      size_t ib = (size_t)atol(fld[2].c_str());
+      if (msa->count() < 2 || omsa->count() < 2 || ia >= msa->count() ||
+          ib >= omsa->count())
+        throw PwErr("merge-selftest: MERGE needs two seeded MSAs\n");
+      Msa::MergeCounts c =
+          msa->add_align(msa->seqs[ia], omsa.get(), omsa->seqs[ib]);
+      printf("%ld\t%ld\n", msa->length, msa->minoffset);
+      for (const GapSeq* s : msa->seqs) {
+        printf("%s\t%d\t%ld\t", s->name.c_str(), s->revcompl, s->offset);
+        for (size_t j = 0; j < s->gaps.size(); ++j)
+          printf(j ? ",%d" : "%d", s->gaps[j]);
+        printf("\n");
+      }
+      printf("counts\t%ld\t%ld\n", c.gap_cols, c.member_steps);
+      arena.clear();
+      msa = std::make_unique<Msa>();
+      omsa = std::make_unique<Msa>();
+      cur = msa.get();
+    }
+  }
+  fclose(f);
+  return 0;
+}
+
 int run(int argc, char** argv) {
   Opts opts = parse_args(argc, argv);
+  if (opts.vals.count("merge-selftest"))
+    return run_merge_selftest(opts.get("merge-selftest"));
   if (opts.vals.count("refine-selftest"))
     return run_refine_selftest(opts.get("refine-selftest"));
   if (opts.vals.count("clip-selftest"))

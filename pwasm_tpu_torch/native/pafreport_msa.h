@@ -511,49 +511,87 @@ class Msa {
     length -= 1;
   }
 
-  // Propagate a gap through every member (GSeqAlign::injectGap,
-  // GapAssem.cpp:720-753)
-  void inject_gap(GapSeq* seq, long pos, int32_t xgap) {
-    long alpos = alpos_of(seq, pos);
-    for (GapSeq* s : seqs) {
-      long spos;
-      if (s == seq) {
-        spos = pos;
-      } else {
-        if (s->offset >= alpos) {
-          s->offset += xgap;
-          continue;
-        }
-        spos = s->find_walk_pos(alpos);
-        if (spos >= s->seqlen) continue;
-      }
-      s->add_gap(spos, xgap);
+  // One position of a merge's shared sequence whose gap counts differ:
+  // `len` gap columns go before base `pos` of the shared sequence, at
+  // layout position `alpos` (counting every earlier column's gap).
+  struct GapCol {
+    long pos, alpos;
+    int32_t len;
+  };
+
+  // Propagate a merge's gaps in `seq` through every member
+  // (GSeqAlign::injectGap, GapAssem.cpp:720-753, once per column in
+  // increasing order): a member at or past a column's layout position
+  // shifts by its gap, a member that reaches it takes the gap before its
+  // first base whose walk coordinate passes it, one that ends before it
+  // is left alone.  The columns come sorted, so each member is walked
+  // once, forward, and only as far as the last column; returns the
+  // member bases walked.
+  long inject_gaps(GapSeq* seq, const std::vector<GapCol>& cols) {
+    long steps = 0;
+    for (const GapCol& c : cols) {
+      seq->add_gap(c.pos, c.len);
+      length += c.len;
     }
-    length += xgap;
+    for (GapSeq* s : seqs) {
+      if (s == seq) continue;
+      size_t k = 0;
+      while (k < cols.size() && s->offset >= cols[k].alpos)
+        s->offset += cols[k++].len;
+      long j = 0, w = s->offset;  // w: walk coordinate before base j
+      for (; k < cols.size(); ++k) {
+        while (j < s->seqlen &&
+               w + 1 + s->gaps[(size_t)j] <= cols[k].alpos) {
+          w += 1 + s->gaps[(size_t)j];
+          ++j;
+        }
+        if (j >= s->seqlen) break;
+        s->add_gap(j, cols[k].len);
+      }
+      steps += j;
+    }
+    return steps;
   }
+
+  // What one merge did: the gap columns it applied (both ways) and the
+  // member bases its passes walked.
+  struct MergeCounts {
+    long gap_cols = 0, member_steps = 0;
+  };
 
   // Merge another MSA through the shared sequence (GSeqAlign::addAlign,
   // GapAssem.cpp:645-690): RC on strand mismatch, bidirectional
-  // per-position gap diff, then absorb the other members.
-  void add_align(GapSeq* seq, Msa* omsa, GapSeq* oseq) {
+  // per-position gap diff, then absorb the other members.  One pass
+  // over the shared sequence lists the columns each side must take;
+  // both sides end with the larger gap count at every position, so a
+  // column's layout position follows from the running sum of those.
+  MergeCounts add_align(GapSeq* seq, Msa* omsa, GapSeq* oseq) {
     if (seq->seqlen != oseq->seqlen)
       throw PwErr(sformat(
           "GSeqAlign Error: invalid merge %s(len %ld) vs %s(len %ld)\n",
           seq->name.c_str(), seq->seqlen, oseq->name.c_str(),
           oseq->seqlen));
     if (seq->revcompl != oseq->revcompl) omsa->rev_complement();
+    std::vector<GapCol> mine, theirs;
+    long merged = 0;  // gaps before position i once both sides agree
     for (long i = 0; i < seq->seqlen; ++i) {
-      int32_t d = seq->gap(i) - oseq->gap(i);
-      if (d > 0)
-        omsa->inject_gap(oseq, i, d);
-      else if (d < 0)
-        inject_gap(seq, i, -d);
+      int32_t a = seq->gap(i), b = oseq->gap(i);
+      if (a > b)
+        theirs.push_back({i, oseq->offset + i + merged + b, a - b});
+      else if (a < b)
+        mine.push_back({i, seq->offset + i + merged + a, b - a});
+      merged += std::max(a, b);
     }
+    MergeCounts counts;
+    counts.gap_cols = (long)(mine.size() + theirs.size());
+    counts.member_steps =
+        omsa->inject_gaps(oseq, theirs) + inject_gaps(seq, mine);
     for (GapSeq* s : omsa->seqs) {
       if (s == oseq) continue;
       add_seq(s, seq->offset + s->offset - oseq->offset,
               seq->ng_ofs + s->ng_ofs - oseq->ng_ofs);
     }
+    return counts;
   }
 
   // (GSeqAlign::revComplement, GapAssem.cpp:998-1004)

@@ -11,10 +11,11 @@ clip refinement (``--refine-selftest``) to
 ACE/info writers (``--clip-selftest`` WRITE) and the clip transaction
 (``--clip-selftest`` EVAL) to ``align/msa.py``
 (``tests/test_torch_msa_library.py`` holds that transaction to the
-reference's).  On the randomized fixtures the port's binary is also held to
-the reference's binary, byte for byte.  Then the build itself: its key,
-``PWASM_NATIVE=0``, a missing g++, concurrent builds, and the
-``Makefile``'s ASan/UBSan gate, ``make memcheck``.
+reference's), and the progressive merge (``--merge-selftest``) to the
+reference's Python engine.  On the randomized fixtures the port's binary
+is also held to the reference's binary, byte for byte.  Then the build
+itself: its key, ``PWASM_NATIVE=0``, a missing g++, concurrent builds,
+and the ``Makefile``'s ASan/UBSan gate, ``make memcheck``.
 """
 
 import io
@@ -900,6 +901,83 @@ def test_clip_bearing_writers_parity_fuzz(tmp_path):
         msa.write_ace(buf, "ctg")
         msa.write_info(buf, "ctg")
         assert native_out == buf.getvalue(), f"case {case}"
+
+
+def _merge_spec(rng, name, seqlen, offset, revcompl):
+    gaps = [0] * seqlen
+    for _ in range(rng.randint(0, 5)):
+        gaps[rng.choice([0, seqlen - 1, rng.randint(0, seqlen - 1)])] = \
+            rng.randint(1, 3)
+    return dict(name=name, revcompl=revcompl, offset=offset, clp5=0,
+                clp3=0, gaps=gaps, seqlen=seqlen)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("seed", [20261018, 20261019, 20261020])
+def test_merge_parity_fuzz(tmp_path, seed, flip):
+    """The engine's merge (--merge-selftest) leaves every member's
+    offset, strand and gaps, and the layout's length and start, as the
+    reference's Python engine (one ``inject_gap`` a gap column) does, on
+    random MSAs: members starting before, at and past the columns and
+    ending before them, gaps at the shared sequence's first and last
+    base, with and without the strand flip of the incoming MSA, which
+    the CLI flow never reaches.  Its counters: one gap column a
+    position whose gap counts differ, at most one pass over each
+    member."""
+    from pwasm_tpu.align.gapseq import GapSeq
+    from pwasm_tpu.align.msa import Msa
+
+    rng = random.Random(seed + flip)
+    cases = []
+    for case in range(30):
+        seqlen = rng.randint(1, 40)
+        sides = []
+        for side, n in (("a", rng.randint(2, 7)), ("b", rng.randint(2, 4))):
+            specs = [_merge_spec(rng, f"{side}{k}",
+                                 rng.randint(1, 2 * seqlen),
+                                 rng.randint(0, seqlen + 10),
+                                 rng.randint(0, 1)) for k in range(n)]
+            shared = rng.randrange(n)
+            specs[shared] = _merge_spec(rng, f"{side}{shared}", seqlen,
+                                        rng.randint(0, 10),
+                                        rng.randint(0, 1))
+            sides.append((specs, shared))
+        (a, ia), (b, ib) = sides
+        b[ib]["revcompl"] = a[ia]["revcompl"] ^ flip
+        cases.append((a, ia, b, ib))
+    infile = tmp_path / "merge.tsv"
+    with open(infile, "w") as f:
+        for a, ia, b, ib in cases:
+            _write_selftest_seqs(f, a)
+            f.write("NEXT\n")
+            _write_selftest_seqs(f, b)
+            f.write(f"MERGE\t{ia}\t{ib}\n")
+    rc, out, err = _run_native([f"--merge-selftest={infile}"])
+    assert rc == 0, err
+    got, block = [], []
+    for line in out.splitlines():
+        if line.startswith("counts\t"):
+            got.append((block, tuple(map(int, line.split("\t")[1:]))))
+            block = []
+        else:
+            block.append(line)
+    assert len(got) == len(cases) and not block
+    for case, ((a, ia, b, ib), (layout, (n_cols, steps))) in enumerate(
+            zip(cases, got)):
+        msa, pa = _build_python_msa(a, GapSeq, Msa)
+        omsa, pb = _build_python_msa(b, GapSeq, Msa)
+        theirs = list(b[ib]["gaps"])
+        if flip:
+            theirs[1:] = theirs[:0:-1]
+        cols = sum(x != y for x, y in zip(a[ia]["gaps"], theirs))
+        walkable = sum(s.seqlen for s in pa + pb)
+        msa.add_align(pa[ia], omsa, pb[ib])
+        assert layout == [f"{msa.length}\t{msa.minoffset}"] + [
+            f"{s.name}\t{s.revcompl}\t{s.offset}\t"
+            + ",".join(str(int(g)) for g in s.gaps)
+            for s in msa.seqs], f"case {case}"
+        assert n_cols == cols, f"case {case}"
+        assert 0 <= steps <= walkable, f"case {case}"
 
 
 # ---------------------------------------------------------------------------
